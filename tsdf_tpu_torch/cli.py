@@ -1,0 +1,248 @@
+"""Command-line tools of the PyTorch/CUDA port.
+
+Verbs:
+
+  fuse     kinfu -m N -d dir: fuse TUM frames with their ground-truth
+           poses, write scene.png/normals.png/mesh.ply and, with -o, a
+           .tsdf file
+  render   load a .tsdf, raycast it to scene/normals PNGs
+  mesh     marching cubes a .tsdf to PLY
+
+Every verb takes ``--device`` (default ``cuda``). On a CUDA device the
+integrate, raycast and lane-gather kernels always run; ``--device cpu``
+runs their plain PyTorch twins. ``--device cuda`` without a card raises.
+
+Run as ``python -m tsdf_tpu_torch <verb> ...``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Flags of the JAX CLI whose paths are not ported yet.
+_NOT_PORTED = {
+    "track": "--track (ICP tracking)",
+    "filter": "--filter (bilateral prefilter)",
+    "fuse_color": "--fuse-color (colour fusion)",
+    "devices": "--devices (multi-device fusion)",
+}
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device for ``--device``; a CUDA device without a card
+    raises instead of falling back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"--device {name}: torch.cuda.is_available() is False"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"--device {name}: only cpu and cuda are supported")
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _make_camera(args, device):
+    from .camera import Camera
+
+    return Camera.from_intrinsics(
+        args.fx, args.fy, args.cx, args.cy, device=device
+    )
+
+
+def _add_camera_args(p):
+    p.add_argument("--fx", type=float, default=591.1)
+    p.add_argument("--fy", type=float, default=590.1)
+    p.add_argument("--cx", type=float, default=331.0)
+    p.add_argument("--cy", type=float, default=234.6)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+
+
+def _add_device_arg(p):
+    p.add_argument(
+        "--device", default="cuda",
+        help="cuda (the kernels) or cpu (their plain twins)",
+    )
+
+
+def _render_outputs(vol, camera, args):
+    from .io.png import save_png
+    from .kernels.raycast import raycast_cuda
+    from .ops.shading import normals_image, scene_image
+
+    verts, normals = raycast_cuda(
+        vol, camera, width=args.width, height=args.height
+    )
+    if args.scene:
+        img = scene_image(verts, normals, camera.position)
+        save_png(args.scene, img.cpu().numpy())
+        print(f"wrote {args.scene}")
+    if args.normals:
+        save_png(args.normals, normals_image(normals).cpu().numpy())
+        print(f"wrote {args.normals}")
+
+
+def _write_mesh(vol, path, max_cubes, max_vertices):
+    from .io.ply import write_ply
+    from .ops.marching_cubes import extract_surface, soup_to_numpy
+
+    soup = extract_surface(vol, max_cubes=max_cubes, max_vertices=max_vertices)
+    if bool(soup.overflowed):
+        print(
+            "warning: mesh buffers overflowed; rerun with larger "
+            "--max-cubes/--max-vertices",
+            file=sys.stderr,
+        )
+    verts, tris = soup_to_numpy(soup)
+    write_ply(path, verts, tris)
+    print(f"wrote {path} ({len(verts)} vertices, {len(tris)} triangles)")
+
+
+def cmd_fuse(args):
+    from .io.tum import TUMDataLoader
+    from .pipelines.kinfu import FusionConfig, fuse_frames
+
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag):
+            print(
+                f"{what} is not yet ported to tsdf_tpu_torch; see "
+                "ROADMAP.md (run the JAX CLI, python -m tsdf_tpu)",
+                file=sys.stderr,
+            )
+            return 2
+    device = resolve_device(args.device)
+    cfg = FusionConfig(
+        volume_size=(args.size,) * 3,
+        physical_size_mm=args.physical,
+    )
+    vol = cfg.make_volume(device=device)
+    camera = _make_camera(args, device)
+
+    loader = TUMDataLoader(args.dir)
+    n = args.frames if args.frames > 0 else len(loader)
+    if n <= 0 or len(loader) == 0:
+        print(
+            f"no frames found in {args.dir} (check ground_truth.txt and "
+            "depth/<stamp>.png files)",
+            file=sys.stderr,
+        )
+        return 1
+    first_pose = torch.as_tensor(loader.entries[0][1], device=device)
+    print(f"fusing {n} frames at {args.size}^3 on {device} ...")
+
+    def stream():
+        for depth_img, pose in itertools.islice(loader, n):
+            depth = torch.from_numpy(depth_img.data.astype(np.float32))
+            yield depth.to(device), torch.as_tensor(pose, device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    vol, camera = fuse_frames(vol, camera, stream(), cfg)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    print(
+        f"fused {n} frames in {seconds:.3f} s "
+        f"({1000.0 * seconds / n:.2f} ms/frame, PNG decode included)"
+    )
+
+    if args.out:
+        from .io.tsdf_file import save_tsdf
+
+        save_tsdf(vol, args.out)
+        print(f"wrote {args.out}")
+
+    # render from the first frame's pose
+    camera = camera.set_pose(first_pose)
+    _render_outputs(vol, camera, args)
+    if args.mesh:
+        _write_mesh(vol, args.mesh, args.max_cubes, args.max_vertices)
+    return 0
+
+
+def cmd_render(args):
+    from .io.tsdf_file import load_tsdf
+
+    device = resolve_device(args.device)
+    vol = load_tsdf(args.file, device=device)
+    camera = _make_camera(args, device)
+    if args.look_from:
+        camera = camera.move_to([float(v) for v in args.look_from.split(",")])
+    if args.look_at:
+        camera = camera.look_at([float(v) for v in args.look_at.split(",")])
+    _render_outputs(vol, camera, args)
+    return 0
+
+
+def cmd_mesh(args):
+    from .io.tsdf_file import load_tsdf
+
+    device = resolve_device(args.device)
+    vol = load_tsdf(args.file, device=device)
+    _write_mesh(vol, args.out, args.max_cubes, args.max_vertices)
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="tsdf_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("fuse", help="fuse TUM depth frames into a volume")
+    p.add_argument("-d", "--dir", required=True, help="TUM dataset dir")
+    p.add_argument("-m", "--frames", type=int, default=0, help="frame count")
+    p.add_argument("-s", "--size", type=int, default=200)
+    p.add_argument("--physical", type=float, default=3000.0)
+    p.add_argument("--track", action="store_true", help="not yet ported")
+    p.add_argument("--filter", action="store_true", help="not yet ported")
+    p.add_argument("--fuse-color", action="store_true", help="not yet ported")
+    p.add_argument("--devices", help="not yet ported")
+    p.add_argument("-o", "--out", help="output .tsdf")
+    p.add_argument("--scene", default="scene.png")
+    p.add_argument("--normals", default="normals.png")
+    p.add_argument("--mesh", default="mesh.ply")
+    p.add_argument("--max-cubes", type=int, default=1 << 18)
+    p.add_argument("--max-vertices", type=int, default=1 << 20)
+    _add_device_arg(p)
+    _add_camera_args(p)
+    p.set_defaults(fn=cmd_fuse)
+
+    p = sub.add_parser("render", help="raycast a .tsdf to images")
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("--scene", default="scene.png")
+    p.add_argument("--normals", default="normals.png")
+    p.add_argument("--look-from", help="x,y,z mm")
+    p.add_argument("--look-at", help="x,y,z mm")
+    _add_device_arg(p)
+    _add_camera_args(p)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("mesh", help="marching cubes a .tsdf to PLY")
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("-o", "--out", default="mesh.ply")
+    p.add_argument("--max-cubes", type=int, default=1 << 18)
+    p.add_argument("--max-vertices", type=int, default=1 << 20)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_mesh)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

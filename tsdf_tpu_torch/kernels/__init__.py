@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels for Hopper and their wrappers.
+
+Each wrapper launches its kernel on CUDA tensors and runs the plain
+PyTorch twin only on CPU tensors; each keeps a launch count on its
+``KERNEL`` object.
+"""
+
+from __future__ import annotations
+
+from . import gather, integrate, raycast
+
+KERNELS = {
+    "integrate": integrate.KERNEL,
+    "raycast": raycast.KERNEL,
+    "lane_gather": gather.KERNEL,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

@@ -1,0 +1,207 @@
+"""Marching-cubes surface extraction over the dense volume.
+
+Port of the full-volume path of ``tsdf_tpu/ops/marching_cubes.py``
+(``_extract_arrays`` with ``tpu_safe=False``, dense layout):
+
+  1. classify every cube from 8 shifted sign slices;
+  2. compact the occupied cubes in ascending cube-id order, with each
+     cube's vertex write offset from an exclusive cumsum of its vertex
+     count;
+  3. gather corner values, interpolate the 12 edge zero-crossings, look
+     up the triangulation, resolve each triangle slot's edge, and
+     scatter the vertices densely to [0, n_vertices).
+
+The two table lookups (vertex counts and the triangle table) and the
+edge -> slot resolution go through ``kernels.gather.lane_gather_op``:
+the CUDA lane-gather kernel on a CUDA tensor, its plain twin on the CPU.
+The TPU-only compactions of the JAX module (chunked, sort and matmul
+scatter) are not ported.
+
+Triangle soup semantics: every 3 consecutive valid vertices form one
+triangle, normals pointing toward positive TSDF; each vertex carries the
+flat indices of the two voxels bracketing its edge.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels.gather import lane_gather_op
+from ..volume import TSDFVolume
+from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, MAX_TRIS, TRI_TABLE, VERT_COUNTS
+
+_MAX_V = MAX_TRIS * 3
+
+
+class TriangleSoup(NamedTuple):
+    """Fixed-size triangle soup; vertices are valid in [0, n_vertices)."""
+
+    vertices: torch.Tensor  # (max_vertices, 3) f32 world mm
+    vertex_voxels: torch.Tensor  # (max_vertices, 2) i32 flat voxel indices
+    n_vertices: torch.Tensor  # () i32, number of valid vertices
+    overflowed: torch.Tensor  # () bool, the buffers were too small
+    valid: torch.Tensor  # (max_vertices,) bool
+
+
+def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, c] = table[idx[r, c]] for a small shared 1-D table: the
+    table is broadcast over the rows (stride 0), not copied."""
+    w = table.shape[0]
+    rows = idx.shape[0]
+    idx = idx.clamp(0, w - 1).to(torch.int32).contiguous()
+    return lane_gather_op(table[None, :].expand(rows, w), idx)
+
+
+def _slot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, c] = table[r, idx[r, c]] for a narrow per-row table."""
+    return lane_gather_op(table.contiguous(), idx.to(torch.int32).contiguous())
+
+
+def extract_surface(
+    vol: TSDFVolume,
+    max_cubes: int = 1 << 18,
+    max_vertices: int = 1 << 20,
+) -> TriangleSoup:
+    """Extract the zero isosurface (tsdf < 0 is inside) as a soup.
+
+    ``max_cubes``/``max_vertices`` are the buffer capacities; when either
+    is exceeded ``overflowed`` is set and the soup holds what fitted.
+    """
+    return _extract(
+        vol.tsdf, vol.voxel_size, vol.offset, max_cubes, max_vertices
+    )
+
+
+def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
+    dev = d.device
+    Z, Y, X = d.shape
+    cz, cy, cx = Z - 1, Y - 1, X - 1
+    i64 = torch.int64
+
+    # --- phase 1: classify every cube ------------------------------------
+    inside = (d < 0.0).to(torch.uint8)
+    cube_type = torch.zeros((cz, cy, cx), dtype=torch.uint8, device=dev)
+    for k in range(8):
+        dx, dy, dz = (int(v) for v in CORNER_OFFSETS[k])
+        cube_type |= inside[dz : dz + cz, dy : dy + cy, dx : dx + cx] << k
+    cube_type = cube_type.reshape(-1)
+    occupied = (cube_type != 0) & (cube_type != 255)
+
+    # --- phase 2: compact occupied cubes (ascending ids == cumsum rank) ---
+    occ_ids = torch.nonzero(occupied).squeeze(1)
+    n_occ = occ_ids.numel()
+    types_occ = cube_type[occ_ids].to(torch.int32)
+    vert_counts = torch.as_tensor(VERT_COUNTS, dtype=torch.int32, device=dev)
+    counts = _table_lookup(vert_counts, types_occ[:, None])[:, 0].to(i64)
+    offsets_all = torch.cumsum(counts, 0) - counts
+    n_verts = int(counts.sum())
+
+    m = min(n_occ, max_cubes)
+    cid = torch.zeros(max_cubes, dtype=i64, device=dev)
+    cid[:m] = occ_ids[:m]
+    cube_offsets = torch.zeros(max_cubes, dtype=i64, device=dev)
+    cube_offsets[:m] = offsets_all[:m]
+    types = torch.zeros(max_cubes, dtype=torch.int32, device=dev)
+    types[:m] = types_occ[:m]
+    cube_valid = torch.arange(max_cubes, device=dev) < n_occ
+
+    # --- phase 3: sweep ---------------------------------------------------
+    cub_z = cid // (cy * cx)
+    rem = cid - cub_z * (cy * cx)
+    cub_y = rem // cx
+    cub_x = rem - cub_y * cx
+    flat_d = d.reshape(-1)
+    vs = voxel_size
+
+    ws, centres, lins = [], [], []
+    for k in range(8):
+        dx, dy, dz = (int(v) for v in CORNER_OFFSETS[k])
+        vx, vy, vz = cub_x + dx, cub_y + dy, cub_z + dz
+        lin = (vz * Y + vy) * X + vx
+        ws.append(flat_d[lin])
+        centres.append(
+            torch.stack(
+                [
+                    vx.to(torch.float32) + 0.5,
+                    vy.to(torch.float32) + 0.5,
+                    vz.to(torch.float32) + 0.5,
+                ],
+                dim=-1,
+            )
+            * vs[None, :]
+            + offset[None, :]
+        )
+        lins.append(lin)
+    ws = torch.stack(ws, dim=-1)  # (max_cubes, 8)
+    centres = torch.stack(centres, dim=-2)  # (max_cubes, 8, 3)
+    lins = torch.stack(lins, dim=-1).to(torch.int32)  # (max_cubes, 8)
+
+    # per-edge interpolated vertices (max_cubes, 12, 3)
+    e0 = torch.as_tensor(EDGE_CORNERS[:, 0], dtype=i64, device=dev)
+    e1 = torch.as_tensor(EDGE_CORNERS[:, 1], dtype=i64, device=dev)
+    w0, w1 = ws[:, e0], ws[:, e1]
+    v0, v1 = centres[:, e0], centres[:, e1]
+    denom = w1 - w0
+    denom = torch.where(
+        denom.abs() < 1e-20, torch.full_like(denom, 1e-20), denom
+    )
+    ratio = torch.clamp(-w0 / denom, 0.0, 1.0)[..., None]
+    edge_verts = v0 + ratio * (v1 - v0)
+    edge_vox = torch.stack([lins[:, e0], lins[:, e1]], dim=-1)  # (.., 12, 2)
+
+    # triangulation: 15 slot edges per cube from the flattened table
+    tri_table = torch.as_tensor(
+        TRI_TABLE.reshape(-1), dtype=torch.int32, device=dev
+    )
+    slot = torch.arange(_MAX_V, dtype=torch.int32, device=dev)
+    tri_edges = _table_lookup(tri_table, types[:, None] * _MAX_V + slot)
+    slot_valid = (tri_edges >= 0) & cube_valid[:, None]
+    edge_idx = torch.clamp(tri_edges, min=0)
+
+    # edge -> slot: the (x, y, z) and (voxel a, voxel b) words of each
+    # slot's edge, read from the cube's interleaved per-edge rows
+    ch3 = torch.arange(3, dtype=torch.int32, device=dev)
+    ch2 = torch.arange(2, dtype=torch.int32, device=dev)
+    vert = _slot_gather(
+        edge_verts.reshape(max_cubes, 36),
+        (edge_idx[:, :, None] * 3 + ch3).reshape(max_cubes, _MAX_V * 3),
+    ).reshape(max_cubes, _MAX_V, 3)
+    vvox = _slot_gather(
+        edge_vox.reshape(max_cubes, 24),
+        (edge_idx[:, :, None] * 2 + ch2).reshape(max_cubes, _MAX_V * 2),
+    ).reshape(max_cubes, _MAX_V, 2)
+
+    # dense compaction: slot j of cube i goes to cube_offsets[i] + j
+    dest = cube_offsets[:, None] + slot.to(i64)[None, :]
+    dest = torch.where(
+        slot_valid & (dest < max_vertices), dest, max_vertices
+    ).reshape(-1)
+    vertices = torch.zeros((max_vertices + 1, 3), dtype=torch.float32,
+                           device=dev)
+    vertices[dest] = vert.reshape(-1, 3)
+    vertex_voxels = torch.zeros((max_vertices + 1, 2), dtype=torch.int32,
+                                device=dev)
+    vertex_voxels[dest] = vvox.reshape(-1, 2)
+
+    n_out = min(n_verts, max_vertices)
+    return TriangleSoup(
+        vertices=vertices[:max_vertices],
+        vertex_voxels=vertex_voxels[:max_vertices],
+        n_vertices=torch.tensor(n_out, dtype=torch.int32, device=dev),
+        overflowed=torch.tensor(
+            n_occ > max_cubes or n_verts > max_vertices, device=dev
+        ),
+        valid=torch.arange(max_vertices, device=dev) < n_out,
+    )
+
+
+def soup_to_numpy(soup: TriangleSoup):
+    """Host side: (n, 3) f32 vertices and the (n/3, 3) triangle indices,
+    copying only the live prefix off the device."""
+    n = int(soup.n_vertices) // 3 * 3
+    verts = soup.vertices[:n].detach().cpu().numpy()
+    tris = np.arange(n, dtype=np.int32).reshape(-1, 3)
+    return verts, tris

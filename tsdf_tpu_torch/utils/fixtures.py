@@ -1,0 +1,85 @@
+"""Synthetic analytic scenes for the tests and the chip smoke.
+
+Port of ``tsdf_tpu/utils/fixtures.py``: exact clamped signed distance
+fields (as tensors on the volume's device) and analytic depth maps (as
+numpy arrays), so a test can bound SDF error and check raycast hits
+against closed-form surfaces.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..volume import TSDFVolume
+
+
+def sphere_tsdf(vol: TSDFVolume, radius: float, centre=None) -> TSDFVolume:
+    """Exact clamped signed distance to a sphere, weights = 1."""
+    if centre is None:
+        centre = vol.offset + vol.physical_size / 2.0
+    centre = torch.as_tensor(centre, dtype=torch.float32, device=vol.device)
+    zc, yc, xc = vol.axis_centres()
+    d2 = (
+        ((zc - centre[2]) ** 2)[:, None, None]
+        + ((yc - centre[1]) ** 2)[None, :, None]
+        + ((xc - centre[0]) ** 2)[None, None, :]
+    )
+    dist = torch.sqrt(d2) - radius
+    trunc = vol.truncation_distance
+    dist = torch.clamp(dist, -trunc, trunc)
+    return vol.replace(tsdf=dist, weight=torch.ones_like(vol.weight))
+
+
+def wall_tsdf(vol: TSDFVolume, depth: float) -> TSDFVolume:
+    """Clamped signed distance to the plane z = depth, weights = 1."""
+    zc, _yc, _xc = vol.axis_centres()
+    sz, sy, sx = vol.tsdf.shape
+    trunc = vol.truncation_distance
+    dist = torch.clamp(depth - zc, -trunc, trunc)
+    dist = dist[:, None, None].expand(sz, sy, sx).contiguous()
+    return vol.replace(tsdf=dist, weight=torch.ones_like(vol.weight))
+
+
+def sphere_depth_map(
+    width: int,
+    height: int,
+    radius: float,
+    min_depth: float,
+    max_depth: float,
+) -> np.ndarray:
+    """u16 (H, W) depth map of an orthographic sphere bump."""
+    min_depth, max_depth = sorted((min_depth, max_depth))
+    cx, cy = width / 2.0, height / 2.0
+    ys, xs = np.mgrid[0:height, 0:width]
+    dx2 = (cx - xs) ** 2
+    dy2 = (cy - ys) ** 2
+    r2 = radius * radius
+    inside = dx2 + dy2 < r2
+    dz = np.sqrt(np.maximum(r2 - (dx2 + dy2), 0.0))
+    depth_centre = min_depth + (max_depth - min_depth) / 2.0
+    depth = np.where(
+        inside,
+        np.clip(depth_centre - dz, min_depth, max_depth),
+        0.0,
+    )
+    return depth.astype(np.uint16)
+
+
+def wall_depth_map(
+    width: int,
+    height: int,
+    max_depth: float,
+    min_depth: float,
+    wall_depth: float,
+) -> np.ndarray:
+    """u16 (H, W): background at max_depth with a centred wall rectangle."""
+    ys, xs = np.mgrid[0:height, 0:width]
+    wall = (
+        (xs > (width // 5) * 2)
+        & (xs < (width // 5) * 3)
+        & (ys > (height // 5) * 2)
+        & (ys < (height // 5) * 3)
+    )
+    depth = np.where(wall, wall_depth, max_depth)
+    return np.clip(depth, min_depth, max_depth).astype(np.uint16)
