@@ -1,5 +1,6 @@
 """Chip smoke of the PyTorch/CUDA port: the GT-pose fuse -> render -> mesh
-path on one NVIDIA card, at the repository's 512^3 / 640x480 size.
+path and the tracked KinectFusion loop on one NVIDIA card, at the
+repository's 512^3 / 640x480 size.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,28 @@ Phases (any failed check exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card, its power limit;
   2. build: compile csrc/*.cu with nvcc into the package's build dir;
   3. each kernel against its plain PyTorch twin on the card, at the
-     shapes the main path gives it, with CUDA-event median times
+     shapes the main paths give it, with CUDA-event median times, the
+     least time the card could take for the same work (its bound) and,
+     where one PyTorch call computes the same function, that call's time
      (integrate over two frames, so the second blends into voxels that
-     already hold weight);
-  4. the main path: a fabricated 20-frame TUM directory (a wall and two
-     spheres, intersected in closed form) through
+     already hold weight; the bilateral filter on a noisy frame with
+     holes, float32 and uint16; the lane gather at the marching-cubes
+     shapes and at the ICP association's on all three pyramid levels);
+  4. the GT-pose path: a fabricated 20-frame TUM directory (a wall and
+     two spheres, intersected in closed form) through
      ``tsdf_tpu_torch.cli.main(["fuse", ...])``, with launch counts,
      output checks and the raycast hits' distance from the analytic
-     surface;
-  5. the per-frame fuse time of the device loop alone.
+     surface; then the ``icp`` verb on the saved volume and a depth
+     frame from a nearby pose, with launch counts and the recovered
+     motion;
+  5. the per-frame fuse time of the device loop alone;
+  6. the tracked path: the same directory through
+     ``cli.main(["fuse", "--track", "--filter", ...])`` (its poses serve
+     only as the first pose and for the trajectory error), with launch
+     counts, no lost frame, the trajectory error under one voxel, and the
+     same output checks;
+  7. the tracked device loop alone: ms/frame, its split into bilateral /
+     raycast / ICP / integrate by CUDA events, host syncs per frame.
 
 The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
@@ -24,8 +38,15 @@ JAX.
 
     python3 chip_smoke.py --probe
 
-runs, in place of phases 3-5, the measurements PERF.md's findings rest
+runs, in place of phases 3-7, the measurements PERF.md's findings rest
 on and prints them as one JSON object on the last line.
+
+    python3 chip_smoke.py --config3 [--frames N] [--noise] [--eps]
+
+runs, in place of phases 3-7, the tracked loop on the 500-pose orbit of a
+wall-and-sphere scene at 256^3 (the workload of tools/run_config3.py) and
+prints ms/frame and the trajectory errors as one JSON object on the last
+line.
 """
 
 from __future__ import annotations
@@ -61,6 +82,24 @@ INTEGRATE_TSDF_ATOL = 5e-3  # mm, where the weights agree
 RAYCAST_MIN_HIT_AGREE = 0.999
 RAYCAST_MEDIAN_MM = 0.5
 SURFACE_MEDIAN_MM = PHYSICAL / SIZE  # one voxel
+ATE_MAX_MM = PHYSICAL / SIZE  # one voxel
+# the ``icp`` verb: the motion between the model's view and the depth
+# frame (mm, rad about y), and how closely it must be recovered
+ICP_VERB_MOTION = ((12.0, -8.0, 10.0), 0.01)
+ICP_VERB_TRANS_MM = PHYSICAL / SIZE  # one voxel
+ICP_VERB_ROT_RAD = 3e-3
+BILATERAL_OTHER_SIGMAS = (35.0, 1.7)  # radius 3; the default pair gives 5
+
+# Published peaks of one H100 SXM: the bounds are stated against these.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Float32 operations the kernels' functions need, counted from their
+# expressions (a compare, a min/max, a floor and a division count as one).
+INTEGRATE_OPS = dict(voxel=27, in_front=12, updated=8)
+RAYCAST_OPS = dict(ray=60, sample=74)
+# per tap: dv, dv^2, the exponent's product, expf counted as five (scale,
+# round, two for the reduced argument, ex2), two weight products, two sums
+BILATERAL_OPS_PER_TAP = 12
 
 
 def check(ok: bool, what: str) -> None:
@@ -72,19 +111,38 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs."""
+def bound(bytes_moved: float, operations: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    its memory rate and the operations over its float32 peak."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+# Clock cycles the card spins before each timed run (about 20 ms): the
+# launches under test queue up behind it, so a kernel of a few
+# microseconds is timed back to back with its neighbours and not by the
+# time the host takes to launch it.
+BLOCKER_CYCLES = 40_000_000
+
+
+def median_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
+    """Median CUDA-event time of one ``fn()`` over ``reps`` runs of
+    ``inner`` calls each, queued behind a blocker on the stream."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BLOCKER_CYCLES)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -244,8 +302,82 @@ def compare_integrate(dev, frames) -> dict:
     depth, cam = frames[1][0], cams[1]
     ms = median_ms(lambda: integrate_cuda(out, depth, cam), reps=20)
     plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=5)
-    log(f"integrate 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the work of that second frame: every voxel is projected, a voxel
+    # in front of the camera is divided and rounded to its pixel, an
+    # updated voxel reads and writes tsdf and weight (16 B)
+    updated = int((ref.weight > before.weight).sum())
+    zc, yc, xc = ref.axis_centres()
+    pi = cam.pose_inv
+    camz = (pi[2, 0] * xc[None, None, :] + pi[2, 1] * yc[None, :, None]
+            + pi[2, 2] * zc[:, None, None] + pi[2, 3])
+    in_front = int((camz > 0).sum())
+    del camz
+    ops = INTEGRATE_OPS
+    least = bound(
+        16 * updated + depth.numel() * 4,
+        ops["voxel"] * SIZE**3 + ops["in_front"] * in_front
+        + ops["updated"] * updated)
+    log(f"integrate 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
+        f"({updated} voxels updated, {in_front} in front of the camera)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+                library_ms=None)
+
+
+def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
+    """The work one render of ``vol`` from ``cam`` needs: the samples
+    taken, the distinct voxels they read, and the (H*W,) hit mask.
+
+    Counted by marching every ray with the sphere-traced rule of
+    ``ops.raycast.march_rays`` (the same start, step and stops), one pass
+    of all rays at a time."""
+    from tsdf_tpu_torch.ops.raycast import (
+        REFERENCE_MAX_STEPS,
+        ray_directions,
+        slab_near_far,
+    )
+    from tsdf_tpu_torch.ops.trilinear import trilinear_sample
+
+    dev = vol.tsdf.device
+    sz, sy, sx = vol.tsdf.shape
+    vs, trunc = vol.voxel_size, vol.truncation_distance
+    far_face = torch.tensor([sx, sy, sz], dtype=torch.float32, device=dev) * vs
+    touched = torch.zeros((sz, sy, sx), dtype=torch.bool, device=dev)
+    samples = torch.zeros((), dtype=torch.int64, device=dev)
+
+    dirs = ray_directions(cam, W, H).reshape(-1, 3)
+    origin = cam.position[None, :]
+    near, far, active = slab_near_far(
+        origin, dirs, vol.space_min[None, :], vol.space_max[None, :])
+    start = origin + near[:, None] * dirs - vol.space_min[None, :]
+    max_t = far - near
+    t = torch.zeros_like(near)
+    prev = t + trunc
+    hit = torch.zeros_like(active)
+    passes = 0
+    while passes < REFERENCE_MAX_STEPS and bool(active.any()):
+        pts = start + t[:, None] * dirs
+        samples += active.sum()
+        p = pts[active]
+        p = torch.where(p >= far_face, far_face - vs / 10.0, p)  # the
+        p = torch.where(p < 0.0, torch.zeros_like(p), p)  # sampler's border rules
+        lo = torch.clamp(torch.floor(p / vs - 0.5), min=0.0).to(torch.int64)
+        touched[lo[:, 2], lo[:, 1], lo[:, 0]] = True
+
+        tsdf = trilinear_sample(vol.tsdf, pts, vs)
+        new_t = t + torch.clamp(0.75 * tsdf, trunc * 0.05, trunc * 0.9)
+        stops = (tsdf <= 0.0) | ((tsdf > 0.0) & (prev < 0.0)) | (new_t >= max_t)
+        hit |= active & (tsdf <= 0.0)
+        t = torch.where(active, new_t, t)
+        prev = torch.where(active, tsdf, prev)
+        active = active & ~stops
+        passes += 1
+    for dim in range(3):  # a sample reads its cell's eight corners
+        upper = torch.zeros_like(touched)
+        n = touched.shape[dim]
+        upper.narrow(dim, 1, n - 1).copy_(touched.narrow(dim, 0, n - 1))
+        touched |= upper
+    return int(samples), int(touched.sum()), hit
 
 
 def compare_raycast(dev, vol, pose) -> dict:
@@ -261,6 +393,9 @@ def compare_raycast(dev, vol, pose) -> dict:
     torch.cuda.synchronize()
     hk = torch.isfinite(vk).all(-1)
     hp = torch.isfinite(vp).all(-1)
+    n_samples, n_voxels, counted_hit = raycast_work(vol, cam)
+    check(torch.equal(counted_hit, hp.reshape(-1)),
+          "the counting march ends other rays on a hit than the twin")
     agree = float((hk == hp).float().mean())
     both = hk & hp
     diff = (vk[both] - vp[both]).norm(dim=-1)
@@ -273,19 +408,29 @@ def compare_raycast(dev, vol, pose) -> dict:
     check(med < RAYCAST_MEDIAN_MM, "raycast vertices disagree")
     ms = median_ms(lambda: raycast_vertices_cuda(vol, cam, W, H), reps=10)
     plain_ms = median_ms(lambda: raycast_vertices(vol, cam, W, H), reps=3)
+    least = bound(
+        4 * n_voxels + 12 * W * H,
+        RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
     log(f"raycast 512^3 {W}x{H} vertices: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
+        f"voxels read)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+                library_ms=None)
 
 
-def compare_gather(dev, vol) -> dict:
+def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
     """The four lane-gather calls of one extraction of ``vol``, at its
     shapes: vertex counts (n_occ x 1 from a 256-word broadcast table),
     triangle table (max_cubes x 15 from 3840 words), slot vertices
     (max_cubes x 45 from 36-word rows), slot voxels (max_cubes x 30
-    from 24-word int rows)."""
+    from 24-word int rows); and the ICP association's lookup into the
+    model depth ``depth_prev`` on each pyramid level, (H, W) down to
+    (H/4, W/4). The times are sums over the first five: of the ICP
+    lookups only level 0's is timed."""
     from tsdf_tpu_torch.kernels.gather import lane_gather_op, take_or_zero
     from tsdf_tpu_torch.ops.mc_tables import CORNER_OFFSETS, TRI_TABLE, VERT_COUNTS
+    from tsdf_tpu_torch.tracking.icp import depth_pyramid
 
     d = vol.tsdf
     cz, cy, cx = (s - 1 for s in d.shape)
@@ -317,25 +462,121 @@ def compare_gather(dev, vol) -> dict:
          torch.randint(-2, 26, (MAX_CUBES, 30), generator=gen, device=dev,
                        dtype=torch.int32)),
     ]
+    # the ICP association's lookup on each pyramid level: three taps per
+    # pixel by linear pixel index over the model depth image as one
+    # broadcast row (a shift of a few pixels; -1 where the tap would
+    # leave the image). Level 0 comes first: it alone is timed.
+    n_timed = len(calls) + 1
+    for level in depth_pyramid(depth_prev):
+        h, w = level.shape
+        ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None] + 3
+        xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :] - 5
+        inside = (ys >= 0) & (ys < h - 1) & (xs >= 0) & (xs < w - 1)
+        lin = torch.where(inside, ys * w + xs, torch.full_like(ys * w + xs, -1))
+        icp_idx = torch.cat([lin, lin + 1, lin + w], dim=1).contiguous()
+        calls.append((level.contiguous().reshape(1, -1).expand(h, -1), icp_idx))
+    check([tuple(i.shape) for _, i in calls[-3:]]
+          == [(H, 3 * W), (H // 2, 3 * W // 2), (H // 4, 3 * W // 4)],
+          "ICP lookup shapes")
+
     err = 0.0
-    for table, idx in calls:
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for n, (table, idx) in enumerate(calls):
         got = lane_gather_op(table, idx)
         want = take_or_zero(table, idx)
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
               f"lane gather differs at table {tuple(table.shape)}")
         err = max(err, float((got.double() - want.double()).abs().max()))
-    ms = sum(median_ms(lambda t=t, i=i: lane_gather_op(t, i), reps=20)
-             for t, i in calls)
-    plain_ms = sum(median_ms(lambda t=t, i=i: take_or_zero(t, i), reps=20)
-                   for t, i in calls)
+        if n >= n_timed:
+            log(f"lane gather {tuple(table.shape)} -> {tuple(idx.shape)} "
+                f"(ICP lookup, a coarser level): bit-equal")
+            continue
+        ms = median_ms(lambda: lane_gather_op(table, idx), reps=10, inner=10)
+        plain_ms = median_ms(lambda: take_or_zero(table, idx), reps=10, inner=10)
+        # the one PyTorch call for the same function; it takes int64
+        # indices inside the table, prepared outside the timing
+        idx64 = idx.clamp(0, table.shape[1] - 1).to(torch.int64)
+        library_ms = median_ms(
+            lambda: torch.gather(table, 1, idx64), reps=10, inner=10)
+        # index read and output written once, the table's own words once
+        words = table.shape[1] if table.stride(0) == 0 else table.numel()
+        least = bound(4 * (2 * idx.numel() + words), idx.numel())
+        check(least["bound_by"] == "bytes", "lane gather bound")
+        what = "ICP lookup" if n == n_timed - 1 else "marching cubes"
+        log(f"lane gather {tuple(table.shape)} -> {tuple(idx.shape)} ({what}): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
+            f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by bytes")
+        for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", library_ms),
+                           ("bound_ms", least["bound_ms"])):
+            out[key] += value
+        if what == "ICP lookup":
+            out.update(icp_lookup_ms=ms, icp_lookup_plain_ms=plain_ms,
+                       icp_lookup_library_ms=library_ms,
+                       icp_lookup_bound_ms=least["bound_ms"])
     log(f"lane gather, one extraction's four calls ({n_occ} occupied cubes, "
-        f"max_cubes {MAX_CUBES}): bit-equal, max |diff| {err:.3g}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"max_cubes {MAX_CUBES}) and the ICP lookup of each level: bit-equal, "
+        f"max |diff| {err:.3g}; timed without the two coarser levels: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+        f"torch.gather {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms")
+    return dict(max_abs_err=err, bound_by="bytes", **out)
 
 
-def fuse_argv(dev, tum: str, out_dir: str) -> tuple[list[str], dict]:
-    """The main path's ``fuse`` command line and its output files."""
+def compare_bilateral(dev, depth: torch.Tensor) -> dict:
+    """The bilateral kernel against its twin on a noisy frame with holes:
+    float32 and uint16 at the default sigmas, float32 at another pair.
+    Every comparison must be exact."""
+    from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
+    from tsdf_tpu_torch.ops.bilateral import bilateral_filter, filter_radius
+    from tsdf_tpu_torch.utils.fixtures import kinect_noise
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noisy = kinect_noise(depth, gen).contiguous()
+    holes = float((noisy == 0).float().mean())
+    check(0.001 < holes < 0.5, f"noisy frame has {holes:.4f} holes")
+    as_u16 = torch.round(noisy).to(torch.uint16)
+    cases = {
+        "f32": (noisy, ()),
+        "u16": (as_u16, ()),
+        "f32, sigmas %g/%g" % BILATERAL_OTHER_SIGMAS:
+            (noisy, BILATERAL_OTHER_SIGMAS),
+    }
+    out = {}
+    for name, (d, sigmas) in cases.items():
+        got = bilateral_filter_cuda(d, *sigmas)
+        want = bilateral_filter(d, *sigmas)
+        torch.cuda.synchronize()
+        check(got.dtype == d.dtype, "bilateral dtype")
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max())
+        ms = median_ms(
+            lambda: bilateral_filter_cuda(d, *sigmas), reps=10, inner=10)
+        plain_ms = median_ms(lambda: bilateral_filter(d, *sigmas), reps=3)
+        log(f"bilateral {W}x{H} {name}: max |diff| {err:.3g} "
+            f"({int((diff > 0).sum())} pixels differ), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        check(err == 0.0, f"bilateral kernel differs from its twin ({name})")
+        check(not bool(((d == 0) & (got.to(torch.float32) != 0)).any()),
+              "bilateral filled a hole")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the work the float32 default case needs: a tap counts where the
+    # centre and the tap both hold data; the image is read and written once
+    side = 2 * filter_radius(3.0) + 1
+    valid = (noisy > 0).float()[None, None]
+    taps = torch.nn.functional.avg_pool2d(
+        valid, side, stride=1, padding=side // 2, divisor_override=1)
+    pairs = int((valid * taps).sum())
+    least = bound(2 * noisy.numel() * 4 + side * side * 4,
+                  BILATERAL_OPS_PER_TAP * pairs)
+    log(f"bilateral {W}x{H} f32: {pairs} valid taps of "
+        f"{noisy.numel() * side * side}, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']}; {holes:.4f} of the frame is holes")
+    return dict(**out["f32"], **least, library_ms=None,
+                u16_ms=out["u16"]["ms"], u16_plain_ms=out["u16"]["plain_ms"])
+
+
+def fuse_argv(dev, tum: str, out_dir: str, extra=()) -> tuple[list[str], dict]:
+    """A main path's ``fuse`` command line and its output files."""
     outs = {k: os.path.join(out_dir, f) for k, f in (
         ("tsdf", "out.tsdf"), ("scene", "scene.png"),
         ("normals", "normals.png"), ("mesh", "mesh.ply"))}
@@ -345,39 +586,125 @@ def fuse_argv(dev, tum: str, out_dir: str) -> tuple[list[str], dict]:
         "-o", outs["tsdf"], "--scene", outs["scene"],
         "--normals", outs["normals"], "--mesh", outs["mesh"],
         "--max-cubes", str(MAX_CUBES), "--max-vertices", str(MAX_VERTICES),
+        *extra,
     ]
     return argv, outs
 
 
-def phase_main_path(dev, tum: str, out_dir: str) -> dict:
+def run_fuse(dev, tum: str, out_dir: str, extra=()) -> dict:
+    """Drive ``cli.main(["fuse", ...])`` with every launch count set to 0
+    just before and read just after; check the return code and the output
+    files. Returns the outputs, the counts and what the command printed."""
     from tsdf_tpu_torch import cli
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    argv, outs = fuse_argv(dev, tum, out_dir)
-    err = io.StringIO()
+    argv, outs = fuse_argv(dev, tum, out_dir, extra)
+    err, out = io.StringIO(), io.StringIO()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     sys.stderr.write(err.getvalue())
-    log(f"main path: rc {rc} in {seconds:.2f} s; launches {counts}")
+    log(out.getvalue().rstrip())
+    log(f"fuse {' '.join(extra)}: rc {rc} in {seconds:.2f} s; launches {counts}")
     check(rc == 0, f"fuse returned {rc}")
     for k, path in outs.items():
         check(os.path.getsize(path) > 0, f"missing output {k}")
     check("overflowed" not in err.getvalue(), "mesh buffers overflowed")
-    check(counts["integrate"] == N_FRAMES, "integrate launches")
-    check(counts["raycast"] >= 1, "raycast launches")
-    check(counts["lane_gather"] >= 1, "lane gather launches")
     with open(outs["mesh"]) as f:
         header = [next(f) for _ in range(9)]
     n_vert = int(header[2].split()[-1])
     n_face = int(header[6].split()[-1])
     log(f"mesh: {n_vert} vertices, {n_face} triangles")
     check(n_vert > 0 and n_vert == 3 * n_face, "mesh is empty or torn")
-    return dict(outs=outs, counts=counts)
+    return dict(outs=outs, counts=counts, stdout=out.getvalue())
+
+
+def phase_gt_path(dev, tum: str, out_dir: str) -> dict:
+    run = run_fuse(dev, tum, out_dir)
+    counts = run["counts"]
+    check(counts["integrate"] == N_FRAMES, "integrate launches")
+    check(counts["raycast"] == 1, "raycast launches")
+    check(counts["lane_gather"] >= 1, "lane gather launches")
+    check(counts["bilateral"] == 0, "the GT-pose path filtered a frame")
+    return run
+
+
+def phase_icp_verb(dev, tsdf_path: str, out_dir: str) -> dict:
+    """``cli.main(["icp", ...])`` on the fused volume: the model is seen
+    from the identity pose (the saved volume's global pose is zero), the
+    depth PNG is the analytic scene from a pose a small known motion away,
+    and the printed T_prev_curr must be that motion. On the card the verb
+    renders its model depth with the raycast kernel, once."""
+    import re
+
+    from tsdf_tpu_torch import cli
+    from tsdf_tpu_torch.io.png import save_png
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    (tx, ty, tz), angle = ICP_VERB_MOTION
+    c, s = math.cos(angle), math.sin(angle)
+    motion = np.array([[c, 0, s, tx], [0, 1, 0, ty], [-s, 0, c, tz],
+                       [0, 0, 0, 1.0]])
+    png = os.path.join(out_dir, "icp_depth.png")
+    save_png(png, np.clip(np.round(analytic_depth(motion)), 0, 65535)
+             .astype(np.uint16))
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["icp", "-v", tsdf_path, "-d", png, "--device", dev.type])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    os.remove(png)
+    log(out.getvalue().rstrip())
+    log(f"icp: rc {rc}; launches {counts}")
+    check(rc == 0, f"icp returned {rc}")
+    check(counts["raycast"] == 1, "icp verb raycast launches")
+    check(counts["integrate"] == 0 and counts["bilateral"] == 0,
+          "the icp verb fused or filtered")
+    text = out.getvalue()
+    matrix = text[text.index("(T_prev_curr):"):text.index("lastError=")]
+    values = [float(v) for v in re.findall(r"-?\d+\.?\d*(?:e-?\d+)?", matrix)]
+    check(len(values) == 16, "no 4x4 pose printed")
+    got = np.array(values).reshape(4, 4)
+    trans_err = float(np.linalg.norm(got[:3, 3] - motion[:3, 3]))
+    r = got[:3, :3].T @ motion[:3, :3]
+    rot_err = float(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1)))
+    inliers = int(re.search(r"lastInliers=(\d+)", text).group(1))
+    log(f"icp: recovered the motion to {trans_err:.4f} mm and "
+        f"{rot_err * 1e3:.4f} mrad, {inliers} inliers")
+    check(trans_err < ICP_VERB_TRANS_MM, "icp verb translation")
+    check(rot_err < ICP_VERB_ROT_RAD, "icp verb rotation")
+    check(inliers > 0.02 * W * H, "icp verb inliers")
+    return counts
+
+
+def phase_tracked_path(dev, tum: str, out_dir: str) -> dict:
+    """``fuse --track --filter``: every later frame is filtered, rendered
+    against, tracked (19 Gauss-Newton iterations, one lane-gather launch
+    each) and fused; then the render and the mesh."""
+    import re
+
+    run = run_fuse(dev, tum, out_dir, ("--track", "--filter"))
+    counts, tracked = run["counts"], N_FRAMES - 1
+    check(counts["bilateral"] == tracked, "bilateral launches")
+    check(counts["raycast"] == tracked + 1, "raycast launches")
+    check(counts["integrate"] == N_FRAMES, "a frame was lost (integrate launches)")
+    check(counts["lane_gather"] >= 19 * tracked + 1, "lane gather launches")
+    found = re.search(
+        r"tracked (\d+) frames; lastError=([0-9.]+)mm lastInliers=(\d+)",
+        run["stdout"])
+    check(found is not None, "no 'tracked N frames' line")
+    check(int(found.group(1)) == N_FRAMES, "tracked frame count")
+    check(int(found.group(3)) > 0.02 * W * H, "too few inliers on the last frame")
+    ate = re.search(r"ATE rmse=([0-9.]+)mm", run["stdout"])
+    check(ate is not None, "no ATE line")
+    check(float(ate.group(1)) < ATE_MAX_MM,
+          f"ATE {ate.group(1)} mm is not under one voxel")
+    return run
 
 
 def phase_surface(dev, outs: dict, first_pose: np.ndarray) -> float:
@@ -433,6 +760,132 @@ def phase_fuse_time(dev, frames) -> float:
     log(f"fuse loop on the device, 512^3: {ms:.4f} ms/frame "
         f"(median of 3 runs of {len(frames)} frames already on the card)")
     return ms
+
+
+def tracked_config():
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig
+
+    return FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL,
+                        width=W, height=H, use_bilateral_filter=True)
+
+
+def phase_tracked_time(dev, frames, gt_poses) -> dict:
+    """The tracked loop on frames already on the card: ms/frame, host
+    syncs per tracked frame, the trajectory error, and the loop's stages
+    timed one by one with CUDA events."""
+    import traceback
+    import warnings
+
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
+    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.ops.raycast import vertices_to_camera_depth
+    from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
+    from tsdf_tpu_torch.tracking.icp import get_incremental_transformation
+    from tsdf_tpu_torch.utils.se3 import matmul_small
+    from tsdf_tpu_torch.utils.trajectory import ate, rpe
+
+    cfg = tracked_config()
+    depths = [d for d, _ in frames]
+    cam0 = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(frames[0][1])
+    tracked = len(depths) - 1
+
+    def run():
+        vol = cfg.make_volume(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = track_and_fuse_frames(vol, cam0, depths, cfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    run()  # warm: the weights and index tables go to the card once
+    times = []
+    for _ in range(3):
+        (vol, _cam, poses, stats), ms = run()
+        times.append(ms / len(depths))
+    ms_frame = float(np.median(times))
+    est = [p.cpu().numpy() for p in poses]
+    a, r = ate(est, gt_poses), rpe(est, gt_poses)
+    inliers = [int(n) for _, n in stats[1:]]
+    log(f"tracked loop on the device, 512^3 {W}x{H}: {ms_frame:.4f} ms/frame "
+        f"(median of 3 runs of {len(depths)} frames already on the card; "
+        f"runs {', '.join(f'{t:.4f}' for t in times)}); ATE rmse "
+        f"{a['rmse']:.4f} mm (max {a['max']:.4f}), RPE trans "
+        f"{r['trans_rmse']:.4f} mm/frame rot {r['rot_rmse'] * 1e3:.4f} mrad/frame; "
+        f"inliers {min(inliers)}..{max(inliers)}")
+    check(a["rmse"] < ATE_MAX_MM, "tracked loop ATE is not under one voxel")
+    check(min(inliers) > 0.02 * W * H, "a frame was lost")
+
+    # host syncs: torch's sync debug mode warns at each one
+    del vol
+    vol = cfg.make_volume(device=dev)
+    torch.cuda.synchronize()
+    syncs = []  # (file, line, the stack that led there)
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # every sync warns "called a synchronizing CUDA operation";
+        # switching the mode on warns once that it is a prototype
+        if "synchronizing" in str(message) and "prototype" not in str(message):
+            syncs.append((filename, lineno, traceback.extract_stack()[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            track_and_fuse_frames(vol, cam0, depths, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    per_frame = len(syncs) / tracked
+    log(f"tracked loop host syncs: {len(syncs)} in {tracked} tracked frames "
+        f"({per_frame:.3f} per frame)")
+    places = {}
+    for filename, lineno, stack in syncs:
+        places.setdefault((filename, lineno), []).append(stack)
+    for (filename, lineno), stacks in places.items():
+        via = " <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                          for f in reversed(stacks[0][-4:]))
+        log(f"  {len(stacks)} at {filename}:{lineno} ({via})")
+    check(len(syncs) <= tracked, "more than one host sync per tracked frame")
+
+    # the stages of track_and_fuse_frames, one by one, on the same frames
+    vol.tsdf.fill_(float(vol.truncation_distance))
+    vol.weight.zero_()
+    k = cam0.k
+    intr = (k[0, 0], k[1, 1], k[0, 2], k[1, 2])
+    cam = cam0
+    integrate_cuda(vol, depths[0], cam)
+    split = dict(bilateral=0.0, raycast=0.0, icp=0.0, integrate=0.0)
+    marks = []
+    for depth in depths[1:]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        depth_icp = bilateral_filter_cuda(depth, cfg.sigma_colour, cfg.sigma_space)
+        ev[1].record()
+        verts = raycast_vertices_cuda(vol, cam, W, H)
+        model = vertices_to_camera_depth(verts, cam.pose_inv)
+        ev[2].record()
+        res = get_incremental_transformation(
+            depth_icp, model, *intr, band=cfg.icp_band)
+        ev[3].record()
+        cam = cam.set_pose(matmul_small(cam.pose, res.pose))
+        integrate_cuda(vol, depth, cam)
+        ev[4].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    for ev in marks:
+        for i, name in enumerate(split):
+            split[name] += ev[i].elapsed_time(ev[i + 1]) / tracked
+    check(torch.equal(cam.pose, poses[-1]),
+          "the staged loop did not end at the tracked loop's pose")
+    log("tracked frame by stage, CUDA events (the host enqueues without "
+        "waiting, so a stage's time includes the card waiting for launches): "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+        + f"; sum {sum(split.values()):.4f} ms")
+    return dict(tracked_ms_per_frame=ms_frame, ate_rmse_mm=a["rmse"],
+                syncs_per_frame=per_frame, split_ms=split)
 
 
 # -- the probe (--probe): the measurements behind PERF.md's findings --------
@@ -549,6 +1002,117 @@ def probe_fuse_loop(dev, frames) -> dict:
                 fuse_host_syncs=syncs)
 
 
+def probe_tracked_loop(dev, frames) -> dict:
+    """A 6-frame tracked run under torch.profiler: the card's busy time
+    (the sum of its kernel times) and kernel launches per tracked frame,
+    beside the wall time of the same run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
+
+    cfg = tracked_config()
+    depths = [d for d, _ in frames[:6]]
+    tracked = len(depths) - 1
+    cam0 = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(frames[0][1])
+
+    def run():
+        vol = cfg.make_volume(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        track_and_fuse_frames(vol, cam0, depths, cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms = run()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"probe tracked loop kernel {e.key[:70]}: {e.count} launches, "
+            f"{e.self_device_time_total / 1e3:.4f} ms")
+    idle = 1.0 - busy_ms / wall_ms
+    log(f"probe tracked loop, {len(depths)} frames: wall {wall_ms:.3f} ms "
+        f"({profiled_ms:.3f} ms under the profiler), device busy "
+        f"{busy_ms:.3f} ms, idle share {idle:.3f} of the unprofiled wall, "
+        f"{launches / tracked:.0f} kernel launches per tracked frame")
+    return dict(tracked_wall_ms=wall_ms, tracked_profiled_ms=profiled_ms,
+                tracked_busy_ms=busy_ms, tracked_idle=idle,
+                tracked_launches_per_frame=launches / tracked)
+
+
+# -- config 3 (--config3): the 500-pose tracked orbit at 256^3 -----------------
+
+
+def run_config3(dev, n_frames: int, noise: bool, eps: float) -> dict:
+    """The workload of tools/run_config3.py: a sphere (r = 600 mm, at the
+    volume's centre) in front of a wall (z = 2500 mm) seen from a smooth
+    orbit; the frames are rendered from the analytic scene volume with the
+    raycast kernel, then tracked and fused into an empty 256^3 volume."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.ops.raycast import vertices_to_camera_depth
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, track_and_fuse_frames
+    from tsdf_tpu_torch.utils import fixtures
+    from tsdf_tpu_torch.utils.trajectory import ate, rpe
+
+    grid, offset = 256, (-1500.0, -1500.0, 0.0)
+    scene = fixtures.sphere_tsdf(
+        make_volume((grid,) * 3, PHYSICAL, offset=offset, device=dev), 600.0)
+    wall = fixtures.wall_tsdf(scene, 2500.0)
+    scene = scene.replace(tsdf=torch.minimum(scene.tsdf, wall.tsdf).contiguous())
+
+    base = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    cams = []
+    for t in np.arange(n_frames) / max(n_frames - 1, 1):
+        cams.append(base.move_to([
+            120.0 * np.sin(2 * np.pi * t),
+            -80.0 * np.sin(4 * np.pi * t),
+            -500.0 + 60.0 * np.cos(2 * np.pi * t),
+        ]).look_at([0.0, 0.0, 1500.0]))
+    gt_poses = [c.pose.cpu().numpy() for c in cams]
+    frames = [
+        vertices_to_camera_depth(raycast_vertices_cuda(scene, c, W, H), c.pose_inv)
+        for c in cams
+    ]
+    if noise:
+        gen = torch.Generator(device=dev).manual_seed(42)
+        frames = [fixtures.kinect_noise(f, gen) for f in frames]
+    torch.cuda.synchronize()
+    log(f"config3: {n_frames} frames rendered"
+        f"{' (kinect noise applied)' if noise else ''}")
+
+    cfg = FusionConfig(volume_size=(grid,) * 3, physical_size_mm=PHYSICAL,
+                       offset_mm=offset, width=W, height=H,
+                       use_bilateral_filter=True, icp_conv_eps=eps)
+    track_and_fuse_frames(cfg.make_volume(device=dev), cams[0], frames[:2], cfg)
+    vol = cfg.make_volume(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol, _cam, poses, stats = track_and_fuse_frames(vol, cams[0], frames, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    est = [p.cpu().numpy() for p in poses]
+    a, r = ate(est, gt_poses), rpe(est, gt_poses, delta=1)
+    err, inl = stats[-1]
+    fused = int(vol.weight.max())
+    log(f"config3: {n_frames} frames @ {grid}^3: {seconds:.3f} s = "
+        f"{seconds / n_frames * 1e3:.4f} ms/frame; ATE rmse {a['rmse']:.4f} mm "
+        f"(max {a['max']:.4f}); RPE trans rmse {r['trans_rmse']:.4f} mm, rot "
+        f"{r['rot_rmse'] * 1e3:.4f} mrad; final ICP residual {float(err):.4f} mm, "
+        f"{int(inl)} inliers; most-fused voxel holds {fused} frames")
+    return dict(config3_frames=n_frames, config3_grid=grid, config3_noise=noise,
+                config3_eps=eps, config3_ms_per_frame=seconds / n_frames * 1e3,
+                config3_ate_rmse_mm=a["rmse"], config3_ate_max_mm=a["max"],
+                config3_rpe_trans_rmse_mm=r["trans_rmse"],
+                config3_rpe_rot_rmse_mrad=r["rot_rmse"] * 1e3,
+                config3_last_inliers=int(inl))
+
+
 def main() -> int:
     import argparse
 
@@ -558,8 +1122,19 @@ def main() -> int:
         help="instead of the smoke, measure what PERF.md's findings rest "
              "on: the main path's host time per step and device peak, the "
              "integrate kernel on frames of different traffic, the fuse "
-             "loop's idle share",
+             "loop's idle share, the tracked loop's idle share",
     )
+    parser.add_argument(
+        "--config3", action="store_true",
+        help="instead of the smoke, track and fuse the 500-pose orbit of "
+             "tools/run_config3.py at 256^3 and print ms/frame, ATE and RPE",
+    )
+    parser.add_argument("--frames", type=int, default=500,
+                        help="--config3: number of frames")
+    parser.add_argument("--noise", action="store_true",
+                        help="--config3: corrupt the frames with kinect_noise")
+    parser.add_argument("--eps", action="store_true",
+                        help="--config3: ICP early exit at 0.02")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -572,6 +1147,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name, smi = phase_environment()
     phase_build()
+    if args.config3:
+        found = run_config3(dev, args.frames, args.noise,
+                            0.02 if args.eps else 0.0)
+        log(smi)
+        print(json.dumps(found))
+        return 0
 
     with tempfile.TemporaryDirectory(prefix="tsdf_smoke_") as tmp:
         tum = os.path.join(tmp, "tum")
@@ -583,6 +1164,7 @@ def main() -> int:
             frames = load_frames(dev, tum)
             found.update(probe_integrate(dev, frames))
             found.update(probe_fuse_loop(dev, frames))
+            found.update(probe_tracked_loop(dev, frames))
             log(smi)
             print(json.dumps(found))
             return 0
@@ -591,15 +1173,25 @@ def main() -> int:
         results = {"integrate": compare_integrate(dev, frames[:2])}
         scene_vol = analytic_volume(dev)
         results["raycast"] = compare_raycast(dev, scene_vol, frames[0][1])
-        results["lane_gather"] = compare_gather(dev, scene_vol)
+        results["lane_gather"] = compare_gather(dev, scene_vol, frames[0][0])
         del scene_vol
+        results["bilateral"] = compare_bilateral(dev, frames[1][0])
         torch.cuda.empty_cache()
 
-        main_path = phase_main_path(dev, tum, out_dir)
-        phase_surface(dev, main_path["outs"], poses[0].astype(np.float32))
-        for f in main_path["outs"].values():
+        first_pose = poses[0].astype(np.float32)
+        gt_path = phase_gt_path(dev, tum, out_dir)
+        phase_surface(dev, gt_path["outs"], first_pose)
+        icp_counts = phase_icp_verb(dev, gt_path["outs"]["tsdf"], out_dir)
+        for f in gt_path["outs"].values():
             os.remove(f)
         phase_fuse_time(dev, frames)
+
+        tracked_path = phase_tracked_path(dev, tum, out_dir)
+        phase_surface(dev, tracked_path["outs"], first_pose)
+        for f in tracked_path["outs"].values():
+            os.remove(f)
+        torch.cuda.empty_cache()
+        phase_tracked_time(dev, frames, poses)
 
     meta = {
         "integrate": ("tsdf_tpu_torch/csrc/integrate.cu",
@@ -608,12 +1200,20 @@ def main() -> int:
                     "tsdf_tpu/kernels/raycast.py:518"),
         "lane_gather": ("tsdf_tpu_torch/csrc/gather.cu",
                         "tsdf_tpu/kernels/gather.py:76"),
+        "bilateral": ("tsdf_tpu_torch/csrc/bilateral.cu",
+                      "tsdf_tpu/kernels/bilateral.py:38"),
     }
+    # launches: on the tracked path, which runs all four kernels; beside
+    # it the counts on the GT-pose path and in the icp verb
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": main_path["counts"][k], **results[k]}
+         "launches": tracked_path["counts"][k],
+         "launches_gt_path": gt_path["counts"][k],
+         "launches_icp_verb": icp_counts[k], **results[k]}
         for k, (src, rep) in meta.items()
     ]
+    for entry in kernels:
+        check(entry["launches"] > 0, f"{entry['name']} was never launched")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

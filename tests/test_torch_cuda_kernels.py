@@ -8,8 +8,8 @@ test configuration:
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: the kernels are built with --fmad=false and evaluate the
-twins' expressions in the same order, so integrate and gather must agree
-bit for bit; raycast is held to the same gates as the twin-vs-JAX test
+twins' expressions in the same order, so integrate, gather and bilateral
+must agree bit for bit; raycast is held to the same gates as the twin-vs-JAX test
 (hit masks >= 99.9% equal, median vertex difference < 0.5 mm).
 """
 
@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from tsdf_tpu_torch import Camera, make_volume
-from tsdf_tpu_torch.kernels import gather, integrate, raycast
+from tsdf_tpu_torch.kernels import bilateral, gather, integrate, raycast
+from tsdf_tpu_torch.ops.bilateral import bilateral_filter as bilateral_plain
 from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
 from tsdf_tpu_torch.ops.raycast import raycast as raycast_plain
 from tsdf_tpu_torch.utils import fixtures
@@ -92,6 +93,27 @@ def test_raycast_kernel_matches_twin(dev):
     assert int(both.sum()) > 0.5 * W * H
 
 
+def test_depth_image_through_the_raycast_kernel(dev):
+    """The ``icp`` verb's model depth: one raycast launch, then the u16
+    tail the twin shares; within one count of the twin's image."""
+    from tsdf_tpu_torch.ops.raycast import render_to_depth_image
+
+    vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0),
+                      device=dev)
+    vol = fixtures.sphere_tsdf(vol, 400.0)
+    cam = _camera(dev, [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0])
+    before = raycast.KERNEL.launches
+    got = raycast.render_to_depth_image_cuda(vol, cam, W, H)
+    assert raycast.KERNEL.launches == before + 1
+    want = render_to_depth_image(vol, cam, W, H)
+    assert got.dtype == torch.uint16 and got.shape == (H, W)
+    got, want = got.cpu().to(torch.int32), want.cpu().to(torch.int32)
+    assert ((got > 0) == (want > 0)).float().mean() >= 0.999
+    both = (got > 0) & (want > 0)
+    assert int(both.sum()) > 1000
+    assert int((got[both] - want[both]).abs().max()) <= 1
+
+
 def test_lane_gather_kernel_matches_twin(dev):
     rng = np.random.default_rng(1)
     table = torch.from_numpy(rng.normal(size=(300, 37)).astype(np.float32))
@@ -109,3 +131,74 @@ def test_lane_gather_kernel_matches_twin(dev):
         ints.to(dev)[None, :].expand(1000, 256), idx1.to(dev)
     ).cpu()
     assert torch.equal(got, want)
+
+
+def _noisy_depth(shape, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(1000.0, 4.0, shape).astype(np.float32)
+    d[:, shape[1] // 2:] += 700.0
+    d[rng.uniform(size=shape) < 0.1] = 0.0
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint16])
+@pytest.mark.parametrize(
+    "shape", [(120, 160), (37, 91), (5, 7), (1, 1), (8, 32), (9, 33)]
+)
+def test_bilateral_kernel_matches_twin(dev, shape, dtype):
+    """Odd shapes, an image smaller than one 32x8 tile, both dtypes."""
+    d = torch.from_numpy(_noisy_depth(shape, seed=shape[0])).to(dev).to(dtype)
+    before = bilateral.KERNEL.launches
+    got = bilateral.bilateral_filter_cuda(d)
+    assert bilateral.KERNEL.launches == before + 1
+    want = bilateral_plain(d)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == d.shape
+    if dtype == torch.float32:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:  # uint16 has few CUDA ops: compare as int32
+        assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+    assert not ((d == 0) & (got.to(torch.float32) != 0)).any()
+
+
+@pytest.mark.parametrize("sigmas", [(8.0, 1.5), (35.0, 4.2), (20.0, 0.5)])
+def test_bilateral_kernel_non_default_sigmas(dev, sigmas):
+    d = torch.from_numpy(_noisy_depth((64, 128), seed=2)).to(dev)
+    got = bilateral.bilateral_filter_cuda(d, *sigmas)
+    want = bilateral_plain(d, *sigmas)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_bilateral_kernel_refuses_what_it_does_not_take(dev):
+    d = torch.zeros((16, 16), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        bilateral.bilateral_filter_cuda(d, sigma_space=40.0)
+    with pytest.raises(TypeError):
+        bilateral.bilateral_filter_cuda(d.to(torch.float64))
+    with pytest.raises(ValueError):
+        bilateral.bilateral_filter_cuda(d.t()[:, ::2])
+    before = bilateral.KERNEL.launches
+    assert bilateral.bilateral_filter_cuda(d[:0]).shape == (0, 16)
+    assert bilateral.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (240, 320), (37, 91)])
+def test_lookup_flat_kernel_matches_twin(dev, h, w):
+    """The ICP association's lookup: three taps by linear pixel index
+    over the image as one broadcast row."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(1.0, 9.0, (h, w)).astype(np.float32))
+    img[5, 7] = float("nan")
+    lin = torch.from_numpy(
+        rng.integers(-2 * w, h * w + 2 * w, (h, w)).astype(np.int32))
+    idx = torch.cat([lin, lin + 1, lin + w], dim=1)
+    want = gather.lookup_flat(img, idx)
+    before = gather.KERNEL.launches
+    got = gather.lookup_flat(img.to(dev), idx.to(dev)).cpu()
+    assert gather.KERNEL.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    flat = img.flatten()
+    ok = (idx >= 0) & (idx < h * w)
+    assert torch.equal(
+        got[ok].view(torch.int32), flat[idx[ok].long()].view(torch.int32))
+    assert not got[~ok].any()

@@ -174,7 +174,7 @@ def test_render_and_mesh_verbs_match_jax(tum_dir, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--track"], ["--filter"], ["--fuse-color"], ["--devices", "2x1"]]
+    "flag", [["--fuse-color"], ["--devices", "2x1"]]
 )
 def test_unported_flags_exit_with_error(tum_dir, tmp_path, flag, capsys):
     rc = torch_main(["fuse", "-d", str(tum_dir), "--device", "cpu"] + flag)

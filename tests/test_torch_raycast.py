@@ -28,7 +28,11 @@ from tsdf_tpu.ops.raycast import raycast as jax_raycast
 from tsdf_tpu.ops.trilinear import trilinear_sample as jax_trilinear
 from tsdf_tpu.utils import fixtures as jax_fixtures
 from tsdf_tpu_torch import Camera, TSDFVolume, make_volume
-from tsdf_tpu_torch.kernels.raycast import KERNEL, raycast_cuda
+from tsdf_tpu_torch.kernels.raycast import (
+    KERNEL,
+    raycast_cuda,
+    render_to_depth_image_cuda,
+)
 from tsdf_tpu_torch.ops.raycast import raycast, render_to_depth_image
 from tsdf_tpu_torch.ops.shading import normals_image, scene_image
 from tsdf_tpu_torch.ops.trilinear import trilinear_sample
@@ -146,6 +150,18 @@ def test_render_to_depth_image_matches_jax():
     assert ((dt > 0) == (dj > 0)).mean() >= 0.999
     both = (dt > 0) & (dj > 0)
     assert np.median(np.abs(dt[both].astype(int) - dj[both])) <= 1
+
+
+def test_depth_image_wrapper_on_cpu_tensors_is_the_twin():
+    """``render_to_depth_image_cuda`` on CPU tensors launches nothing and
+    equals ``render_to_depth_image`` bit for bit."""
+    vol = _to_port(_sphere_vol())
+    cam = _cam_to_port(_jcam([150.0, -100.0, -600.0], [0.0, 0.0, 1000.0]))
+    before = KERNEL.launches
+    got = render_to_depth_image_cuda(vol, cam, W, H)
+    assert KERNEL.launches == before
+    assert got.dtype == torch.uint16 and int(got.to(torch.int32).max()) > 0
+    assert torch.equal(got, render_to_depth_image(vol, cam, W, H))
 
 
 def _golden_scene():

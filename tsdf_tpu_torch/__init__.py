@@ -1,9 +1,11 @@
 """tsdf_tpu_torch: the PyTorch/CUDA port of tsdf_tpu.
 
-The GT-pose KinectFusion path (fuse -> render -> mesh) on one NVIDIA
-Hopper card, with hand-written CUDA kernels for rigid integration,
-raycasting and the lane gather (``kernels/``, sources in ``csrc/``) and
-their plain PyTorch twins (``ops/``), which run on the CPU. The layout
+KinectFusion on one NVIDIA Hopper card: the GT-pose path (fuse -> render
+-> mesh) and the tracked loop (bilateral filter -> model raycast -> ICP ->
+gated integrate), with hand-written CUDA kernels for rigid integration,
+raycasting, the lane gather and the bilateral filter (``kernels/``,
+sources in ``csrc/``) and their plain PyTorch twins (``ops/``), which run
+on the CPU. The layout
 mirrors ``tsdf_tpu``; that JAX package is the reference the port is
 tested against. This package imports neither JAX nor ``tsdf_tpu``.
 """

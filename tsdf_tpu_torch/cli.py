@@ -3,14 +3,19 @@
 Verbs:
 
   fuse     kinfu -m N -d dir: fuse TUM frames with their ground-truth
-           poses, write scene.png/normals.png/mesh.ply and, with -o, a
-           .tsdf file
+           poses, or with --track by ICP against the raycast model
+           (--filter: bilateral prefilter), write
+           scene.png/normals.png/mesh.ply and, with -o, a .tsdf file
   render   load a .tsdf, raycast it to scene/normals PNGs
   mesh     marching cubes a .tsdf to PLY
+  icp      raycast a .tsdf to depth, ICP against a depth PNG, print the
+           incremental pose + lastError/lastInliers
 
-Every verb takes ``--device`` (default ``cuda``). On a CUDA device the
-integrate, raycast and lane-gather kernels always run; ``--device cpu``
-runs their plain PyTorch twins. ``--device cuda`` without a card raises.
+Every verb takes ``--device`` (default ``cuda``). On a CUDA device every
+integration, raycast, bilateral filter and lane gather a verb makes is the
+CUDA kernel (``icp`` launches the raycast kernel alone: its exact
+association makes no lane gather); ``--device cpu`` runs their plain
+PyTorch twins. ``--device cuda`` without a card raises.
 
 Run as ``python -m tsdf_tpu_torch <verb> ...``.
 """
@@ -27,8 +32,6 @@ import torch
 
 # Flags of the JAX CLI whose paths are not ported yet.
 _NOT_PORTED = {
-    "track": "--track (ICP tracking)",
-    "filter": "--filter (bilateral prefilter)",
     "fuse_color": "--fuse-color (colour fusion)",
     "devices": "--devices (multi-device fusion)",
 }
@@ -114,7 +117,11 @@ def _write_mesh(vol, path, max_cubes, max_vertices):
 
 def cmd_fuse(args):
     from .io.tum import TUMDataLoader
-    from .pipelines.kinfu import FusionConfig, fuse_frames
+    from .pipelines.kinfu import (
+        FusionConfig,
+        fuse_frames,
+        track_and_fuse_frames,
+    )
 
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag):
@@ -128,6 +135,10 @@ def cmd_fuse(args):
     cfg = FusionConfig(
         volume_size=(args.size,) * 3,
         physical_size_mm=args.physical,
+        use_bilateral_filter=args.filter,
+        width=args.width,
+        height=args.height,
+        icp_conv_eps=args.icp_eps,
     )
     vol = cfg.make_volume(device=device)
     camera = _make_camera(args, device)
@@ -144,19 +155,52 @@ def cmd_fuse(args):
     first_pose = torch.as_tensor(loader.entries[0][1], device=device)
     print(f"fusing {n} frames at {args.size}^3 on {device} ...")
 
-    def stream():
+    gt_poses = []
+
+    def stream(with_pose):
         for depth_img, pose in itertools.islice(loader, n):
-            depth = torch.from_numpy(depth_img.data.astype(np.float32))
-            yield depth.to(device), torch.as_tensor(pose, device=device)
+            gt_poses.append(pose)
+            # u16 mm, as loaded: a filter on the fused depth rounds back
+            # to u16; both pipelines convert to float32 on the device
+            depth = torch.from_numpy(depth_img.data).to(device)
+            if with_pose:
+                yield depth, torch.as_tensor(pose, device=device)
+            else:
+                yield depth
 
     _sync(device)
     t0 = time.perf_counter()
-    vol, camera = fuse_frames(vol, camera, stream(), cfg)
+    if args.track:
+        camera = camera.set_pose(first_pose)
+        vol, camera, poses, stats = track_and_fuse_frames(
+            vol, camera, stream(False), cfg
+        )
+    else:
+        vol, camera = fuse_frames(vol, camera, stream(True), cfg)
     _sync(device)
     seconds = time.perf_counter() - t0
+    if args.track:
+        err, inl = stats[-1]
+        print(
+            f"tracked {len(poses)} frames; lastError={float(err):.2f}mm "
+            f"lastInliers={int(inl)}"
+        )
+        # trajectory error against the dataset's ground truth
+        if len(gt_poses) == len(poses) and len(poses) >= 2:
+            from .utils.trajectory import ate, rpe
+
+            est = [p.cpu().numpy() for p in poses]
+            a = ate(est, gt_poses)
+            r = rpe(est, gt_poses)
+            print(
+                f"ATE rmse={a['rmse']:.2f}mm median={a['median']:.2f}mm "
+                f"max={a['max']:.2f}mm; RPE trans={r['trans_rmse']:.2f}mm"
+                f"/frame rot={r['rot_rmse']*1e3:.2f}mrad/frame"
+            )
     print(
-        f"fused {n} frames in {seconds:.3f} s "
-        f"({1000.0 * seconds / n:.2f} ms/frame, PNG decode included)"
+        f"{'tracked and fused' if args.track else 'fused'} {n} frames in "
+        f"{seconds:.3f} s ({1000.0 * seconds / n:.2f} ms/frame, PNG decode "
+        "included)"
     )
 
     if args.out:
@@ -187,6 +231,44 @@ def cmd_render(args):
     return 0
 
 
+def cmd_icp(args):
+    from .io.png import load_png
+    from .io.tsdf_file import load_tsdf
+    from .kernels.raycast import render_to_depth_image_cuda
+    from .tracking.icp import get_incremental_transformation
+    from .utils.se3 import euler_to_matrix
+
+    device = resolve_device(args.device)
+    vol = load_tsdf(args.volume, device=device)
+    depth = load_png(args.depth).astype(np.float32)
+    if args.depth_scale != 1.0:
+        depth = depth * args.depth_scale
+
+    camera = _make_camera(args, device)
+    # the camera pose is the inverse of the volume's global rotation and
+    # translation
+    pose = torch.eye(4, dtype=torch.float32, device=device)
+    pose[0:3, 0:3] = euler_to_matrix(vol.global_rotation)
+    pose[0:3, 3] = vol.global_translation
+    camera = camera.set_pose(torch.linalg.inv_ex(pose).inverse)
+
+    model_depth = render_to_depth_image_cuda(
+        vol, camera, width=args.width, height=args.height
+    )
+    res = get_incremental_transformation(
+        torch.from_numpy(depth).to(device), model_depth,
+        args.fx, args.fy, args.cx, args.cy,
+    )
+    np.set_printoptions(suppress=True, precision=5)
+    print("incremental transformation (T_prev_curr):")
+    print(res.pose.cpu().numpy())
+    print(
+        f"lastError={float(res.error):.3f}mm "
+        f"lastInliers={int(res.inliers)}"
+    )
+    return 0
+
+
 def cmd_mesh(args):
     from .io.tsdf_file import load_tsdf
 
@@ -208,8 +290,17 @@ def main(argv=None):
     p.add_argument("-m", "--frames", type=int, default=0, help="frame count")
     p.add_argument("-s", "--size", type=int, default=200)
     p.add_argument("--physical", type=float, default=3000.0)
-    p.add_argument("--track", action="store_true", help="not yet ported")
-    p.add_argument("--filter", action="store_true", help="not yet ported")
+    p.add_argument("--track", action="store_true", help="ICP tracking")
+    p.add_argument(
+        "--filter", action="store_true",
+        help="bilateral prefilter (the tracker's input with --track, the "
+        "fused depth without)",
+    )
+    p.add_argument(
+        "--icp-eps", type=float, default=0.0,
+        help="ICP early-exit threshold on the per-iteration update "
+        "(|v| mm + 1000*|w| rad); 0 = the full 10/5/4 schedule",
+    )
     p.add_argument("--fuse-color", action="store_true", help="not yet ported")
     p.add_argument("--devices", help="not yet ported")
     p.add_argument("-o", "--out", help="output .tsdf")
@@ -239,6 +330,14 @@ def main(argv=None):
     p.add_argument("--max-vertices", type=int, default=1 << 20)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_mesh)
+
+    p = sub.add_parser("icp", help="pose of a depth frame vs a .tsdf")
+    p.add_argument("-v", "--volume", required=True)
+    p.add_argument("-d", "--depth", required=True)
+    p.add_argument("--depth-scale", type=float, default=1.0)
+    _add_device_arg(p)
+    _add_camera_args(p)
+    p.set_defaults(fn=cmd_icp)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -7,12 +7,13 @@ PyTorch twin only on CPU tensors; each keeps a launch count on its
 
 from __future__ import annotations
 
-from . import gather, integrate, raycast
+from . import bilateral, gather, integrate, raycast
 
 KERNELS = {
     "integrate": integrate.KERNEL,
     "raycast": raycast.KERNEL,
     "lane_gather": gather.KERNEL,
+    "bilateral": bilateral.KERNEL,
 }
 
 

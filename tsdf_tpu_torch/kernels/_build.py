@@ -1,6 +1,7 @@
 """Build ``csrc/*.cu`` into one shared library and bind it with ctypes.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process
+per source and all at once, and linked into
 ``csrc/build/libtsdf_kernels.so`` on first use, and again whenever a
 source is newer than the library. Each C entry point launches one kernel
 on the stream it is given and returns ``cudaGetLastError()``; the
@@ -31,7 +32,7 @@ LIB_NAME = "libtsdf_kernels.so"
 # kernel's registers and spills into the build log.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas=-v",
 ]
 
@@ -69,19 +70,38 @@ def build(force: bool = False) -> Path:
     if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = nvcc_path()
+    tag = os.getpid()
+    objects = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = []
+    for src, obj in zip(srcs, objects):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + f"\n# exit {proc.returncode}\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out = proc.stdout + proc.stderr
+        log.append(" ".join(cmd) + f"\n# exit {proc.returncode}\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
     seconds = time.perf_counter() - t0
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + f"\n# {seconds:.1f} s, exit {proc.returncode}\n"
-        + proc.stdout + proc.stderr
+        "\n".join(log) + f"# {seconds:.1f} s in all\n"
     )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

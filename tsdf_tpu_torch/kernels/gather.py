@@ -74,3 +74,16 @@ def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             s, c, w, table.stride(0), stream_handle(dev),
         )
     return out
+
+
+def lookup_flat(image: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """out[s, c] = image.flatten()[lin[s, c]], 0 where ``lin`` is outside
+    the image: a 2-D lookup by linear pixel index ``y * W + x``.
+
+    The image (H, W), float32 or int32 and contiguous, is viewed as one
+    row broadcast over ``lin``'s rows (row stride 0), so nothing is
+    copied; ``lin`` is (S, C) int32. One call of :func:`lane_gather_op`:
+    the kernel on CUDA tensors, ``take_or_zero`` on CPU tensors.
+    """
+    check_tensor("image", image, image.dtype, ndim=2)
+    return lane_gather_op(image.reshape(1, -1).expand(lin.shape[0], -1), lin)

@@ -20,6 +20,7 @@ from ..ops.raycast import (
     REFERENCE_MAX_STEPS,
     compute_normals_from_vertices,
     raycast_vertices,
+    vertices_to_depth_image,
 )
 from ..volume import TSDFVolume
 from ._build import Kernel, check_same_device, check_tensor, stream_handle
@@ -86,3 +87,14 @@ def raycast_cuda(
     :func:`raycast_vertices_cuda`; the normals are plain PyTorch."""
     verts = raycast_vertices_cuda(vol, camera, width, height)
     return verts, compute_normals_from_vertices(verts)
+
+
+def render_to_depth_image_cuda(
+    vol: TSDFVolume, camera: Camera, width: int = 640, height: int = 480
+) -> torch.Tensor:
+    """(H, W) u16 depth image in mm (camera z) of ``vol`` seen from
+    ``camera``: :func:`raycast_vertices_cuda`, then the tail of
+    ``ops.raycast.render_to_depth_image``."""
+    return vertices_to_depth_image(
+        raycast_vertices_cuda(vol, camera, width, height), camera
+    )

@@ -223,8 +223,30 @@ def render_to_depth_image(
 ) -> torch.Tensor:
     """Raycast and return a (H, W) u16 depth image in mm (camera z)."""
     verts, _ = raycast(vol, camera, width, height, **kwargs)
-    z = camera.world_to_camera(verts.reshape(-1, 3))[:, 2].reshape(
-        height, width
-    )
+    return vertices_to_depth_image(verts, camera)
+
+
+def vertices_to_depth_image(verts: torch.Tensor, camera: Camera) -> torch.Tensor:
+    """(H, W) u16 camera-space z in mm of (H, W, 3) raycast vertices, 0 on
+    a miss: the homogeneous transform, rounded and clamped to u16."""
+    h, w, _ = verts.shape
+    z = camera.world_to_camera(verts.reshape(-1, 3))[:, 2].reshape(h, w)
     z = torch.where(torch.isfinite(z), z, torch.zeros_like(z))
     return torch.clamp(torch.round(z), 0, 65535).to(torch.uint16)
+
+
+def vertices_to_camera_depth(
+    verts: torch.Tensor, pose_inv: torch.Tensor
+) -> torch.Tensor:
+    """(H, W) float32 camera-space z of raycast vertices, 0 on a miss: the
+    model depth the tracker aligns against. Row 2 of ``pose_inv`` applied
+    elementwise, with no homogeneous divide and no rounding to u16
+    (``render_to_depth_image`` does both)."""
+    finite = torch.isfinite(verts)
+    w = torch.where(finite, verts, torch.zeros_like(verts))
+    pi = pose_inv
+    camz = (
+        pi[2, 0] * w[..., 0] + pi[2, 1] * w[..., 1] + pi[2, 2] * w[..., 2]
+        + pi[2, 3]
+    )
+    return torch.where(finite.all(dim=-1), camz, torch.zeros_like(camz))

@@ -1,9 +1,11 @@
-"""KinectFusion with ground-truth poses: fuse a stream of depth frames.
+"""KinectFusion pipelines: GT-pose fusion and tracked fusion.
 
-Port of ``tsdf_tpu/pipelines/kinfu.py:FusionConfig`` and ``fuse_frames``
-as a plain per-frame loop; each frame is one launch of the integrate
-kernel on a CUDA volume. The tracked loop (bilateral filter + ICP) is not
-ported yet (ROADMAP.md, still to port).
+Port of ``tsdf_tpu/pipelines/kinfu.py``: ``FusionConfig``,
+``fuse_frames`` (ground-truth poses) and ``track_and_fuse_frames`` (the
+full loop: bilateral filter -> model raycast -> ICP -> gated integrate) as
+plain per-frame loops. On a CUDA volume each frame launches the
+hand-written kernels: bilateral, raycast, the lane gather inside every
+ICP iteration, and integrate.
 """
 
 from __future__ import annotations
@@ -14,27 +16,66 @@ from typing import Iterable, Optional
 import torch
 
 from ..camera import Camera
+from ..kernels.bilateral import bilateral_filter_cuda
 from ..kernels.integrate import integrate_cuda
+from ..kernels.raycast import raycast_vertices_cuda
+from ..ops.raycast import vertices_to_camera_depth
+from ..tracking.icp import get_incremental_transformation
+from ..utils.se3 import matmul_small
 from ..volume import TSDFVolume, make_volume
 
 
 @dataclasses.dataclass(frozen=True)
 class FusionConfig:
-    """The GT-pose fusion settings."""
+    """The fusion settings, with the JAX package's defaults.
+
+    The JAX ``FusionConfig`` fields ``use_pallas``, ``integrate_nk``,
+    ``fuse_chunk`` and ``track_chunk`` select or shape TPU kernels and
+    dispatches and have no counterpart here: a CUDA volume always runs
+    the kernels, one frame at a time.
+    """
 
     volume_size: tuple[int, int, int] = (200, 200, 200)
     physical_size_mm: float = 3000.0
     offset_mm: Optional[tuple[float, float, float]] = None
     cap_weight: bool = False
+    use_bilateral_filter: bool = False
+    sigma_colour: float = 20.0
+    sigma_space: float = 3.0
+    width: int = 640
+    height: int = 480
+    # Row band of the banded ICP association at level 0 (0 = the exact
+    # association only).
+    icp_band: int = 32
     # "exact" and "line" both run the exact kernel: on the card every
     # voxel reads its own pixel, so there is no line approximation.
     integrate_mode: str = "line"
+    # The banded association drops correspondences displaced vertically
+    # by more than icp_band pixels (fast motion). If the final inlier
+    # count falls below this fraction of the image, the frame is tracked
+    # again with the exact association; if it is still below, tracking
+    # is lost for the frame.
+    icp_min_inliers_frac: float = 0.02
+    # ICP early exit: stop a pyramid level once the SE3 update magnitude
+    # |v|_mm + 1000*|w|_rad falls below this. 0.0 runs the full 10/5/4
+    # schedule.
+    icp_conv_eps: float = 0.0
 
     def make_volume(self, *, device) -> TSDFVolume:
         return make_volume(
             self.volume_size, self.physical_size_mm, offset=self.offset_mm,
             device=device,
         )
+
+
+def _check_integrate_mode(config: FusionConfig) -> None:
+    if config.integrate_mode == "fast":
+        raise NotImplementedError(
+            "integrate_mode='fast' (the decimated-depth kernel) is not "
+            "ported yet; see ROADMAP.md"
+        )
+    if config.integrate_mode not in ("exact", "line"):
+        raise ValueError(f"unknown integrate_mode {config.integrate_mode!r}")
 
 
 def fuse_frames(
@@ -45,22 +86,132 @@ def fuse_frames(
 ) -> tuple[TSDFVolume, Camera]:
     """Fuse (depth, pose) frames with ground-truth poses.
 
+    With ``use_bilateral_filter`` the fused depth is filtered first
+    (denoising for raw sensor data; the tracked pipeline instead filters
+    only the tracker's input and fuses raw depth).
+
     Args:
       vol: the volume; its tsdf/weight are updated in place.
       camera: intrinsics; its pose is replaced by each frame's.
-      frames: iterable of (depth (H, W) f32 mm, pose (4, 4) camera->world),
-        on the volume's device.
+      frames: iterable of (depth (H, W) mm, float32 or uint16, pose (4, 4)
+        camera->world), on the volume's device. A uint16 frame is filtered
+        as uint16 (rounded back to whole mm) and converted for the fuse.
 
     Returns (volume, camera at the last pose).
     """
-    if config.integrate_mode == "fast":
-        raise NotImplementedError(
-            "integrate_mode='fast' (the decimated-depth kernel) is not "
-            "ported yet; see ROADMAP.md"
-        )
-    if config.integrate_mode not in ("exact", "line"):
-        raise ValueError(f"unknown integrate_mode {config.integrate_mode!r}")
+    _check_integrate_mode(config)
     for depth, pose in frames:
         camera = camera.set_pose(pose)
-        vol = integrate_cuda(vol, depth, camera, cap_weight=config.cap_weight)
+        if config.use_bilateral_filter:
+            depth = bilateral_filter_cuda(
+                depth, config.sigma_colour, config.sigma_space
+            )
+        vol = integrate_cuda(
+            vol, depth.to(torch.float32), camera, cap_weight=config.cap_weight
+        )
     return vol, camera
+
+
+@torch.no_grad()
+def track_and_fuse_frames(
+    vol: TSDFVolume,
+    camera: Camera,
+    frames: Iterable,
+    config: FusionConfig = FusionConfig(),
+):
+    """Full KinectFusion: bilateral -> ICP against the raycast model ->
+    integrate.
+
+    The first frame is integrated at the camera's current pose. Each later
+    frame is tracked against a render of the model from the previous pose
+    (frame-to-model tracking):
+
+    * the bilateral-smoothed depth feeds the tracker only; the raw depth
+      is fused (the TSDF's weighted average is itself the noise filter);
+    * the model depth is the camera-space z of the raycast vertices,
+      float32, 0 on a miss;
+    * ICP runs with the banded association (``icp_band`` rows); if its
+      inlier count falls below ``icp_min_inliers_frac`` of the image it
+      runs again with the exact association;
+    * a frame still below that count is lost: the pose is kept exactly as
+      it was and the frame is not fused. A zero depth frame is therefore
+      an exact no-op.
+
+    Host syncs: one per tracked frame, the read of the inlier count that
+    decides the fallback (two on a frame that takes the fallback: the
+    second decides whether it is lost); with ``icp_conv_eps > 0`` one more
+    per executed ICP iteration (``tracking.icp.run_level``).
+
+    Args:
+      vol: the volume; its tsdf/weight are updated in place.
+      camera: intrinsics and the first frame's pose.
+      frames: iterable of depth images (H, W) in mm: tensors on the
+        volume's device, or numpy arrays, of any real dtype.
+
+    Returns:
+      (volume, camera at the final pose, list of (4, 4) per-frame poses,
+       list of (error_mm, inliers) tracking stats as 0-d tensors).
+    """
+    _check_integrate_mode(config)
+    if vol.deform is not None:
+        raise ValueError(
+            "track_and_fuse_frames does not support deformation-enabled "
+            "volumes: it integrates rigidly; non-rigid fusion is not ported "
+            "yet (ROADMAP.md)"
+        )
+    dev = vol.device
+    k = camera.k
+    fx, fy, cx, cy = k[0, 0], k[1, 1], k[0, 2], k[1, 2]
+    band = config.icp_band if config.icp_band > 0 else None
+    min_inl = config.icp_min_inliers_frac * config.width * config.height
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def track(depth_icp, model_depth, band):
+        return get_incremental_transformation(
+            depth_icp, model_depth, fx, fy, cx, cy, band=band,
+            conv_eps=config.icp_conv_eps,
+        )
+
+    poses = []
+    stats = []
+    for frame in frames:
+        if isinstance(frame, tuple):
+            raise NotImplementedError(
+                "(depth, rgb) frames: tracked colour fusion is not ported "
+                "yet; see ROADMAP.md (integrate_color_pallas)"
+            )
+        depth = torch.as_tensor(frame).to(dev).to(torch.float32).contiguous()
+        if not poses:
+            stats.append((zero, zero))
+            vol = integrate_cuda(
+                vol, depth, camera, cap_weight=config.cap_weight
+            )
+            poses.append(camera.pose)
+            continue
+
+        if config.use_bilateral_filter:
+            depth_icp = bilateral_filter_cuda(
+                depth, config.sigma_colour, config.sigma_space
+            )
+        else:
+            depth_icp = depth
+        verts = raycast_vertices_cuda(
+            vol, camera, config.width, config.height
+        )
+        model_depth = vertices_to_camera_depth(verts, camera.pose_inv)
+
+        res = track(depth_icp, model_depth, band)
+        lost = bool(res.inliers < min_inl)  # the frame's host sync
+        if lost and band is not None:
+            res = track(depth_icp, model_depth, None)
+            lost = bool(res.inliers < min_inl)
+        stats.append((res.error, res.inliers))
+        if not lost:
+            # res.pose maps current-camera into previous-camera
+            # coordinates: new camera->world = previous pose o T_prev_curr
+            camera = camera.set_pose(matmul_small(camera.pose, res.pose))
+            vol = integrate_cuda(
+                vol, depth, camera, cap_weight=config.cap_weight
+            )
+        poses.append(camera.pose)
+    return vol, camera, poses, stats

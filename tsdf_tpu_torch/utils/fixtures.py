@@ -83,3 +83,44 @@ def wall_depth_map(
     )
     depth = np.where(wall, wall_depth, max_depth)
     return np.clip(depth, min_depth, max_depth).astype(np.uint16)
+
+
+def kinect_noise(
+    depth: torch.Tensor,
+    generator: torch.Generator,
+    sigma_scale: float = 1.425e-6,
+    edge_thresh_mm: float = 50.0,
+    shadow_px: int = 4,
+    dropout_frac: float = 0.002,
+) -> torch.Tensor:
+    """Kinect-like corruption of a clean (H, W) depth frame in mm.
+
+    In sensor order:
+      1. depth-dependent Gaussian noise, sigma_z = sigma_scale * z^2 mm
+         (about 3 mm at 1.5 m);
+      2. IR shadow dropouts: the ``shadow_px`` pixels on the -x side of a
+         depth discontinuity larger than ``edge_thresh_mm`` report 0;
+      3. salt dropouts: ``dropout_frac`` random invalid pixels;
+      4. the TUM u16 x5000 round trip (0.2 mm quantization, 13.1 m cap).
+
+    The random draws come from ``generator``, which must live on the
+    depth's device. Returns the corrupted float32 frame (0 = invalid).
+    """
+    pad = torch.nn.functional.pad
+    d = depth.to(torch.float32)
+    zero = torch.zeros_like(d)
+    valid = d > 0
+    normal = torch.randn(d.shape, generator=generator, device=d.device)
+    d = torch.where(valid, d + sigma_scale * d * d * normal, zero)
+
+    jump = (pad(d[:, 1:], (0, 1)) - d).abs()
+    edge = (jump > edge_thresh_mm) & valid
+    shadow = torch.zeros_like(edge)
+    for s in range(1, shadow_px + 1):
+        shadow = shadow | pad(edge[:, s:], (0, s))
+    d = torch.where(shadow, zero, d)
+
+    uniform = torch.rand(d.shape, generator=generator, device=d.device)
+    d = torch.where(uniform < dropout_frac, zero, d)
+
+    return torch.clamp(torch.round(d * 5.0), 0, 65535) * 0.2
