@@ -1,5 +1,6 @@
 """Chip smoke of the PyTorch/CUDA port: the GT-pose fuse -> render -> mesh
-path and the tracked KinectFusion loop on one NVIDIA card, at the
+path, the tracked KinectFusion loop, colour fusion (GT-pose and tracked)
+and the decimated "fast" integrate mode on one NVIDIA card, at the
 repository's 512^3 / 640x480 size.
 
     python3 chip_smoke.py
@@ -15,7 +16,9 @@ Phases (any failed check exits non-zero; nothing is caught):
      (integrate over two frames, so the second blends into voxels that
      already hold weight; the bilateral filter on a noisy frame with
      holes, float32 and uint16; the lane gather at the marching-cubes
-     shapes and at the ICP association's on all three pyramid levels);
+     shapes and at the ICP association's on all three pyramid levels; the
+     colour, fast and colour-fast integrate kernels over two frames:
+     tsdf, weight, colour bytes and miss counts equal);
   4. the GT-pose path: a fabricated 20-frame TUM directory (a wall and
      two spheres, intersected in closed form) through
      ``tsdf_tpu_torch.cli.main(["fuse", ...])``, with launch counts,
@@ -30,7 +33,17 @@ Phases (any failed check exits non-zero; nothing is caught):
      counts, no lost frame, the trajectory error under one voxel, and the
      same output checks;
   7. the tracked device loop alone: ms/frame, its split into bilateral /
-     raycast / ICP / integrate by CUDA events, host syncs per frame.
+     raycast / ICP / integrate by CUDA events, host syncs per frame;
+  8. colour fusion: ``cli.main(["fuse", "--fuse-color", "--color", ...])``
+     on the same directory, whose rgb/ frames hold a closed-form colour of
+     the hit point (launch counts, the colour render against that colour,
+     the coloured PLY, the .tsdf's colour against an in-process fuse);
+     then ``fuse --fuse-color --track --filter`` (launch counts, no lost
+     frame, trajectory error, colour render);
+  9. ``integrate_mode="fast"`` through ``fuse_frames`` (depth, and depth +
+     colour) and ``track_and_fuse_frames``: launch counts, no miss, the
+     fused field against the exact fusion and the analytic surface, and
+     ms/frame of the fast and the exact fuse loop side by side.
 
 The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
@@ -38,12 +51,12 @@ JAX.
 
     python3 chip_smoke.py --probe
 
-runs, in place of phases 3-7, the measurements PERF.md's findings rest
+runs, in place of phases 3-9, the measurements PERF.md's findings rest
 on and prints them as one JSON object on the last line.
 
     python3 chip_smoke.py --config3 [--frames N] [--noise] [--eps]
 
-runs, in place of phases 3-7, the tracked loop on the 500-pose orbit of a
+runs, in place of phases 3-9, the tracked loop on the 500-pose orbit of a
 wall-and-sphere scene at 256^3 (the workload of tools/run_config3.py) and
 prints ms/frame and the trajectory errors as one JSON object on the last
 line.
@@ -89,6 +102,17 @@ ICP_VERB_MOTION = ((12.0, -8.0, 10.0), 0.01)
 ICP_VERB_TRANS_MM = PHYSICAL / SIZE  # one voxel
 ICP_VERB_ROT_RAD = 3e-3
 BILATERAL_OTHER_SIGMAS = (35.0, 1.7)  # radius 3; the default pair gives 5
+# colour: the render from the first pose against the analytic colour, in
+# levels of 255 over the pixels the render hit (mean, and a cap on the
+# share of pixels further off than 16 levels: silhouettes, where voxels
+# blend two surfaces or border a voxel no frame coloured)
+COLOR_MEAN_LEVELS = 4.0
+COLOR_FAR_LEVELS, COLOR_FAR_SHARE = 16, 0.05
+# fast mode against the exact fusion of the same frames: mean |tsdf
+# difference| on voxels both updated, as the JAX package's own test gates
+# it (0.1 voxel); colour-fast against exact colour: mean level difference
+FAST_TSDF_MEAN_MM = 0.1 * PHYSICAL / SIZE
+FAST_COLOR_MEAN_LEVELS = 2.0
 
 # Published peaks of one H100 SXM: the bounds are stated against these.
 HBM_BYTES_PER_S = 3.35e12
@@ -96,6 +120,14 @@ F32_OPS_PER_S = 67e12
 # Float32 operations the kernels' functions need, counted from their
 # expressions (a compare, a min/max, a floor and a division count as one).
 INTEGRATE_OPS = dict(voxel=27, in_front=12, updated=8)
+# the fast convention per voxel: three centres (6), the y and z rows of the
+# projection (12), the row pixel (3), its guard, clip and rounding (4), the
+# decimated row (4), the line's column (7), the image and slope gates (6);
+# its pre-pass per voxel column: two projections and the fit (60). A voxel
+# in the colour band: two divisions and a max for the rate, and per channel
+# two conversions, the blend (3), the rounding and the clip (3)
+FAST_OPS = dict(voxel=42, column=60, updated=8)
+COLOR_OPS_PER_BAND_VOXEL = 3 + 3 * 8
 RAYCAST_OPS = dict(ray=60, sample=74)
 # per tap: dv, dv^2, the exponent's product, expf counted as five (scale,
 # round, two for the reduced argument, ex2), two weight products, two sums
@@ -194,6 +226,43 @@ def analytic_depth(pose: np.ndarray) -> np.ndarray:
     return t  # camera z == t because d_cam.z == 1
 
 
+def surface_distances(p: np.ndarray) -> np.ndarray:
+    """(..., 3) distances of world points (..., 3) from the wall and from
+    each sphere."""
+    dist = [np.abs(p[..., 2] - WALL_Z)]
+    for centre, radius in SPHERES:
+        dist.append(np.abs(np.linalg.norm(p - np.asarray(centre), axis=-1) - radius))
+    return np.stack(dist, axis=-1)
+
+
+def analytic_color(p: np.ndarray) -> np.ndarray:
+    """(..., 3) colour in [0, 255] of world surface points (..., 3): the
+    wall a slow gradient in x and y, each sphere a gradient in its normal,
+    every channel at least 40 so that no surface is black."""
+    wall = np.stack([
+        40.0 + 170.0 * (p[..., 0] + PHYSICAL / 2) / PHYSICAL,
+        40.0 + 170.0 * (p[..., 1] + PHYSICAL / 2) / PHYSICAL,
+        np.full(p.shape[:-1], 200.0)], axis=-1)
+    colours = [wall]
+    for n, (centre, radius) in enumerate(SPHERES):
+        normal = (p - np.asarray(centre)) / radius
+        colours.append(np.stack([
+            140.0 + 90.0 * normal[..., 0], 140.0 + 90.0 * normal[..., 1],
+            np.full(p.shape[:-1], 60.0 + 50.0 * n)], axis=-1))
+    nearest = surface_distances(p).argmin(axis=-1)
+    out = np.choose(nearest[..., None], colours)
+    return np.clip(out, 0.0, 255.0)
+
+
+def analytic_rgb(pose: np.ndarray) -> np.ndarray:
+    """(H, W, 3) u8 colour frame seen from ``pose``: the analytic colour
+    of each pixel's hit point."""
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    d_cam = np.stack([(u - CX) / FX, (v - CY) / FY, np.ones_like(u)], -1)
+    points = pose[:3, 3] + analytic_depth(pose)[..., None] * (d_cam @ pose[:3, :3].T)
+    return np.round(analytic_color(points)).astype(np.uint8)
+
+
 def quaternion(r: np.ndarray) -> tuple[float, float, float, float]:
     """(qx, qy, qz, qw) of a rotation matrix."""
     w = math.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2.0
@@ -209,6 +278,7 @@ def write_tum_dir(root: str) -> list[np.ndarray]:
     from tsdf_tpu_torch.io.png import save_png
 
     os.makedirs(os.path.join(root, "depth"))
+    os.makedirs(os.path.join(root, "rgb"))
     lines = []
     poses = frame_poses()
     for i, pose in enumerate(poses):
@@ -218,6 +288,7 @@ def write_tum_dir(root: str) -> list[np.ndarray]:
             os.path.join(root, "depth", f"{stamp}.png"),
             np.clip(np.round(z * 5.0), 0, 65535).astype(np.uint16),
         )
+        save_png(os.path.join(root, "rgb", f"{stamp}.png"), analytic_rgb(pose))
         values = (*(pose[:3, 3] / 1000.0), *quaternion(pose[:3, :3]))
         lines.append(" ".join([stamp] + [repr(float(v)) for v in values]))
     with open(os.path.join(root, "ground_truth.txt"), "w") as f:
@@ -271,6 +342,15 @@ def phase_build() -> None:
         f"({_build.library_path()})")
 
 
+def voxels_in_front(vol, cam) -> int:
+    """How many voxel centres of ``vol`` have a positive camera z."""
+    zc, yc, xc = vol.axis_centres()
+    pi = cam.pose_inv
+    camz = (pi[2, 0] * xc[None, None, :] + pi[2, 1] * yc[None, :, None]
+            + pi[2, 2] * zc[:, None, None] + pi[2, 3])
+    return int((camz > 0).sum())
+
+
 def compare_integrate(dev, frames) -> dict:
     """Fuse the first two frames into one 512^3 volume with the kernel
     and into another with the plain twin, and compare after the second:
@@ -306,12 +386,7 @@ def compare_integrate(dev, frames) -> dict:
     # in front of the camera is divided and rounded to its pixel, an
     # updated voxel reads and writes tsdf and weight (16 B)
     updated = int((ref.weight > before.weight).sum())
-    zc, yc, xc = ref.axis_centres()
-    pi = cam.pose_inv
-    camz = (pi[2, 0] * xc[None, None, :] + pi[2, 1] * yc[None, :, None]
-            + pi[2, 2] * zc[:, None, None] + pi[2, 3])
-    in_front = int((camz > 0).sum())
-    del camz
+    in_front = voxels_in_front(ref, cam)
     ops = INTEGRATE_OPS
     least = bound(
         16 * updated + depth.numel() * 4,
@@ -322,6 +397,116 @@ def compare_integrate(dev, frames) -> dict:
         f"({updated} voxels updated, {in_front} in front of the camera)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
                 library_ms=None)
+
+
+def compare_integrate_variants(dev, frames, rgbs) -> dict:
+    """The colour (exact), fast and colour-fast kernels against their
+    plain twins at 512^3: the first two frames into one volume through the
+    kernel and into another through the twin, compared after the second,
+    which blends into weighted (and coloured) voxels. Everything must be
+    equal: tsdf, weight, colour bytes, miss counts."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels.integrate import (
+        integrate_color_cuda,
+        integrate_fast_cuda,
+    )
+    from tsdf_tpu_torch.ops.integrate import integrate, integrate_fast
+
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames]
+    depths = [d for d, _ in frames]
+
+    def twin(name, vol, i):
+        if name == "integrate_color":
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return integrate(vol, depths[i], cams[i], rgb=rgbs[i]), zero
+        rgb = rgbs[i] if name == "integrate_color_fast" else None
+        return integrate_fast(vol, depths[i], cams[i], rgb=rgb)
+
+    def kernel(name, vol, i):
+        if name == "integrate_fast":
+            return integrate_fast_cuda(vol, depths[i], cams[i])
+        mode = "fast" if name == "integrate_color_fast" else "exact"
+        return integrate_color_cuda(vol, depths[i], rgbs[i], cams[i], mode=mode)
+
+    # the masks of the second frame, from the twins on a cleared volume
+    # and a white colour frame: a voxel is updated where its weight rose
+    # and lies in the colour band where its colour left 0
+    white = torch.full_like(rgbs[1], 255)
+    blank = make_volume((SIZE,) * 3, PHYSICAL, with_color=True, device=dev)
+    masks = {}
+    for fast, fn in ((False, integrate), (True, integrate_fast)):
+        out = fn(blank, depths[1], cams[1], rgb=white)
+        out = out[0] if fast else out
+        masks[fast] = (int((out.weight > 0).sum()),
+                       int((out.color > 0).any(-1).sum()))
+        del out
+    in_front = voxels_in_front(blank, cams[1])
+    del blank, white
+
+    results = {}
+    for name in ("integrate_color", "integrate_fast", "integrate_color_fast"):
+        fast, color = name != "integrate_color", name != "integrate_fast"
+        ref, out = (make_volume((SIZE,) * 3, PHYSICAL, with_color=color,
+                                device=dev) for _ in range(2))
+        for i in range(2):
+            before = ref
+            ref, want_miss = twin(name, ref, i)
+            out, miss = kernel(name, out, i)
+            check(int(miss) == int(want_miss),
+                  f"{name}: miss count {int(miss)}, twin {int(want_miss)}")
+        torch.cuda.synchronize()
+        blended = int(((ref.weight > before.weight) & (before.weight > 0)).sum())
+        n_w = int((out.weight != ref.weight).sum())
+        n_t = int((out.tsdf != ref.tsdf).sum())
+        err = float((out.tsdf - ref.tsdf).abs().max())
+        text = (f"{name} 512^3, two frames: {n_w} weights and {n_t} tsdf "
+                f"values differ (max |tsdf diff| {err:.3g} mm)")
+        n_c = 0
+        if color:
+            n_c = int((out.color != ref.color).sum())
+            recoloured = int(((ref.color != before.color).any(-1)
+                              & (before.color > 0).any(-1)).sum())
+            err = max(err, float((out.color.float() - ref.color.float()).abs().max()))
+            text += (f", {n_c} colour bytes differ; the second frame changed "
+                     f"the colour of {recoloured} coloured voxels")
+            check(recoloured > 0, f"{name}: no coloured voxel was blended into")
+        log(f"{text}; it blended into {blended} voxels of weight > 0; "
+            f"miss {int(miss)}")
+        check(blended > 0, f"{name}: the second frame blended into no voxel")
+        check(n_w == 0 and n_t == 0 and n_c == 0,
+              f"{name}: the kernel differs from its twin")
+
+        ms = median_ms(lambda: kernel(name, out, 1), reps=20)
+        plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
+        # the work of that second frame: tsdf and weight read and written
+        # where a voxel is updated (16 B), three colour bytes read and
+        # written in the colour band (6 B), the images read once (the
+        # fast convention can sample one pixel in eight)
+        updated, band = masks[fast]
+        check(updated == int((ref.weight > before.weight).sum()),
+              f"{name}: the mask count disagrees with the frame's update")
+        pixels = W * H // 8 if fast else W * H
+        moved = 16 * updated + pixels * 4
+        if fast:
+            ops = (FAST_OPS["voxel"] * SIZE**3 + FAST_OPS["column"] * SIZE**2
+                   + FAST_OPS["updated"] * updated)
+        else:
+            o = INTEGRATE_OPS
+            ops = (o["voxel"] * SIZE**3 + o["in_front"] * in_front
+                   + o["updated"] * updated)
+        if color:
+            moved += 6 * band + pixels * 3
+            ops += COLOR_OPS_PER_BAND_VOXEL * band
+        least = bound(moved, ops)
+        log(f"{name} 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
+            f"({updated} voxels updated"
+            + (f", {band} in the colour band" if color else "") + ")")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **least, library_ms=None)
+        del ref, out, before
+    return results
 
 
 def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
@@ -575,30 +760,36 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
                 u16_ms=out["u16"]["ms"], u16_plain_ms=out["u16"]["plain_ms"])
 
 
-def fuse_argv(dev, tum: str, out_dir: str, extra=()) -> tuple[list[str], dict]:
-    """A main path's ``fuse`` command line and its output files."""
-    outs = {k: os.path.join(out_dir, f) for k, f in (
-        ("tsdf", "out.tsdf"), ("scene", "scene.png"),
-        ("normals", "normals.png"), ("mesh", "mesh.ply"))}
+def fuse_argv(dev, tum: str, out_dir: str, extra=(), mesh=True, tsdf=True,
+              color=False) -> tuple[list[str], dict]:
+    """A main path's ``fuse`` command line and its output files: the two
+    renders always, the mesh, the .tsdf and the colour render as asked."""
+    names = [("scene", "scene.png"), ("normals", "normals.png")]
+    names += [("tsdf", "out.tsdf")] * tsdf + [("mesh", "mesh.ply")] * mesh
+    names += [("color", "color.png")] * color
+    outs = {k: os.path.join(out_dir, f) for k, f in names}
     argv = [
         "fuse", "-d", tum, "-m", str(N_FRAMES), "-s", str(SIZE),
         "--physical", str(PHYSICAL), "--device", dev.type,
-        "-o", outs["tsdf"], "--scene", outs["scene"],
-        "--normals", outs["normals"], "--mesh", outs["mesh"],
+        "--scene", outs["scene"], "--normals", outs["normals"],
+        "--mesh", outs.get("mesh", ""),
         "--max-cubes", str(MAX_CUBES), "--max-vertices", str(MAX_VERTICES),
-        *extra,
     ]
-    return argv, outs
+    if tsdf:
+        argv += ["-o", outs["tsdf"]]
+    if color:
+        argv += ["--color", outs["color"]]
+    return argv + list(extra), outs
 
 
-def run_fuse(dev, tum: str, out_dir: str, extra=()) -> dict:
+def run_fuse(dev, tum: str, out_dir: str, extra=(), **outputs) -> dict:
     """Drive ``cli.main(["fuse", ...])`` with every launch count set to 0
     just before and read just after; check the return code and the output
     files. Returns the outputs, the counts and what the command printed."""
     from tsdf_tpu_torch import cli
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    argv, outs = fuse_argv(dev, tum, out_dir, extra)
+    argv, outs = fuse_argv(dev, tum, out_dir, extra, **outputs)
     err, out = io.StringIO(), io.StringIO()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -614,22 +805,41 @@ def run_fuse(dev, tum: str, out_dir: str, extra=()) -> dict:
     for k, path in outs.items():
         check(os.path.getsize(path) > 0, f"missing output {k}")
     check("overflowed" not in err.getvalue(), "mesh buffers overflowed")
-    with open(outs["mesh"]) as f:
-        header = [next(f) for _ in range(9)]
-    n_vert = int(header[2].split()[-1])
-    n_face = int(header[6].split()[-1])
-    log(f"mesh: {n_vert} vertices, {n_face} triangles")
-    check(n_vert > 0 and n_vert == 3 * n_face, "mesh is empty or torn")
-    return dict(outs=outs, counts=counts, stdout=out.getvalue())
+    check("skipped" not in err.getvalue(), "the integrate skipped voxels")
+    header = []
+    if "mesh" in outs:
+        with open(outs["mesh"]) as f:
+            for line in f:
+                header.append(line.strip())
+                if header[-1] == "end_header":
+                    break
+        (n_vert,) = [int(h.split()[-1]) for h in header
+                     if h.startswith("element vertex")]
+        (n_face,) = [int(h.split()[-1]) for h in header
+                     if h.startswith("element face")]
+        log(f"mesh: {n_vert} vertices, {n_face} triangles")
+        check(n_vert > 0 and n_vert == 3 * n_face, "mesh is empty or torn")
+    return dict(outs=outs, counts=counts, stdout=out.getvalue(),
+                seconds=seconds, ply_header=header)
+
+
+def check_counts(counts: dict, what: str, at_least=None, **exact) -> None:
+    """Each kernel named in ``exact`` was launched that many times, each in
+    ``at_least`` no fewer, and every other kernel not at all."""
+    at_least = at_least or {}
+    for name, n in counts.items():
+        if name in at_least:
+            check(n >= at_least[name],
+                  f"{what}: {name} launched {n} times, expected >= {at_least[name]}")
+        else:
+            check(n == exact.get(name, 0),
+                  f"{what}: {name} launched {n} times, expected {exact.get(name, 0)}")
 
 
 def phase_gt_path(dev, tum: str, out_dir: str) -> dict:
     run = run_fuse(dev, tum, out_dir)
-    counts = run["counts"]
-    check(counts["integrate"] == N_FRAMES, "integrate launches")
-    check(counts["raycast"] == 1, "raycast launches")
-    check(counts["lane_gather"] >= 1, "lane gather launches")
-    check(counts["bilateral"] == 0, "the GT-pose path filtered a frame")
+    check_counts(run["counts"], "GT-pose path", at_least=dict(lane_gather=1),
+                 integrate=N_FRAMES, raycast=1)
     return run
 
 
@@ -685,26 +895,32 @@ def phase_icp_verb(dev, tsdf_path: str, out_dir: str) -> dict:
 def phase_tracked_path(dev, tum: str, out_dir: str) -> dict:
     """``fuse --track --filter``: every later frame is filtered, rendered
     against, tracked (19 Gauss-Newton iterations, one lane-gather launch
-    each) and fused; then the render and the mesh."""
+    each) and fused; then the render (no mesh: the GT-pose and the colour
+    path each extract one at this size)."""
+    run = run_fuse(dev, tum, out_dir, ("--track", "--filter"), mesh=False)
+    tracked = N_FRAMES - 1
+    check_counts(run["counts"], "tracked path",
+                 at_least=dict(lane_gather=19 * tracked),
+                 bilateral=tracked, raycast=tracked + 1, integrate=N_FRAMES)
+    check_tracked_output(run["stdout"], "frames")
+    return run
+
+
+def check_tracked_output(stdout: str, what: str) -> None:
+    """The ``tracked N <what>; ...`` line and the ATE line of a tracked
+    ``fuse``: every frame tracked, inliers on the last, ATE under a voxel."""
     import re
 
-    run = run_fuse(dev, tum, out_dir, ("--track", "--filter"))
-    counts, tracked = run["counts"], N_FRAMES - 1
-    check(counts["bilateral"] == tracked, "bilateral launches")
-    check(counts["raycast"] == tracked + 1, "raycast launches")
-    check(counts["integrate"] == N_FRAMES, "a frame was lost (integrate launches)")
-    check(counts["lane_gather"] >= 19 * tracked + 1, "lane gather launches")
     found = re.search(
-        r"tracked (\d+) frames; lastError=([0-9.]+)mm lastInliers=(\d+)",
-        run["stdout"])
-    check(found is not None, "no 'tracked N frames' line")
+        rf"tracked (\d+) {what}; lastError=([0-9.]+)mm lastInliers=(\d+)",
+        stdout)
+    check(found is not None, f"no 'tracked N {what}' line")
     check(int(found.group(1)) == N_FRAMES, "tracked frame count")
     check(int(found.group(3)) > 0.02 * W * H, "too few inliers on the last frame")
-    ate = re.search(r"ATE rmse=([0-9.]+)mm", run["stdout"])
+    ate = re.search(r"ATE rmse=([0-9.]+)mm", stdout)
     check(ate is not None, "no ATE line")
     check(float(ate.group(1)) < ATE_MAX_MM,
           f"ATE {ate.group(1)} mm is not under one voxel")
-    return run
 
 
 def phase_surface(dev, outs: dict, first_pose: np.ndarray) -> float:
@@ -746,6 +962,14 @@ def load_frames(dev, tum: str) -> list[tuple[torch.Tensor, torch.Tensor]]:
          torch.as_tensor(p, dtype=torch.float32, device=dev))
         for d, p in TUMDataLoader(tum)
     ]
+
+
+def load_rgbs(dev, tum: str) -> list[torch.Tensor]:
+    """Every (H, W, 3) u8 colour frame of the TUM directory, on the card."""
+    from tsdf_tpu_torch.io.tum import TUMDataLoader
+
+    return [torch.from_numpy(rgb).to(dev)
+            for _, _, rgb in TUMDataLoader(tum).iter_with_rgb()]
 
 
 def phase_fuse_time(dev, frames) -> float:
@@ -888,19 +1112,222 @@ def phase_tracked_time(dev, frames, gt_poses) -> dict:
                 syncs_per_frame=per_frame, split_ms=split)
 
 
+def check_color_render(path: str, first_rgb: np.ndarray, what: str) -> float:
+    """The colour render from the first pose against the analytic colour
+    of each pixel's hit point, which is the first colour frame itself."""
+    from tsdf_tpu_torch.io.png import load_png
+
+    img = load_png(path)
+    check(img.shape == (H, W, 3) and img.dtype == np.uint8, f"{what}: color.png")
+    hit = img.any(-1)  # a missed ray is black; no surface is
+    diff = np.abs(img.astype(np.int32) - first_rgb.astype(np.int32))[hit]
+    mean, far = float(diff.mean()), float((diff > COLOR_FAR_LEVELS).mean())
+    log(f"{what}: colour render hit {hit.mean():.4f} of the pixels; against "
+        f"the analytic colour: mean |diff| {mean:.4f} levels, "
+        f"{far:.5f} of the channels off by more than {COLOR_FAR_LEVELS} "
+        f"(max {int(diff.max())})")
+    check(hit.mean() > 0.5, f"{what}: the colour render hit too few pixels")
+    check(mean < COLOR_MEAN_LEVELS, f"{what}: colour render far from analytic")
+    check(far < COLOR_FAR_SHARE, f"{what}: too many pixels far from analytic")
+    return mean
+
+
+def phase_color_path(dev, tum: str, out_dir: str, frames, rgbs) -> dict:
+    """``fuse --fuse-color --color``: every frame through the colour
+    kernel, the colour render, the coloured PLY and a .tsdf whose fields
+    equal an in-process fuse of the same frames."""
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.io.tsdf_file import load_tsdf
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run = run_fuse(dev, tum, out_dir, ("--fuse-color",), color=True)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"fuse --fuse-color: own peak device memory {peak:.3f} GiB")
+    check_counts(run["counts"], "colour path", at_least=dict(lane_gather=1),
+                 integrate_color=N_FRAMES, raycast=1)
+    check(f"fused {N_FRAMES} frames with colour" in run["stdout"],
+          "no 'fused N frames with colour' line")
+    check(all(f"property uchar {c}" in run["ply_header"]
+              for c in ("red", "green", "blue")),
+          "the PLY header lacks the three uchar colour properties")
+    with open(run["outs"]["mesh"]) as f:
+        rows = [next(f).split() for _ in range(len(run["ply_header"]) + 3)]
+    check(all(len(r) == 6 for r in rows[-3:]), "PLY vertex rows lack colours")
+    check_color_render(run["outs"]["color"], rgbs[0].cpu().numpy(), "colour path")
+
+    cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    triples = [(d, p, c) for (d, p), c in zip(frames, rgbs)]
+    vol, _ = fuse_frames(cfg.make_volume(device=dev).with_color(), cam, triples, cfg)
+    saved = load_tsdf(run["outs"]["tsdf"], device=dev)
+    check(saved.color is not None and saved.color.dtype == torch.uint8,
+          "the saved volume has no colour")
+    for field in ("tsdf", "weight", "color"):
+        check(torch.equal(getattr(saved, field), getattr(vol, field)),
+              f"the reloaded .tsdf's {field} differs from an in-process fuse")
+    coloured = int((vol.color > 0).any(-1).sum())
+    log(f"colour path: .tsdf reloads with tsdf, weight and colour equal to an "
+        f"in-process fuse; {coloured} voxels hold colour")
+    check(coloured > 0, "no voxel holds colour")
+    del saved
+    ms = median_ms(lambda: fuse_frames(vol, cam, triples, cfg), reps=3) / len(triples)
+    log(f"colour fuse loop on the device, 512^3: {ms:.4f} ms/frame (median of "
+        f"3 runs of {len(triples)} frames already on the card)")
+    run.update(peak_gib=peak, fuse_ms_per_frame=ms)
+    return run
+
+
+def phase_color_tracked_path(dev, tum: str, out_dir: str, rgbs) -> dict:
+    """``fuse --fuse-color --track --filter``: the tracked loop with the
+    colour kernel in place of the depth one (renders only: no mesh, no
+    .tsdf)."""
+    run = run_fuse(dev, tum, out_dir, ("--fuse-color", "--track", "--filter"),
+                   mesh=False, tsdf=False, color=True)
+    tracked = N_FRAMES - 1
+    check_counts(run["counts"], "tracked colour path",
+                 at_least=dict(lane_gather=19 * tracked),
+                 bilateral=tracked, raycast=tracked + 1, integrate_color=N_FRAMES)
+    check_tracked_output(run["stdout"], "colour frames")
+    check_color_render(run["outs"]["color"], rgbs[0].cpu().numpy(),
+                       "tracked colour path")
+    return run
+
+
+def phase_fast(dev, frames, rgbs, gt_poses) -> dict:
+    """``FusionConfig(integrate_mode="fast")`` through ``fuse_frames``
+    (depth, and depth + colour) and ``track_and_fuse_frames``, each with
+    the launch counts set to 0 just before and read just after; the fused
+    fields against the exact fusion of the same frames and the analytic
+    surface; ms/frame of the fast and the exact fuse loop side by side."""
+    import warnings
+
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.pipelines.kinfu import (
+        FusionConfig,
+        fuse_frames,
+        track_and_fuse_frames,
+    )
+    from tsdf_tpu_torch.utils.trajectory import ate
+
+    exact = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL,
+                         width=W, height=H, integrate_mode="exact")
+    fast = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL,
+                        width=W, height=H, integrate_mode="fast")
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    cam0 = cam.set_pose(frames[0][1])
+    triples = [(d, p, c) for (d, p), c in zip(frames, rgbs)]
+    n = len(frames)
+
+    def counted(fn, what, **want):
+        """Run ``fn`` with fresh counts; no voxel may be skipped."""
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"{what}: launches {counts}")
+        check(not [w for w in caught if "skipped" in str(w.message)],
+              f"{what}: the fast integrate skipped voxels (miss > 0)")
+        check_counts(counts, what, **want)
+        return out, counts
+
+    def surface_median(vol):
+        verts = raycast_vertices_cuda(vol, cam0, W, H)
+        hit = torch.isfinite(verts).all(-1)
+        check(float(hit.float().mean()) > 0.5, "raycast hit too few pixels")
+        return float(surface_distance(verts[hit]).median())
+
+    def tsdf_gap(a, b):
+        both = (a.weight > 0) & (b.weight > 0)
+        gap = (a.tsdf - b.tsdf)[both].abs()
+        same_w = float((a.weight == b.weight).float().mean())
+        p99 = gap.kthvalue(max(1, int(0.99 * gap.numel()))).values
+        return float(gap.mean()), float(p99), same_w
+
+    # GT poses, depth only
+    ref, _ = fuse_frames(exact.make_volume(device=dev), cam, frames, exact)
+    (vol, _), fuse_counts = counted(
+        lambda: fuse_frames(fast.make_volume(device=dev), cam, frames, fast),
+        "fuse_frames, fast", integrate_fast=n)
+    mean, p99, same_w = tsdf_gap(ref, vol)
+    med = surface_median(vol)
+    log(f"fast against exact fusion of {n} frames, 512^3: weights equal on "
+        f"{same_w:.6f} of the voxels; |tsdf diff| on voxels both updated: mean "
+        f"{mean:.4f} mm, p99 {p99:.4f} mm (gate: mean < {FAST_TSDF_MEAN_MM:.4f}); "
+        f"raycast hits a median {med:.4f} mm from the analytic surface; miss 0")
+    check(mean < FAST_TSDF_MEAN_MM, "fast fusion is far from the exact fusion")
+    check(med < SURFACE_MEDIAN_MM, "fast fusion: hits far from the surface")
+    fast_ms = median_ms(lambda: fuse_frames(vol, cam, frames, fast), reps=3) / n
+    exact_ms = median_ms(lambda: fuse_frames(ref, cam, frames, exact), reps=3) / n
+    fast_ms2 = median_ms(lambda: fuse_frames(vol, cam, frames, fast), reps=3) / n
+    exact_ms2 = median_ms(lambda: fuse_frames(ref, cam, frames, exact), reps=3) / n
+    log(f"fuse loop on the device, 512^3, ms/frame (medians of 3 runs of {n} "
+        f"frames, in turns): fast {fast_ms:.4f}, exact {exact_ms:.4f}, fast "
+        f"{fast_ms2:.4f}, exact {exact_ms2:.4f}")
+    del ref, vol
+
+    # GT poses, depth + colour
+    ref, _ = fuse_frames(exact.make_volume(device=dev).with_color(), cam,
+                         triples, exact)
+    (vol, _), color_counts = counted(
+        lambda: fuse_frames(fast.make_volume(device=dev).with_color(), cam,
+                            triples, fast),
+        "fuse_frames, fast, colour", integrate_color_fast=n)
+    mean, p99, same_w = tsdf_gap(ref, vol)
+    both = (ref.color > 0).any(-1) & (vol.color > 0).any(-1)
+    gap = (ref.color[both].float() - vol.color[both].float()).abs()
+    level = float(gap.mean())
+    log(f"colour-fast against exact colour fusion: weights equal on {same_w:.6f}, "
+        f"mean |tsdf diff| {mean:.4f} mm; colour on {int(both.sum())} voxels "
+        f"both coloured: mean |diff| {level:.4f} levels (gate < "
+        f"{FAST_COLOR_MEAN_LEVELS}), max {int(gap.max())}")
+    check(mean < FAST_TSDF_MEAN_MM, "colour-fast tsdf is far from exact")
+    check(level < FAST_COLOR_MEAN_LEVELS, "colour-fast colour is far from exact")
+    del ref, vol, both, gap
+
+    # tracked, depth only (no filter: the fast mode concerns the fuse)
+    depths = [d for d, _ in frames]
+    (out, tracked_counts) = counted(
+        lambda: track_and_fuse_frames(fast.make_volume(device=dev), cam0,
+                                      depths, fast),
+        "track_and_fuse_frames, fast", at_least=dict(lane_gather=19 * (n - 1)),
+        integrate_fast=n, raycast=n - 1)
+    vol, _cam, poses, stats = out
+    a = ate([p.cpu().numpy() for p in poses], gt_poses)
+    med = surface_median(vol)
+    inliers = [int(k) for _, k in stats[1:]]
+    log(f"tracked with fast integrate, {n} frames: ATE rmse {a['rmse']:.4f} mm "
+        f"(max {a['max']:.4f}), inliers {min(inliers)}..{max(inliers)}, raycast "
+        f"hits a median {med:.4f} mm from the analytic surface; miss 0")
+    check(a["rmse"] < ATE_MAX_MM, "fast tracked ATE is not under one voxel")
+    check(min(inliers) > 0.02 * W * H, "fast tracked loop lost a frame")
+    check(med < SURFACE_MEDIAN_MM, "fast tracked: hits far from the surface")
+    return dict(fuse=fuse_counts, color=color_counts, tracked=tracked_counts,
+                fast_ms_per_frame=fast_ms, exact_ms_per_frame=exact_ms)
+
+
 # -- the probe (--probe): the measurements behind PERF.md's findings --------
 
 
-def probe_main_path(dev, tum: str, out_dir: str) -> dict:
-    """The main path alone under cProfile: its host time per step and its
-    own peak of device memory (nothing else is allocated yet)."""
+def probe_main_path(dev, tum: str, out_dir: str, color: bool = False) -> dict:
+    """A main path alone under cProfile (``fuse``, or ``fuse --fuse-color
+    --color``): its host time per step and its own peak of device
+    memory."""
     import cProfile
     import pstats
 
     from tsdf_tpu_torch import cli
 
-    argv, outs = fuse_argv(dev, tum, out_dir)
+    extra = ("--fuse-color",) if color else ()
+    argv, outs = fuse_argv(dev, tum, out_dir, extra, color=color)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     prof = cProfile.Profile()
@@ -914,13 +1341,16 @@ def probe_main_path(dev, tum: str, out_dir: str) -> dict:
     check(rc == 0, f"fuse returned {rc}")
     text = io.StringIO()
     pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(
-        r"write_ply|save_tsdf|fuse_frames|extract_surface|_render_outputs")
+        r"write_ply|save_tsdf|fuse_frames|extract_surface|_render_outputs"
+        r"|sample_color_at|color_image")
     log(text.getvalue())
-    log(f"probe main path: {seconds:.3f} s, own peak device memory "
+    name = "colour path" if color else "main path"
+    log(f"probe {name}: {seconds:.3f} s, own peak device memory "
         f"{peak / 2**30:.3f} GiB")
     for f in outs.values():
         os.remove(f)
-    return dict(main_path_s=seconds, main_path_peak_gib=peak / 2**30)
+    key = "color_path" if color else "main_path"
+    return {f"{key}_s": seconds, f"{key}_peak_gib": peak / 2**30}
 
 
 def probe_integrate(dev, frames) -> dict:
@@ -1120,7 +1550,8 @@ def main() -> int:
     parser.add_argument(
         "--probe", action="store_true",
         help="instead of the smoke, measure what PERF.md's findings rest "
-             "on: the main path's host time per step and device peak, the "
+             "on: the main path's and the colour path's host time per step "
+             "and device peak, the "
              "integrate kernel on frames of different traffic, the fuse "
              "loop's idle share, the tracked loop's idle share",
     )
@@ -1161,6 +1592,7 @@ def main() -> int:
         os.makedirs(out_dir)
         if args.probe:
             found = probe_main_path(dev, tum, out_dir)
+            found.update(probe_main_path(dev, tum, out_dir, color=True))
             frames = load_frames(dev, tum)
             found.update(probe_integrate(dev, frames))
             found.update(probe_fuse_loop(dev, frames))
@@ -1177,6 +1609,11 @@ def main() -> int:
         del scene_vol
         results["bilateral"] = compare_bilateral(dev, frames[1][0])
         torch.cuda.empty_cache()
+        rgbs = load_rgbs(dev, tum)
+        check(len(rgbs) == len(frames) and all(c is not None for c in rgbs),
+              "a colour frame is missing")
+        results.update(compare_integrate_variants(dev, frames[:2], rgbs[:2]))
+        torch.cuda.empty_cache()
 
         first_pose = poses[0].astype(np.float32)
         gt_path = phase_gt_path(dev, tum, out_dir)
@@ -1192,6 +1629,15 @@ def main() -> int:
             os.remove(f)
         torch.cuda.empty_cache()
         phase_tracked_time(dev, frames, poses)
+        torch.cuda.empty_cache()
+
+        color_path = phase_color_path(dev, tum, out_dir, frames, rgbs)
+        for f in color_path["outs"].values():
+            os.remove(f)
+        torch.cuda.empty_cache()
+        color_tracked = phase_color_tracked_path(dev, tum, out_dir, rgbs)
+        torch.cuda.empty_cache()
+        fast = phase_fast(dev, frames, rgbs, poses)
 
     meta = {
         "integrate": ("tsdf_tpu_torch/csrc/integrate.cu",
@@ -1203,15 +1649,33 @@ def main() -> int:
         "bilateral": ("tsdf_tpu_torch/csrc/bilateral.cu",
                       "tsdf_tpu/kernels/bilateral.py:38"),
     }
-    # launches: on the tracked path, which runs all four kernels; beside
+    # launches: on the tracked path, which runs these four kernels; beside
     # it the counts on the GT-pose path and in the icp verb
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": tracked_path["counts"][k],
+         "launches_on": "fuse --track --filter",
          "launches_gt_path": gt_path["counts"][k],
          "launches_icp_verb": icp_counts[k], **results[k]}
         for k, (src, rep) in meta.items()
     ]
+    # the kernels of colour fusion and of the fast mode, each with the
+    # launches of the path that runs it
+    color_src = "tsdf_tpu_torch/csrc/integrate_color.cu"
+    for k, src, rep, counts, path, more in (
+        ("integrate_color", color_src, "tsdf_tpu/kernels/integrate.py:1087",
+         color_path["counts"], "fuse --fuse-color",
+         {"launches_tracked_color_path": color_tracked["counts"]["integrate_color"]}),
+        ("integrate_fast", "tsdf_tpu_torch/csrc/integrate_fast.cu",
+         "tsdf_tpu/kernels/integrate.py:371", fast["fuse"],
+         "fuse_frames(integrate_mode='fast')",
+         {"launches_tracked_fast": fast["tracked"]["integrate_fast"]}),
+        ("integrate_color_fast", color_src, "tsdf_tpu/kernels/integrate.py:1087",
+         fast["color"], "fuse_frames(integrate_mode='fast'), colour frames", {}),
+    ):
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": counts[k],
+                        "launches_on": path, **more, **results[k]})
     for entry in kernels:
         check(entry["launches"] > 0, f"{entry['name']} was never launched")
     log(smi)

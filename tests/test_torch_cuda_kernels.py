@@ -8,8 +8,9 @@ test configuration:
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: the kernels are built with --fmad=false and evaluate the
-twins' expressions in the same order, so integrate, gather and bilateral
-must agree bit for bit; raycast is held to the same gates as the twin-vs-JAX test
+twins' expressions in the same order, so integrate (exact, colour, fast and
+colour-fast, miss counts included), gather and bilateral must agree bit for
+bit; raycast is held to the same gates as the twin-vs-JAX test
 (hit masks >= 99.9% equal, median vertex difference < 0.5 mm).
 """
 
@@ -21,6 +22,7 @@ from tsdf_tpu_torch import Camera, make_volume
 from tsdf_tpu_torch.kernels import bilateral, gather, integrate, raycast
 from tsdf_tpu_torch.ops.bilateral import bilateral_filter as bilateral_plain
 from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
+from tsdf_tpu_torch.ops.integrate import integrate_fast as integrate_fast_plain
 from tsdf_tpu_torch.ops.raycast import raycast as raycast_plain
 from tsdf_tpu_torch.utils import fixtures
 
@@ -72,6 +74,104 @@ def test_integrate_kernel_matches_twin(dev, at, target):
     assert torch.equal(vol.weight, ref.weight)
     assert torch.equal(vol.tsdf, ref.tsdf)
     assert float(vol.weight.sum()) > 0
+
+
+def _rolled(cam, angle):
+    """``cam`` rolled about its optical axis: at about a radian every
+    voxel column's image line is steeper than |beta| = 1."""
+    c, s = float(np.cos(angle)), float(np.sin(angle))
+    roll = torch.tensor(
+        [[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1.0]],
+        device=cam.pose.device)
+    return cam.set_pose(cam.pose @ roll)
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize("mode", ["exact", "line", "fast"])
+@pytest.mark.parametrize(
+    "size,roll", [((64, 48, 40), 0.0), ((33, 50, 21), 0.0), ((64, 48, 40), 1.2)]
+)
+def test_color_and_fast_kernels_match_twins(dev, size, roll, mode, cap_weight):
+    """The colour kernel in its three modes and the depth-only fast kernel
+    against their twins over three frames (the later ones blend into
+    coloured, weighted voxels; max_weight 2 so the cap and the floored
+    rate both bite): tsdf, weight, colour bytes and miss counts equal. A
+    grid that is no multiple of the block or of 128, and a rolled camera
+    whose columns the fast convention skips and counts."""
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      max_weight=2.0, with_color=True, device=dev)
+    rng = np.random.default_rng(1)
+    depth = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0)
+    depth = depth.astype(np.float32) + rng.uniform(0, 5, depth.shape).astype(
+        np.float32) * (depth > 0)
+    depth = torch.from_numpy(depth).to(dev)
+    fast = mode == "fast"
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                      color=vol.color.clone())
+    plain = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                        color=None)
+    plain_ref = plain
+    kernel = integrate.KERNEL_COLOR_FAST if fast else integrate.KERNEL_COLOR
+    misses = []
+    for i in range(3):
+        cam = _rolled(_camera(dev, [400.0 + 30 * i, -250.0, -600.0],
+                              [-100.0, 150.0, 1200.0]), roll)
+        rgb = torch.from_numpy(
+            np.roll(fixtures.gradient_rgb(W, H, diagonal=True), 17 * i, axis=1)
+        ).contiguous().to(dev)
+        if fast:
+            ref, want_miss = integrate_fast_plain(
+                ref, depth, cam, cap_weight=cap_weight, rgb=rgb)
+            plain_ref, want_plain_miss = integrate_fast_plain(
+                plain_ref, depth, cam, cap_weight=cap_weight)
+        else:
+            ref = integrate_plain(ref, depth, cam, cap_weight=cap_weight,
+                                  rgb=rgb)
+            want_miss = torch.zeros((), dtype=torch.int32)
+        before = kernel.launches
+        vol, miss = integrate.integrate_color_cuda(
+            vol, depth, rgb, cam, cap_weight=cap_weight, mode=mode)
+        assert kernel.launches == before + 1
+        assert int(miss) == int(want_miss)
+        misses.append(int(miss))
+        if fast:
+            before = integrate.KERNEL_FAST.launches
+            plain, miss = integrate.integrate_fast_cuda(
+                plain, depth, cam, cap_weight=cap_weight)
+            assert integrate.KERNEL_FAST.launches == before + 1
+            assert int(miss) == int(want_plain_miss) == int(want_miss)
+    torch.cuda.synchronize()
+    assert torch.equal(vol.weight, ref.weight)
+    assert torch.equal(vol.tsdf, ref.tsdf)
+    assert torch.equal(vol.color, ref.color)
+    if fast:
+        assert torch.equal(plain.weight, plain_ref.weight)
+        assert torch.equal(plain.tsdf, plain_ref.tsdf)
+        assert torch.equal(plain.weight, vol.weight)
+    if fast and roll:
+        assert min(misses) > 0 and float(vol.weight.sum()) == 0
+    else:
+        assert misses == [0, 0, 0]
+        assert float(vol.weight.max()) == (2.0 if cap_weight else 3.0)
+        assert int((vol.color > 0).sum()) > 100
+
+
+def test_color_kernel_refuses_what_it_does_not_take(dev):
+    vol = make_volume((16,) * 3, 1000.0, with_color=True, device=dev)
+    cam = _camera(dev, [0.0, 0.0, -300.0], [0.0, 0.0, 500.0])
+    depth = torch.zeros((H, W), device=dev)
+    rgb = torch.zeros((H, W, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="does not match depth"):
+        integrate.integrate_color_cuda(vol, depth, rgb[:-1], cam)
+    with pytest.raises(ValueError, match="no colour field"):
+        integrate.integrate_color_cuda(vol.replace(color=None), depth, rgb, cam)
+    with pytest.raises(TypeError):
+        integrate.integrate_color_cuda(vol, depth, rgb.to(torch.float32), cam)
+    with pytest.raises(ValueError, match="mode"):
+        integrate.integrate_color_cuda(vol, depth, rgb, cam, mode="nearest")
+    with pytest.raises(ValueError):
+        integrate.integrate_color_cuda(vol, depth, rgb.cpu(), cam)
+    assert float(vol.weight.sum()) == 0.0
 
 
 def test_raycast_kernel_matches_twin(dev):

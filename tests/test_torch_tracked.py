@@ -275,15 +275,24 @@ def test_rgb_frames_and_deformed_volume_raise(frames):
     depths, gt = frames
     cfg, vol, cam = _port_volume_and_camera(gt[0])
     rgb = np.zeros((H, W, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a colour frame needs a volume with a colour field
+    with pytest.raises(ValueError, match="no colour field"):
         track_and_fuse_frames(vol, cam, [(depths[0], rgb)], cfg)
     deformed = vol.replace(deform=vol.voxel_centres())
     with pytest.raises(ValueError, match="deformation"):
         track_and_fuse_frames(deformed, cam, depths[:1], cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="integrate_mode"):
         track_and_fuse_frames(
-            vol, cam, depths[:1], dataclasses.replace(cfg, integrate_mode="fast"))
+            vol, cam, depths[:1], dataclasses.replace(cfg, integrate_mode="nearest"))
     assert float(vol.weight.sum()) == 0.0
+    # with a colour field the (depth, rgb) frame fuses, and "fast" runs
+    coloured, _, poses, _ = track_and_fuse_frames(
+        vol.with_color(), cam, [(depths[0], rgb + 9)], cfg)
+    assert int(coloured.color.max()) == 9 and len(poses) == 1
+    fast, _, _, _ = track_and_fuse_frames(
+        cfg.make_volume(device=CPU), cam, depths[:1],
+        dataclasses.replace(cfg, integrate_mode="fast"))
+    assert float(fast.weight.sum()) > 0.0
 
 
 def test_fuse_frames_filters_the_fused_depth(frames):

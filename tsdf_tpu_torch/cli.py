@@ -4,18 +4,23 @@ Verbs:
 
   fuse     kinfu -m N -d dir: fuse TUM frames with their ground-truth
            poses, or with --track by ICP against the raycast model
-           (--filter: bilateral prefilter), write
-           scene.png/normals.png/mesh.ply and, with -o, a .tsdf file
-  render   load a .tsdf, raycast it to scene/normals PNGs
-  mesh     marching cubes a .tsdf to PLY
+           (--filter: bilateral prefilter; --fuse-color: fuse the
+           rgb/<stamp>.png frames into per-voxel colour), write
+           scene.png/normals.png/mesh.ply, with --color a colour render
+           and, with -o, a .tsdf file
+  render   load a .tsdf, raycast it to scene/normals (and --color) PNGs
+  mesh     marching cubes a .tsdf to PLY (--color: per-vertex RGB)
   icp      raycast a .tsdf to depth, ICP against a depth PNG, print the
            incremental pose + lastError/lastInliers
 
 Every verb takes ``--device`` (default ``cuda``). On a CUDA device every
-integration, raycast, bilateral filter and lane gather a verb makes is the
-CUDA kernel (``icp`` launches the raycast kernel alone: its exact
-association makes no lane gather); ``--device cpu`` runs their plain
-PyTorch twins. ``--device cuda`` without a card raises.
+integration (depth, or depth + colour with --fuse-color), raycast,
+bilateral filter and lane gather a verb makes is the CUDA kernel (``icp``
+launches the raycast kernel alone: its exact association makes no lane
+gather); the colour render and the per-vertex colours are plain PyTorch
+on the volume's device, as they are plain XLA in the JAX package;
+``--device cpu`` runs the kernels' plain PyTorch twins. ``--device cuda``
+without a card raises.
 
 Run as ``python -m tsdf_tpu_torch <verb> ...``.
 """
@@ -32,7 +37,6 @@ import torch
 
 # Flags of the JAX CLI whose paths are not ported yet.
 _NOT_PORTED = {
-    "fuse_color": "--fuse-color (colour fusion)",
     "devices": "--devices (multi-device fusion)",
 }
 
@@ -85,7 +89,7 @@ def _add_device_arg(p):
 def _render_outputs(vol, camera, args):
     from .io.png import save_png
     from .kernels.raycast import raycast_cuda
-    from .ops.shading import normals_image, scene_image
+    from .ops.shading import color_image, normals_image, scene_image
 
     verts, normals = raycast_cuda(
         vol, camera, width=args.width, height=args.height
@@ -97,11 +101,18 @@ def _render_outputs(vol, camera, args):
     if args.normals:
         save_png(args.normals, normals_image(normals).cpu().numpy())
         print(f"wrote {args.normals}")
+    if args.color:
+        save_png(args.color, color_image(vol, verts).cpu().numpy())
+        print(f"wrote {args.color}")
 
 
-def _write_mesh(vol, path, max_cubes, max_vertices):
+def _write_mesh(vol, path, max_cubes, max_vertices, color=False):
     from .io.ply import write_ply
-    from .ops.marching_cubes import extract_surface, soup_to_numpy
+    from .ops.marching_cubes import (
+        extract_surface,
+        sample_color_at,
+        soup_to_numpy,
+    )
 
     soup = extract_surface(vol, max_cubes=max_cubes, max_vertices=max_vertices)
     if bool(soup.overflowed):
@@ -111,7 +122,18 @@ def _write_mesh(vol, path, max_cubes, max_vertices):
             file=sys.stderr,
         )
     verts, tris = soup_to_numpy(soup)
-    write_ply(path, verts, tris)
+    colors = None
+    if color:
+        if vol.color is None:
+            print(
+                "warning: --color requested but the volume has no "
+                "colour field (fuse with --fuse-color); writing "
+                "position-only PLY",
+                file=sys.stderr,
+            )
+        else:
+            colors = sample_color_at(vol, verts)
+    write_ply(path, verts, tris, colors=colors)
     print(f"wrote {path} ({len(verts)} vertices, {len(tris)} triangles)")
 
 
@@ -123,6 +145,13 @@ def cmd_fuse(args):
         track_and_fuse_frames,
     )
 
+    if args.fuse_color and args.track and args.devices:
+        print(
+            "--fuse-color --track --devices is not supported "
+            "(tracked colour runs single-device); drop --devices",
+            file=sys.stderr,
+        )
+        return 1
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag):
             print(
@@ -141,6 +170,8 @@ def cmd_fuse(args):
         icp_conv_eps=args.icp_eps,
     )
     vol = cfg.make_volume(device=device)
+    if args.fuse_color:
+        vol = vol.with_color()
     camera = _make_camera(args, device)
 
     loader = TUMDataLoader(args.dir)
@@ -158,15 +189,23 @@ def cmd_fuse(args):
     gt_poses = []
 
     def stream(with_pose):
-        for depth_img, pose in itertools.islice(loader, n):
+        # with --fuse-color every frame carries its rgb image, or None
+        # where rgb/<stamp>.png is missing: a GT-pose frame without one
+        # fuses depth only, the tracked loop wants all or none
+        source = loader.iter_with_rgb() if args.fuse_color else loader
+        for depth_img, pose, *rgb in itertools.islice(source, n):
             gt_poses.append(pose)
             # u16 mm, as loaded: a filter on the fused depth rounds back
             # to u16; both pipelines convert to float32 on the device
-            depth = torch.from_numpy(depth_img.data).to(device)
+            frame = [torch.from_numpy(depth_img.data).to(device)]
             if with_pose:
-                yield depth, torch.as_tensor(pose, device=device)
-            else:
-                yield depth
+                frame.append(torch.as_tensor(pose, device=device))
+            if args.fuse_color:
+                (rgb,) = rgb
+                frame.append(
+                    None if rgb is None else torch.from_numpy(rgb).to(device)
+                )
+            yield tuple(frame) if len(frame) > 1 else frame[0]
 
     _sync(device)
     t0 = time.perf_counter()
@@ -182,8 +221,8 @@ def cmd_fuse(args):
     if args.track:
         err, inl = stats[-1]
         print(
-            f"tracked {len(poses)} frames; lastError={float(err):.2f}mm "
-            f"lastInliers={int(inl)}"
+            f"tracked {len(poses)}{' colour' if args.fuse_color else ''} "
+            f"frames; lastError={float(err):.2f}mm lastInliers={int(inl)}"
         )
         # trajectory error against the dataset's ground truth
         if len(gt_poses) == len(poses) and len(poses) >= 2:
@@ -197,6 +236,8 @@ def cmd_fuse(args):
                 f"max={a['max']:.2f}mm; RPE trans={r['trans_rmse']:.2f}mm"
                 f"/frame rot={r['rot_rmse']*1e3:.2f}mrad/frame"
             )
+    elif args.fuse_color:
+        print(f"fused {len(gt_poses)} frames with colour")
     print(
         f"{'tracked and fused' if args.track else 'fused'} {n} frames in "
         f"{seconds:.3f} s ({1000.0 * seconds / n:.2f} ms/frame, PNG decode "
@@ -213,7 +254,10 @@ def cmd_fuse(args):
     camera = camera.set_pose(first_pose)
     _render_outputs(vol, camera, args)
     if args.mesh:
-        _write_mesh(vol, args.mesh, args.max_cubes, args.max_vertices)
+        _write_mesh(
+            vol, args.mesh, args.max_cubes, args.max_vertices,
+            color=args.fuse_color,
+        )
     return 0
 
 
@@ -274,7 +318,9 @@ def cmd_mesh(args):
 
     device = resolve_device(args.device)
     vol = load_tsdf(args.file, device=device)
-    _write_mesh(vol, args.out, args.max_cubes, args.max_vertices)
+    _write_mesh(
+        vol, args.out, args.max_cubes, args.max_vertices, color=args.color
+    )
     return 0
 
 
@@ -301,11 +347,16 @@ def main(argv=None):
         help="ICP early-exit threshold on the per-iteration update "
         "(|v| mm + 1000*|w| rad); 0 = the full 10/5/4 schedule",
     )
-    p.add_argument("--fuse-color", action="store_true", help="not yet ported")
+    p.add_argument(
+        "--fuse-color", action="store_true",
+        help="fuse rgb/<stamp>.png frames into per-voxel colour (with the "
+        "ground-truth poses, or with --track at the tracked poses)",
+    )
     p.add_argument("--devices", help="not yet ported")
     p.add_argument("-o", "--out", help="output .tsdf")
     p.add_argument("--scene", default="scene.png")
     p.add_argument("--normals", default="normals.png")
+    p.add_argument("--color", help="colour render PNG (needs a colour volume)")
     p.add_argument("--mesh", default="mesh.ply")
     p.add_argument("--max-cubes", type=int, default=1 << 18)
     p.add_argument("--max-vertices", type=int, default=1 << 20)
@@ -317,6 +368,7 @@ def main(argv=None):
     p.add_argument("-f", "--file", required=True)
     p.add_argument("--scene", default="scene.png")
     p.add_argument("--normals", default="normals.png")
+    p.add_argument("--color", help="colour render PNG (needs a colour volume)")
     p.add_argument("--look-from", help="x,y,z mm")
     p.add_argument("--look-at", help="x,y,z mm")
     _add_device_arg(p)
@@ -328,6 +380,10 @@ def main(argv=None):
     p.add_argument("-o", "--out", default="mesh.ply")
     p.add_argument("--max-cubes", type=int, default=1 << 18)
     p.add_argument("--max-vertices", type=int, default=1 << 20)
+    p.add_argument(
+        "--color", action="store_true",
+        help="per-vertex RGB sampled from the fused colour volume",
+    )
     _add_device_arg(p)
     p.set_defaults(fn=cmd_mesh)
 

@@ -5,7 +5,8 @@ Port of ``tsdf_tpu/io/tum.py``: parses ``<dir>/ground_truth.txt`` lines
 through the zlib PNG codec, scales TUM depth (1/5000 m units) to mm
 (x 0.2) and converts the 7-float pose to a 4x4 camera->world matrix with
 translation in mm. Frames are decoded one at a time on the calling
-thread.
+thread. ``iter_with_rgb`` adds the colour frame ``<dir>/rgb/<timestamp>.png``
+where there is one.
 """
 
 from __future__ import annotations
@@ -70,3 +71,21 @@ class TUMDataLoader:
     def load(depth_path: str) -> DepthImage:
         # TUM depth PNGs are in 1/5000 m; x 0.2 converts to mm.
         return DepthImage.from_png(depth_path).scale_depth(0.2)
+
+    def iter_with_rgb(self):
+        """Yield (DepthImage, pose, rgb | None) triples: ``rgb`` is the
+        (H, W, 3) u8 image ``rgb/<stamp>.png`` sharing the depth frame's
+        timestamp (a greyscale PNG is broadcast to three channels), or None
+        where the file is missing."""
+        from .png import load_png
+
+        for depth_path, pose in self.entries:
+            stamp = os.path.splitext(os.path.basename(depth_path))[0]
+            rgb_path = os.path.join(self.directory, "rgb", f"{stamp}.png")
+            rgb = None
+            if os.path.exists(rgb_path):
+                img = load_png(rgb_path)
+                if img.ndim == 2:
+                    img = np.repeat(img[..., None], 3, axis=-1)
+                rgb = np.ascontiguousarray(img[..., :3].astype(np.uint8))
+            yield self.load(depth_path), pose, rgb

@@ -11,6 +11,9 @@ from . import bilateral, gather, integrate, raycast
 
 KERNELS = {
     "integrate": integrate.KERNEL,
+    "integrate_color": integrate.KERNEL_COLOR,
+    "integrate_fast": integrate.KERNEL_FAST,
+    "integrate_color_fast": integrate.KERNEL_COLOR_FAST,
     "raycast": raycast.KERNEL,
     "lane_gather": gather.KERNEL,
     "bilateral": bilateral.KERNEL,

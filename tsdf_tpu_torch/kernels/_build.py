@@ -66,7 +66,8 @@ def build(force: bool = False) -> Path:
     its path. Raises RuntimeError with nvcc's output on failure."""
     lib = library_path()
     srcs = _sources()
-    newest = max(s.stat().st_mtime for s in srcs)
+    # a header (*.cuh) shared by several sources makes the library stale too
+    newest = max(s.stat().st_mtime for s in [*srcs, *CSRC.glob("*.cuh")])
     if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

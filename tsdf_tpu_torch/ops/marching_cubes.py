@@ -205,3 +205,54 @@ def soup_to_numpy(soup: TriangleSoup):
     verts = soup.vertices[:n].detach().cpu().numpy()
     tris = np.arange(n, dtype=np.int32).reshape(-1, 3)
     return verts, tris
+
+
+def sample_color_at(vol: TSDFVolume, vertices) -> np.ndarray:
+    """Trilinear sample of the fused colour volume at world points: the
+    per-vertex colours of a mesh export.
+
+    Voxel centres lie at offset + (i + 0.5) * voxel_size and coordinates
+    clamp to the lattice, as in the TSDF interpolation. The eight taps are
+    gathered as bytes on the volume's device (no float copy of the colour
+    field) and summed in float32 in the order z, y, x.
+
+    Args:
+      vol: volume with ``color`` (Z, Y, X, 3) u8 (see ``with_color()``).
+      vertices: (N, 3) world-mm points (x, y, z), numpy or tensor.
+
+    Returns:
+      (N, 3) u8 RGB, numpy.
+    """
+    if vol.color is None:
+        raise ValueError(
+            "volume has no colour field; fuse with rgb / with_color()"
+        )
+    dev = vol.device
+    verts = torch.as_tensor(
+        np.asarray(vertices, dtype=np.float32), device=dev
+    ).reshape(-1, 3)
+    sz, sy, sx = vol.tsdf.shape
+    cf = (verts - vol.offset[None, :]) / vol.voxel_size[None, :] - 0.5
+    i0 = torch.floor(cf)
+    # the weights are formed in float64 and rounded once, as the JAX
+    # package's numpy version does (float32 minus int64 promotes)
+    frac = (cf - i0).to(torch.float64)
+    i0 = i0.to(torch.int64)
+    top = torch.tensor([sx - 1, sy - 1, sz - 1], dtype=torch.int64, device=dev)
+    zero = torch.zeros_like(top)
+    lo = torch.minimum(torch.maximum(i0, zero), top)
+    hi = torch.minimum(torch.maximum(i0 + 1, zero), top)
+
+    out = torch.zeros((len(verts), 3), dtype=torch.float32, device=dev)
+    for dz in (0, 1):
+        zi = (hi if dz else lo)[:, 2]
+        wz = frac[:, 2] if dz else 1.0 - frac[:, 2]
+        for dy in (0, 1):
+            yi = (hi if dy else lo)[:, 1]
+            wy = frac[:, 1] if dy else 1.0 - frac[:, 1]
+            for dx in (0, 1):
+                xi = (hi if dx else lo)[:, 0]
+                wx = frac[:, 0] if dx else 1.0 - frac[:, 0]
+                w = (wz * wy * wx).to(torch.float32)
+                out += w[:, None] * vol.color[zi, yi, xi].to(torch.float32)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8).cpu().numpy()

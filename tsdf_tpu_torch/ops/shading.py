@@ -1,5 +1,5 @@
-"""Lambertian shading and normal-map images (port of
-``tsdf_tpu/ops/shading.py``; elementwise, plain PyTorch)."""
+"""Lambertian shading, normal-map and fused-colour images (port of
+``tsdf_tpu/ops/shading.py``; plain PyTorch)."""
 
 from __future__ import annotations
 
@@ -24,3 +24,27 @@ def normals_image(normals) -> torch.Tensor:
     n[..., 2] = n[..., 2].abs()
     img = torch.floor(((n / 2.0) + 0.5) * 255.0)
     return torch.clamp(img, 0, 255).to(torch.uint8)
+
+
+def color_image(vol, vertices) -> torch.Tensor:
+    """(H, W, 3) u8 render of the fused per-voxel colour at raycast hits:
+    each channel sampled trilinearly at the hit vertex, rounded half to
+    even; missed rays (NaN vertices) render black."""
+    from .trilinear import trilinear_sample
+
+    if vol.color is None:
+        raise ValueError("volume has no colour field (use with_color())")
+    valid = torch.isfinite(vertices).all(dim=-1)
+    pts = torch.where(
+        valid[..., None], vertices, torch.zeros_like(vertices)
+    ) - vol.space_min
+    vs = vol.voxel_size
+    rgb = torch.stack(
+        [
+            trilinear_sample(vol.color[..., c].to(torch.float32), pts, vs)
+            for c in range(3)
+        ],
+        dim=-1,
+    )
+    rgb = torch.where(valid[..., None], rgb, torch.zeros_like(rgb))
+    return torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)

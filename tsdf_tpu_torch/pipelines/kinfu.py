@@ -5,19 +5,27 @@ Port of ``tsdf_tpu/pipelines/kinfu.py``: ``FusionConfig``,
 full loop: bilateral filter -> model raycast -> ICP -> gated integrate) as
 plain per-frame loops. On a CUDA volume each frame launches the
 hand-written kernels: bilateral, raycast, the lane gather inside every
-ICP iteration, and integrate.
+ICP iteration, and the integrate kernel its frame and
+``FusionConfig.integrate_mode`` select (depth or depth + colour, exact or
+the decimated "fast" convention).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Iterable, Optional
 
 import torch
 
 from ..camera import Camera
 from ..kernels.bilateral import bilateral_filter_cuda
-from ..kernels.integrate import integrate_cuda
+from ..kernels.integrate import (
+    MODES,
+    integrate_color_cuda,
+    integrate_cuda,
+    integrate_fast_cuda,
+)
 from ..kernels.raycast import raycast_vertices_cuda
 from ..ops.raycast import vertices_to_camera_depth
 from ..tracking.icp import get_incremental_transformation
@@ -47,8 +55,11 @@ class FusionConfig:
     # Row band of the banded ICP association at level 0 (0 = the exact
     # association only).
     icp_band: int = 32
-    # "exact" and "line" both run the exact kernel: on the card every
+    # "exact" and "line" both run the exact kernels: on the card every
     # voxel reads its own pixel, so there is no line approximation.
+    # "fast" samples a (2 x 4)-decimated image on each voxel column's
+    # image line: a resampling convention within ~3 px of the exact pixel,
+    # not exact, which skips (and counts) columns steeper than |beta| = 1.
     integrate_mode: str = "line"
     # The banded association drops correspondences displaced vertically
     # by more than icp_band pixels (fast motion). If the final inlier
@@ -69,46 +80,93 @@ class FusionConfig:
 
 
 def _check_integrate_mode(config: FusionConfig) -> None:
-    if config.integrate_mode == "fast":
-        raise NotImplementedError(
-            "integrate_mode='fast' (the decimated-depth kernel) is not "
-            "ported yet; see ROADMAP.md"
-        )
-    if config.integrate_mode not in ("exact", "line"):
+    if config.integrate_mode not in MODES:
         raise ValueError(f"unknown integrate_mode {config.integrate_mode!r}")
+
+
+def _integrate(vol, depth, camera, config: FusionConfig, miss_log, rgb=None):
+    """Fuse one frame with the kernel the frame and the mode select. A
+    kernel that returns a miss count leaves it on the device, in
+    ``miss_log``; ``_check_misses`` reads the run's counts once."""
+    if rgb is not None:
+        vol, miss = integrate_color_cuda(
+            vol, depth, rgb, camera, cap_weight=config.cap_weight,
+            mode=config.integrate_mode,
+        )
+    elif config.integrate_mode == "fast":
+        vol, miss = integrate_fast_cuda(
+            vol, depth, camera, cap_weight=config.cap_weight
+        )
+    else:
+        return integrate_cuda(vol, depth, camera, cap_weight=config.cap_weight)
+    miss_log.append(miss)
+    return vol
+
+
+def _check_misses(miss_log, config: FusionConfig) -> None:
+    """One reduction on the device and one scalar read over the run's miss
+    counts: non-zero means some voxels lost observations (only the "fast"
+    mode can skip a voxel here)."""
+    if not miss_log:
+        return
+    total = int(torch.stack(miss_log).sum())
+    if total:
+        warnings.warn(
+            f"{total} voxel observations skipped by the line-warp "
+            f"integrate (mode={config.integrate_mode}, nk=1); re-run with "
+            "FusionConfig(integrate_mode='exact') -- the fast mode skips "
+            "columns steeper than |beta| = 1 (extreme camera roll)."
+        )
+
+
+def _rgb_on(device, rgb):
+    """A frame's colour image as a contiguous uint8 tensor on ``device``
+    (None stays None)."""
+    if rgb is None:
+        return None
+    return torch.as_tensor(rgb).to(device).contiguous()
 
 
 def fuse_frames(
     vol: TSDFVolume,
     camera: Camera,
-    frames: Iterable[tuple[torch.Tensor, torch.Tensor]],
+    frames: Iterable[tuple],
     config: FusionConfig = FusionConfig(),
 ) -> tuple[TSDFVolume, Camera]:
-    """Fuse (depth, pose) frames with ground-truth poses.
+    """Fuse (depth, pose) or (depth, pose, rgb) frames with ground-truth
+    poses.
 
     With ``use_bilateral_filter`` the fused depth is filtered first
     (denoising for raw sensor data; the tracked pipeline instead filters
     only the tracker's input and fuses raw depth).
 
     Args:
-      vol: the volume; its tsdf/weight are updated in place.
+      vol: the volume; its tsdf/weight (and colour) are updated in place.
       camera: intrinsics; its pose is replaced by each frame's.
       frames: iterable of (depth (H, W) mm, float32 or uint16, pose (4, 4)
         camera->world), on the volume's device. A uint16 frame is filtered
         as uint16 (rounded back to whole mm) and converted for the fuse.
+        A third element, rgb (H, W, 3) uint8, fuses per-voxel colour into
+        a volume with a colour field; a frame whose rgb is None fuses
+        depth only.
 
-    Returns (volume, camera at the last pose).
+    Returns (volume, camera at the last pose). Warns if the "fast" mode
+    skipped voxels (one host read of the miss counts, after the last
+    frame).
     """
     _check_integrate_mode(config)
-    for depth, pose in frames:
+    miss_log: list = []
+    for depth, pose, *rest in frames:
         camera = camera.set_pose(pose)
         if config.use_bilateral_filter:
             depth = bilateral_filter_cuda(
                 depth, config.sigma_colour, config.sigma_space
             )
-        vol = integrate_cuda(
-            vol, depth.to(torch.float32), camera, cap_weight=config.cap_weight
+        rgb = _rgb_on(vol.device, rest[0]) if rest else None
+        vol = _integrate(
+            vol, depth.to(torch.float32), camera, config, miss_log, rgb=rgb
         )
+    _check_misses(miss_log, config)
     return vol, camera
 
 
@@ -140,13 +198,18 @@ def track_and_fuse_frames(
     Host syncs: one per tracked frame, the read of the inlier count that
     decides the fallback (two on a frame that takes the fallback: the
     second decides whether it is lost); with ``icp_conv_eps > 0`` one more
-    per executed ICP iteration (``tracking.icp.run_level``).
+    per executed ICP iteration (``tracking.icp.run_level``); one after the
+    last frame for the miss counts of colour or "fast" fusion.
 
     Args:
-      vol: the volume; its tsdf/weight are updated in place.
+      vol: the volume; its tsdf/weight (and colour) are updated in place.
       camera: intrinsics and the first frame's pose.
       frames: iterable of depth images (H, W) in mm: tensors on the
-        volume's device, or numpy arrays, of any real dtype.
+        volume's device, or numpy arrays, of any real dtype; or of
+        (depth, rgb) pairs, rgb (H, W, 3) uint8, which fuse per-voxel
+        colour into a volume with a colour field at the tracked pose (the
+        tracker itself stays depth-only; a lost frame fuses neither).
+        Either every frame carries an rgb image or none does.
 
     Returns:
       (volume, camera at the final pose, list of (4, 4) per-frame poses,
@@ -174,18 +237,22 @@ def track_and_fuse_frames(
 
     poses = []
     stats = []
+    miss_log: list = []
+    has_rgb = None
     for frame in frames:
-        if isinstance(frame, tuple):
-            raise NotImplementedError(
-                "(depth, rgb) frames: tracked colour fusion is not ported "
-                "yet; see ROADMAP.md (integrate_color_pallas)"
+        frame, rgb = frame if isinstance(frame, tuple) else (frame, None)
+        rgb = _rgb_on(dev, rgb)
+        if has_rgb is None:
+            has_rgb = rgb is not None
+        elif (rgb is not None) != has_rgb:
+            raise ValueError(
+                "track_and_fuse_frames needs a consistent rgb presence "
+                "across frames"
             )
         depth = torch.as_tensor(frame).to(dev).to(torch.float32).contiguous()
         if not poses:
             stats.append((zero, zero))
-            vol = integrate_cuda(
-                vol, depth, camera, cap_weight=config.cap_weight
-            )
+            vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
             poses.append(camera.pose)
             continue
 
@@ -210,8 +277,7 @@ def track_and_fuse_frames(
             # res.pose maps current-camera into previous-camera
             # coordinates: new camera->world = previous pose o T_prev_curr
             camera = camera.set_pose(matmul_small(camera.pose, res.pose))
-            vol = integrate_cuda(
-                vol, depth, camera, cap_weight=config.cap_weight
-            )
+            vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
         poses.append(camera.pose)
+    _check_misses(miss_log, config)
     return vol, camera, poses, stats

@@ -85,6 +85,29 @@ def wall_depth_map(
     return np.clip(depth, min_depth, max_depth).astype(np.uint16)
 
 
+def gradient_rgb(width: int, height: int, diagonal: bool = False) -> np.ndarray:
+    """u8 (H, W, 3) colour frame of smooth gradients: red grows down the
+    rows, green along the columns. Blue is a constant 96, or with
+    ``diagonal`` grows along the diagonal (integer arithmetic, so the
+    frame is the same on every platform)."""
+    ys = np.arange(height)[:, None]
+    xs = np.arange(width)[None, :]
+    if diagonal:
+        chans = [
+            np.broadcast_to(ys * 255 // height, (height, width)),
+            np.broadcast_to(xs * 255 // width, (height, width)),
+            (ys + xs) * 255 // (height + width),
+        ]
+    else:
+        ys, xs = ys.astype(np.float32), xs.astype(np.float32)
+        chans = [
+            np.broadcast_to(255.0 * ys / (height - 1.0), (height, width)),
+            np.broadcast_to(255.0 * xs / (width - 1.0), (height, width)),
+            np.full((height, width), 96.0),
+        ]
+    return np.stack(chans, axis=-1).astype(np.uint8)
+
+
 def kinect_noise(
     depth: torch.Tensor,
     generator: torch.Generator,

@@ -8,12 +8,14 @@ Port of ``tsdf_tpu/volume.py``. Layout and units are the reference's:
 * distances, physical size, offset and truncation are millimetres.
 
 Unlike the JAX pytree, the tensors here may be updated in place: the
-CUDA integrate kernel writes ``tsdf``/``weight`` directly (see
-``kernels/integrate.py``). Storage is float32 only.
+CUDA integrate kernels write ``tsdf``/``weight`` (and ``color``) directly
+(see ``kernels/integrate.py``). Storage is float32 only.
 
-``color``, ``deform`` and ``deform_rot`` are carried for the ``.tsdf``
-file format; the rigid path in this package never reads them, and
-``integrate`` refuses a volume with a deformation field.
+``color`` is the fused per-voxel RGB, (Z, Y, X, 3) uint8 interleaved as in
+the ``.tsdf`` file; colour fusion needs it (``with_color()``). ``deform``
+and ``deform_rot`` are carried for the ``.tsdf`` file format; the rigid
+path in this package never reads them, and ``integrate`` refuses a volume
+with a deformation field.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class TSDFVolume:
       truncation_distance: () f32, 1.1 * ||voxel_size|| by default.
       max_weight: () f32.
       global_rotation / global_translation: (3,) f32 whole-field pose.
-      color: (Z, Y, X, 3) u8 or None (file-format state only).
+      color: (Z, Y, X, 3) u8 fused colour, or None.
       deform / deform_rot: (Z, Y, X, 3) f32 or None (file-format state
         only: the deformed voxel centres and their Euler rotations).
     """
@@ -109,6 +111,33 @@ class TSDFVolume:
                 cz[:, None, None].expand(sz, sy, sx),
             ],
             dim=-1,
+        )
+
+    # -- mutation as replacement --------------------------------------------
+
+    def clear(self) -> "TSDFVolume":
+        """A cleared copy: weights 0, distances +truncation_distance,
+        colours 0, deformation at the identity."""
+        return self.replace(
+            tsdf=self.truncation_distance.expand(self.tsdf.shape).clone(),
+            weight=torch.zeros_like(self.weight),
+            color=None if self.color is None else torch.zeros_like(self.color),
+            deform=None if self.deform is None else self.voxel_centres(),
+            deform_rot=(
+                None
+                if self.deform_rot is None
+                else torch.zeros_like(self.deform_rot)
+            ),
+        )
+
+    def with_color(self) -> "TSDFVolume":
+        """The same volume with a zeroed colour field."""
+        return self.replace(
+            color=torch.zeros(
+                tuple(self.tsdf.shape) + (3,),
+                dtype=torch.uint8,
+                device=self.device,
+            )
         )
 
     # -- state carried across frameworks ---------------------------------
@@ -181,6 +210,7 @@ def make_volume(
     offset=None,
     truncation_distance: float | None = None,
     max_weight: float = DEFAULT_MAX_WEIGHT,
+    with_color: bool = False,
     *,
     device,
 ) -> TSDFVolume:
@@ -192,6 +222,7 @@ def make_volume(
       offset: world coords of the grid origin; defaults to centring the
         volume on x/y and starting z at 0 (the reference tools' usage).
       truncation_distance: defaults to 1.1 * ||voxel_size||.
+      with_color: allocate the (Z, Y, X, 3) uint8 colour field.
     """
     sx, sy, sz = size
     ps = torch.as_tensor(physical_size, dtype=_F32, device=device)
@@ -208,7 +239,7 @@ def make_volume(
         trunc = 1.1 * torch.sqrt(vv[0] + vv[1] + vv[2])
     else:
         trunc = torch.tensor(truncation_distance, dtype=_F32, device=device)
-    return TSDFVolume(
+    vol = TSDFVolume(
         tsdf=trunc.expand(sz, sy, sx).clone(),
         weight=torch.zeros((sz, sy, sx), dtype=_F32, device=device),
         physical_size=ps,
@@ -218,3 +249,4 @@ def make_volume(
         global_rotation=torch.zeros(3, dtype=_F32, device=device),
         global_translation=torch.zeros(3, dtype=_F32, device=device),
     )
+    return vol.with_color() if with_color else vol
