@@ -1,7 +1,8 @@
 """Chip smoke of the PyTorch/CUDA port: the GT-pose fuse -> render -> mesh
 path, the tracked KinectFusion loop, colour fusion (GT-pose and tracked)
-and the decimated "fast" integrate mode on one NVIDIA card, at the
-repository's 512^3 / 640x480 size.
+and the decimated "fast" integrate mode at the repository's 512^3 /
+640x480 size, and non-rigid SceneFusion at the reference's 255^3 /
+2550 mm, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -15,10 +16,15 @@ Phases (any failed check exits non-zero; nothing is caught):
      where one PyTorch call computes the same function, that call's time
      (integrate over two frames, so the second blends into voxels that
      already hold weight; the bilateral filter on a noisy frame with
-     holes, float32 and uint16; the lane gather at the marching-cubes
-     shapes and at the ICP association's on all three pyramid levels; the
+     holes, float32 and uint16; the lane gather on the recorded calls of
+     a dense 512^3 and of a masked 255^3 extraction and at the ICP
+     association's shapes on all three pyramid levels; the
      colour, fast and colour-fast integrate kernels over two frames:
-     tsdf, weight, colour bytes and miss counts equal);
+     tsdf, weight, colour bytes and miss counts equal; the warped
+     integrate at 512^3 under a uniform warp and at 255^3 under the field
+     real deformation updates leave; the row gather at the correspondence
+     and the deform_points shapes of a real frame; the windowed lane
+     gather and its checked wrapper on coherent and wild indices);
   4. the GT-pose path: a fabricated 20-frame TUM directory (a wall and
      two spheres, intersected in closed form) through
      ``tsdf_tpu_torch.cli.main(["fuse", ...])``, with launch counts,
@@ -43,7 +49,14 @@ Phases (any failed check exits non-zero; nothing is caught):
   9. ``integrate_mode="fast"`` through ``fuse_frames`` (depth, and depth +
      colour) and ``track_and_fuse_frames``: launch counts, no miss, the
      fused field against the exact fusion and the analytic surface, and
-     ms/frame of the fast and the exact fuse loop side by side.
+     ms/frame of the fast and the exact fuse loop side by side;
+ 10. SceneFusion: a fabricated RGB-D + PD-Flow directory (a sphere seen
+     from the identity pose, a uniform +x flow of 4 + i mm) through
+     ``cli.main(["sfusion", ...])`` with exact launch counts; the
+     ``SceneFusion`` class on the same files with dumps, bit-equal to a
+     run through the plain twins and to a second run; the deformation
+     field against the flow that was fed; ms per frame, its split and its
+     host syncs; colour frames into a deformed volume.
 
 The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
@@ -604,49 +617,80 @@ def compare_raycast(dev, vol, pose) -> dict:
                 library_ms=None)
 
 
-def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
-    """The four lane-gather calls of one extraction of ``vol``, at its
-    shapes: vertex counts (n_occ x 1 from a 256-word broadcast table),
-    triangle table (max_cubes x 15 from 3840 words), slot vertices
-    (max_cubes x 45 from 36-word rows), slot voxels (max_cubes x 30
-    from 24-word int rows); and the ICP association's lookup into the
-    model depth ``depth_prev`` on each pyramid level, (H, W) down to
-    (H/4, W/4). The times are sums over the first five: of the ICP
-    lookups only level 0's is timed."""
+def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
+    """Each ``(table, idx)`` of ``calls`` through ``lane_gather_op`` and
+    through ``take_or_zero``, which must agree bit for bit; the first
+    ``n_timed`` of them (all by default) are timed, beside ``torch.gather``
+    and the bound. ``whats[n]`` names call ``n`` in the log. Returns the
+    sums of the times and bounds, the largest |difference|, and the
+    per-call values."""
     from tsdf_tpu_torch.kernels.gather import lane_gather_op, take_or_zero
-    from tsdf_tpu_torch.ops.mc_tables import CORNER_OFFSETS, TRI_TABLE, VERT_COUNTS
+
+    n_timed = len(calls) if n_timed is None else n_timed
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bound_by="bytes", each=[])
+    for n, ((table, idx), what) in enumerate(zip(calls, whats)):
+        shapes = f"{tuple(table.shape)} -> {tuple(idx.shape)} ({what})"
+        got = lane_gather_op(table, idx)
+        want = take_or_zero(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"lane gather differs at {shapes}")
+        out["max_abs_err"] = max(
+            out["max_abs_err"], float((got.double() - want.double()).abs().max()))
+        del got, want
+        if n >= n_timed:
+            log(f"lane gather {shapes}: bit-equal")
+            continue
+        ms = median_ms(lambda: lane_gather_op(table, idx), reps=10, inner=10)
+        plain_ms = median_ms(lambda: take_or_zero(table, idx), reps=10, inner=10)
+        # the one PyTorch call for the same function; it takes int64
+        # indices inside the table, prepared outside the timing
+        idx64 = idx.clamp(0, table.shape[1] - 1).to(torch.int64)
+        library_ms = median_ms(
+            lambda: torch.gather(table, 1, idx64), reps=10, inner=10)
+        # index read and output written once, the table's own words once
+        words = table.shape[1] if table.stride(0) == 0 else table.numel()
+        least = bound(4 * (2 * idx.numel() + words), idx.numel())
+        check(least["bound_by"] == "bytes", "lane gather bound")
+        log(f"lane gather {shapes}: bit-equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound "
+            f"{least['bound_ms']:.4f} ms by bytes")
+        each = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=least["bound_ms"])
+        for key, value in each.items():
+            out[key] += value
+        out["each"].append(each)
+    return out
+
+
+def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
+    """The four lane-gather calls of one dense extraction of ``vol``,
+    recorded from the extraction itself: vertex counts (n_occ x 1 from a
+    256-word broadcast table), triangle table (max_cubes x 24 from 6144
+    words), slot vertices (max_cubes x 72 from 36-word rows), slot voxels
+    (max_cubes x 48 from 24-word int rows); and the ICP association's
+    lookup into the model depth ``depth_prev`` on each pyramid level,
+    (H, W) down to (H/4, W/4). The times are sums over the first five: of
+    the ICP lookups only level 0's is timed."""
+    from tsdf_tpu_torch.ops import marching_cubes
     from tsdf_tpu_torch.tracking.icp import depth_pyramid
 
-    d = vol.tsdf
-    cz, cy, cx = (s - 1 for s in d.shape)
-    inside = (d < 0).to(torch.uint8)
-    types = torch.zeros((cz, cy, cx), dtype=torch.uint8, device=dev)
-    for k in range(8):
-        dx, dy, dz = (int(v) for v in CORNER_OFFSETS[k])
-        types |= inside[dz:dz + cz, dy:dy + cy, dx:dx + cx] << k
-    types = types.reshape(-1)
-    occ = types[(types != 0) & (types != 255)].to(torch.int32)
-    n_occ = occ.numel()
-    check(0 < n_occ <= MAX_CUBES, f"{n_occ} occupied cubes")
-    cube_types = torch.zeros(MAX_CUBES, dtype=torch.int32, device=dev)
-    cube_types[:n_occ] = occ
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    slot = torch.arange(15, dtype=torch.int32, device=dev)
-    tri = torch.as_tensor(TRI_TABLE.reshape(-1), dtype=torch.int32, device=dev)
-    counts = torch.as_tensor(VERT_COUNTS, dtype=torch.int32, device=dev)
-    calls = [
-        (counts[None, :].expand(n_occ, 256), occ[:, None].contiguous()),
-        (tri[None, :].expand(MAX_CUBES, tri.numel()),
-         (cube_types[:, None] * 15 + slot).contiguous()),
-        (torch.randn(MAX_CUBES, 36, generator=gen, device=dev),
-         torch.randint(-2, 38, (MAX_CUBES, 45), generator=gen, device=dev,
-                       dtype=torch.int32)),
-        (torch.randint(0, 1 << 27, (MAX_CUBES, 24), generator=gen,
-                       device=dev, dtype=torch.int32),
-         torch.randint(-2, 26, (MAX_CUBES, 30), generator=gen, device=dev,
-                       dtype=torch.int32)),
-    ]
+    calls = []
+    with recorded(marching_cubes, "lane_gather_op", calls):
+        soup = marching_cubes.extract_surface(
+            vol, max_cubes=MAX_CUBES, max_vertices=MAX_VERTICES)
+    check(not bool(soup.overflowed), "the 512^3 extraction overflowed")
+    del soup
+    n_occ = calls[0][1].shape[0]
+    shapes = [(tuple(t.shape), tuple(i.shape)) for t, i in calls]
+    check(0 < n_occ <= MAX_CUBES and shapes == [
+        ((n_occ, 256), (n_occ, 1)),
+        ((MAX_CUBES, 256 * 24), (MAX_CUBES, 24)),
+        ((MAX_CUBES, 36), (MAX_CUBES, 72)),
+        ((MAX_CUBES, 24), (MAX_CUBES, 48))],
+        f"the dense extraction's lane gathers have shapes {shapes}")
+    whats = ["marching cubes"] * 4
     # the ICP association's lookup on each pyramid level: three taps per
     # pixel by linear pixel index over the model depth image as one
     # broadcast row (a shift of a few pixels; -1 where the tap would
@@ -660,51 +704,22 @@ def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
         lin = torch.where(inside, ys * w + xs, torch.full_like(ys * w + xs, -1))
         icp_idx = torch.cat([lin, lin + 1, lin + w], dim=1).contiguous()
         calls.append((level.contiguous().reshape(1, -1).expand(h, -1), icp_idx))
+        whats.append("ICP lookup" if len(calls) == n_timed
+                     else "ICP lookup, a coarser level")
     check([tuple(i.shape) for _, i in calls[-3:]]
           == [(H, 3 * W), (H // 2, 3 * W // 2), (H // 4, 3 * W // 4)],
           "ICP lookup shapes")
 
-    err = 0.0
-    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for n, (table, idx) in enumerate(calls):
-        got = lane_gather_op(table, idx)
-        want = take_or_zero(table, idx)
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              f"lane gather differs at table {tuple(table.shape)}")
-        err = max(err, float((got.double() - want.double()).abs().max()))
-        if n >= n_timed:
-            log(f"lane gather {tuple(table.shape)} -> {tuple(idx.shape)} "
-                f"(ICP lookup, a coarser level): bit-equal")
-            continue
-        ms = median_ms(lambda: lane_gather_op(table, idx), reps=10, inner=10)
-        plain_ms = median_ms(lambda: take_or_zero(table, idx), reps=10, inner=10)
-        # the one PyTorch call for the same function; it takes int64
-        # indices inside the table, prepared outside the timing
-        idx64 = idx.clamp(0, table.shape[1] - 1).to(torch.int64)
-        library_ms = median_ms(
-            lambda: torch.gather(table, 1, idx64), reps=10, inner=10)
-        # index read and output written once, the table's own words once
-        words = table.shape[1] if table.stride(0) == 0 else table.numel()
-        least = bound(4 * (2 * idx.numel() + words), idx.numel())
-        check(least["bound_by"] == "bytes", "lane gather bound")
-        what = "ICP lookup" if n == n_timed - 1 else "marching cubes"
-        log(f"lane gather {tuple(table.shape)} -> {tuple(idx.shape)} ({what}): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
-            f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by bytes")
-        for key, value in (("ms", ms), ("plain_ms", plain_ms),
-                           ("library_ms", library_ms),
-                           ("bound_ms", least["bound_ms"])):
-            out[key] += value
-        if what == "ICP lookup":
-            out.update(icp_lookup_ms=ms, icp_lookup_plain_ms=plain_ms,
-                       icp_lookup_library_ms=library_ms,
-                       icp_lookup_bound_ms=least["bound_ms"])
+    out = hold_lane_gathers(calls, whats, n_timed)
+    icp = out.pop("each")[-1]
+    out.update({f"icp_lookup_{k}": v for k, v in icp.items()})
     log(f"lane gather, one extraction's four calls ({n_occ} occupied cubes, "
         f"max_cubes {MAX_CUBES}) and the ICP lookup of each level: bit-equal, "
-        f"max |diff| {err:.3g}; timed without the two coarser levels: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+        f"max |diff| {out['max_abs_err']:.3g}; timed without the two coarser "
+        f"levels: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
         f"torch.gather {out['library_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms")
-    return dict(max_abs_err=err, bound_by="bytes", **out)
+    return out
 
 
 def compare_bilateral(dev, depth: torch.Tensor) -> dict:
@@ -1312,6 +1327,807 @@ def phase_fast(dev, frames, rgbs, gt_poses) -> dict:
                 fast_ms_per_frame=fast_ms, exact_ms_per_frame=exact_ms)
 
 
+# -- non-rigid SceneFusion -----------------------------------------------------
+
+# the reference's configuration (SceneFusion.cpp:49): 255^3 over 2550 mm
+SF_SIZE = 255
+SF_PHYSICAL = 2550.0
+SF_OFFSET = (-1275.0, -1275.0, 0.0)
+SF_FRAMES = 6
+SF_MAX_CUBES = 1 << 18
+SF_SPHERE = ((0.0, 0.0, 1300.0), 500.0)
+# the uniform +x flow of frame i's file, mm; frame i + 1 reads it
+SF_FLOW_MM = [4.0 + i for i in range(SF_FRAMES)]
+SF_TOTAL_FLOW_MM = sum(SF_FLOW_MM[:SF_FRAMES - 1])
+# the uniform warp of the 512^3 kernel comparison, mm
+WARP_512_MM = (80.0, 0.0, 0.0)
+
+
+def write_sfusion_dirs(dev, root: str) -> tuple[str, str, dict]:
+    """An RGB-D directory and a PD-Flow directory: a sphere (r = 500 mm at
+    z = 1300 mm) in the 255^3 / 2550 mm volume, its depth rendered with the
+    raycast kernel from the identity pose, the same frame SF_FRAMES times
+    (depth_NNNNN.png / colour_NNNNN.png), and per frame a text file of
+    307200 lines with a uniform +x flow of 4 + i mm. Also the host's time
+    to write and to read one such file."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.io.png import save_png
+    from tsdf_tpu_torch.io.sceneflow import read_pdflow
+    from tsdf_tpu_torch.kernels.raycast import render_to_depth_image_cuda
+    from tsdf_tpu_torch.utils import fixtures
+
+    rgbd, flow = os.path.join(root, "rgbd"), os.path.join(root, "flow")
+    os.makedirs(rgbd)
+    os.makedirs(flow)
+    centre, radius = SF_SPHERE
+    scene = fixtures.sphere_tsdf(
+        make_volume((SF_SIZE,) * 3, SF_PHYSICAL, offset=SF_OFFSET, device=dev),
+        radius, centre=centre)
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    depth = render_to_depth_image_cuda(scene, cam, W, H).to(torch.int32)
+    depth = depth.cpu().numpy().astype(np.uint16)
+    hit = float((depth > 0).mean())
+    log(f"sfusion frames: depth {depth.shape} {depth.dtype}, "
+        f"{hit:.4f} of the pixels hit, range {depth[depth > 0].min()}.."
+        f"{depth.max()} mm")
+    check(0.2 < hit < 0.9, "the rendered sphere fills an odd share of the frame")
+    ys, xs = np.mgrid[0:H, 0:W]
+    t_write = 0.0
+    for i in range(SF_FRAMES):
+        save_png(os.path.join(rgbd, f"depth_{i:05d}.png"), depth)
+        save_png(os.path.join(rgbd, f"colour_{i:05d}.png"),
+                 np.full((H, W, 3), 128, np.uint8))
+        rows = np.stack([ys.ravel(), xs.ravel(), np.zeros(H * W),
+                         np.full(H * W, SF_FLOW_MM[i] / 1000.0),
+                         np.zeros(H * W)], axis=1)
+        t0 = time.perf_counter()
+        np.savetxt(os.path.join(flow, f"sflow_{i:05d}_results01.txt"), rows,
+                   fmt="%.0f %.0f %.6f %.6f %.6f")
+        t_write += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = read_pdflow(os.path.join(flow, "sflow_00001_results01.txt"))
+    t_read = time.perf_counter() - t0
+    check(got.shape == (H, W, 3) and abs(float(got[7, 9, 0]) - SF_FLOW_MM[1]) < 1e-4
+          and float(np.abs(got[..., 1:]).max()) == 0.0, "read_pdflow")
+    log(f"sfusion flow files: {SF_FRAMES} files of {H * W} lines; host time to "
+        f"read one (np.loadtxt) {t_read:.3f} s, to write one "
+        f"{t_write / SF_FRAMES:.3f} s")
+    return rgbd, flow, dict(depth=depth, pdflow_read_s=t_read)
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Inside, the SceneFusion step runs every kernel's plain PyTorch twin
+    on the tensors it is given (CUDA tensors included): the modules' kernel
+    wrappers are swapped for the twins, and swapped back."""
+    from tsdf_tpu_torch.kernels import gather
+    from tsdf_tpu_torch.ops import deform, marching_cubes
+    from tsdf_tpu_torch.ops.integrate import integrate
+    from tsdf_tpu_torch.pipelines import scenefusion
+
+    def integrate_plain_in_place(vol, depth, camera, cap_weight=False, rgb=None):
+        out = integrate(vol, depth, camera, cap_weight=cap_weight, rgb=rgb)
+        vol.tsdf.copy_(out.tsdf)
+        vol.weight.copy_(out.weight)
+        return vol
+
+    swaps = [
+        (marching_cubes, "lane_gather_op", gather.take_or_zero),
+        (scenefusion, "row_gather_op", gather.take_rows),
+        (deform, "row_gather_op", gather.take_rows),
+        (scenefusion, "integrate_warped_cuda", integrate_plain_in_place),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, twin in swaps:
+        setattr(mod, name, twin)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def recorded(mod, name: str, calls: list):
+    """Inside, every call of ``mod.name`` appends its arguments to
+    ``calls`` and goes on to the function itself."""
+    fn = getattr(mod, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(mod, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def sf_camera(dev):
+    from tsdf_tpu_torch import Camera
+
+    return Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+
+
+def sf_inputs(dev, depth_u16: np.ndarray):
+    """The frames of the fabricated sequence on the card: one float32
+    depth image, and the flow each later frame reads."""
+    depth = torch.from_numpy(depth_u16.astype(np.float32)).to(dev)
+    flows = []
+    for mm in SF_FLOW_MM[:SF_FRAMES - 1]:
+        f = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+        f[..., 0] = mm
+        flows.append(f)
+    return depth, flows
+
+
+def sf_run(dev, depth, flows, n_frames=SF_FRAMES):
+    """The SceneFusion loop on frames already on the card, through
+    ``scenefusion_step``: returns the volume, the correspondence counts and
+    the overflow flags (tensors; nothing is read here)."""
+    from tsdf_tpu_torch.pipelines import scenefusion as sf
+
+    cfg = sf.SceneFusionConfig()
+    cam = sf_camera(dev)
+    vol = cfg.make_volume(device=dev)
+    vol = sf.integrate_warped_cuda(vol, depth, cam)
+    n_corrs, overflows = [], []
+    for flow in flows[:n_frames - 1]:
+        vol, n_corr, overflow = sf.scenefusion_step(
+            vol, depth, flow, cam, max_cubes=cfg.max_cubes,
+            threshold_mm=cfg.threshold_mm)
+        n_corrs.append(n_corr)
+        overflows.append(overflow)
+    return vol, n_corrs, overflows
+
+
+def warped_bound(vol, in_front: int, updated: int, band: int = 0) -> dict:
+    """The least time for one warped integrate of a 640x480 frame: the
+    deformed centre of every voxel (12 B), tsdf and weight read and
+    written where a voxel is updated (16 B: a voxel that fails a gate
+    needs neither), the depth image once; with colour, 6 B per voxel in
+    the colour band and the rgb image. The operations are the rigid
+    kernel's less the centre's six."""
+    n = vol.tsdf.numel()
+    o = INTEGRATE_OPS
+    moved = 12 * n + 16 * updated + W * H * 4
+    ops = (o["voxel"] - 6) * n + o["in_front"] * in_front + o["updated"] * updated
+    if band:
+        moved += 6 * band + W * H * 3
+        ops += COLOR_OPS_PER_BAND_VOXEL * band
+    return bound(moved, ops)
+
+
+def compare_integrate_warped(dev, frames, sf_depth, sf_flows) -> dict:
+    """``integrate_warped_cuda`` against the twin, bit for bit in tsdf and
+    weight: at 512^3 with the volume warped uniformly by 80 mm in x, over
+    two frames of the TUM scene (the second blends into weighted voxels)
+    and a third with ``cap_weight``; at 255^3 with the non-uniform field
+    two real deformation updates leave, over two frames; and the colour
+    variant at 255^3."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels.integrate import integrate_warped_cuda
+    from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
+
+    def clone(vol):
+        return vol.replace(
+            tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+            color=None if vol.color is None else vol.color.clone())
+
+    def equal(out, ref, what):
+        torch.cuda.synchronize()
+        n_w = int((out.weight != ref.weight).sum())
+        n_t = int((out.tsdf != ref.tsdf).sum())
+        n_c = 0 if ref.color is None else int((out.color != ref.color).sum())
+        err = float((out.tsdf - ref.tsdf).abs().max())
+        log(f"integrate_warped {what}: {n_w} weights, {n_t} tsdf values"
+            + ("" if ref.color is None else f", {n_c} colour bytes")
+            + f" differ (max |tsdf diff| {err:.3g} mm)")
+        check(n_w == 0 and n_t == 0 and n_c == 0,
+              f"integrate_warped differs from its twin ({what})")
+        return err
+
+    out = {}
+    # 512^3, uniform warp
+    ref = make_volume((SIZE,) * 3, PHYSICAL, with_deformation=True, device=dev)
+    ref = ref.replace(deform=(ref.deform + torch.tensor(
+        WARP_512_MM, device=dev)).contiguous())
+    vol = clone(ref)
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames]
+    for (depth, _), cam in zip(frames, cams):
+        before = ref
+        ref = integrate_plain(ref, depth, cam)
+        vol = integrate_warped_cuda(vol, depth, cam)
+    blended = int(((ref.weight > before.weight) & (before.weight > 0)).sum())
+    check(blended > 0, "integrate_warped 512^3: nothing was blended into")
+    err = equal(vol, ref, f"512^3 warped by {WARP_512_MM} mm, two frames, "
+                          f"{blended} voxels blended into")
+    updated = int((ref.weight > before.weight).sum())
+    # a third frame under cap_weight, at a cap the weights have reached
+    capped = torch.tensor(2.0, device=dev)
+    ref = integrate_plain(ref.replace(max_weight=capped), frames[0][0], cams[0],
+                          cap_weight=True)
+    vol = integrate_warped_cuda(vol.replace(max_weight=capped), frames[0][0],
+                                cams[0], cap_weight=True)
+    check(float(ref.weight.max()) == 2.0, "cap_weight did not cap")
+    err = max(err, equal(vol, ref, "512^3, a third frame with cap_weight"))
+    depth, cam = frames[1][0], cams[1]
+    ms = median_ms(lambda: integrate_warped_cuda(vol, depth, cam), reps=20)
+    plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=3)
+    least = warped_bound(before, voxels_in_front(before, cam), updated)
+    log(f"integrate_warped 512^3 one frame: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']} ({updated} voxels updated)")
+    out.update(ms_512=ms, plain_ms_512=plain_ms, bound_ms_512=least["bound_ms"],
+               updated_512=updated)
+    del ref, vol, before
+
+    # 255^3, the field two real updates leave
+    ref, n_corrs, _ = sf_run(dev, sf_depth, sf_flows, n_frames=3)
+    check(all(int(k) > 0 for k in n_corrs), "no correspondences at 255^3")
+    centres = ref.voxel_centres()
+    moved = int(((ref.deform - centres).abs().amax(-1) > 1e-3).sum())
+    del centres
+    check(moved > 1000, "the 255^3 field is not deformed")
+    cam = sf_camera(dev)
+    vol = clone(ref)
+    for _ in range(2):
+        before = ref
+        ref = integrate_plain(ref, sf_depth, cam)
+        vol = integrate_warped_cuda(vol, sf_depth, cam)
+    err = max(err, equal(vol, ref, f"255^3 after two deformation updates "
+                                   f"({moved} voxels moved), two more frames"))
+    updated = int((ref.weight > before.weight).sum())
+    ms = median_ms(lambda: integrate_warped_cuda(vol, sf_depth, cam), reps=20,
+                   inner=4)
+    plain_ms = median_ms(lambda: integrate_plain(before, sf_depth, cam), reps=5)
+    # the camera sits at the identity pose: camera z is the centre's z
+    in_front = int((ref.deform[..., 2] > 0).sum())
+    least = warped_bound(ref, in_front, updated)
+    log(f"integrate_warped 255^3 one frame: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']} ({updated} voxels updated)")
+    out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+               library_ms=None, updated=updated)
+
+    # the colour variant, 255^3: two frames of a grey-ramp image
+    rgb = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        (np.arange(W) * 255 // W).astype(np.uint8)[None, :, None], (H, W, 3))
+    )).to(dev)
+    cref = ref.with_color()
+    cvol = clone(cref)
+    for _ in range(2):
+        cbefore = cref
+        cref = integrate_plain(cref, sf_depth, cam, rgb=rgb)
+        cvol = integrate_warped_cuda(cvol, sf_depth, cam, rgb=rgb)
+    cerr = equal(cvol, cref, "255^3 with rgb, two frames")
+    band = int((cref.color.to(torch.int32) > 0).any(-1).sum())
+    check(band > 1000, "the warped colour kernel coloured nothing")
+    cms = median_ms(lambda: integrate_warped_cuda(cvol, sf_depth, cam, rgb=rgb),
+                    reps=20, inner=4)
+    cplain = median_ms(lambda: integrate_plain(cbefore, sf_depth, cam, rgb=rgb),
+                       reps=3)
+    cleast = warped_bound(cref, in_front, updated, band)
+    log(f"integrate_warped_color 255^3 one frame: kernel {cms:.4f} ms, plain "
+        f"{cplain:.4f} ms, bound {cleast['bound_ms']:.4f} ms by "
+        f"{cleast['bound_by']} ({band} voxels in the colour band)")
+    color = dict(max_abs_err=cerr, ms=cms, plain_ms=cplain, **cleast,
+                 library_ms=None)
+    return {"integrate_warped": out, "integrate_warped_color": color}
+
+
+def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
+    """``row_gather_op`` against its twin, equal bytes, at the two shapes
+    the SceneFusion path gives it: the correspondence lookup of a real
+    255^3 frame (a (307200, 4) table, one index per mesh slot) and the 8
+    taps of ``deform_points`` on that frame's mesh (the (255^3, 3) field).
+    The arguments are recorded from the real calls."""
+    from tsdf_tpu_torch.kernels.gather import row_gather_op, take_rows
+    from tsdf_tpu_torch.ops import deform
+    from tsdf_tpu_torch.ops.marching_cubes import extract_surface, soup_to_numpy
+    from tsdf_tpu_torch.pipelines import scenefusion as sf
+
+    calls = []
+    with recorded(sf, "row_gather_op", calls):
+        vol, _, _ = sf_run(dev, sf_depth, sf_flows, n_frames=3)
+    verts, _ = soup_to_numpy(extract_surface(
+        vol, max_cubes=SF_MAX_CUBES, max_vertices=1 << 20))
+    with recorded(deform, "row_gather_op", calls):
+        deform.deform_points(vol, verts)
+    check(len(calls) == 3, "expected two correspondence lookups and one warp")
+    shapes = [(tuple(t.shape), tuple(i.shape)) for t, i in calls]
+    check(shapes[1] == ((H * W, 4), (SF_MAX_CUBES * 24,)),
+          f"correspondence lookup shapes {shapes[1]}")
+    check(shapes[2] == ((SF_SIZE**3, 3), (8 * len(verts),)),
+          f"deform_points lookup shapes {shapes[2]}")
+    out = {}
+    for what, (table, idx) in (("corr", calls[1]), ("deform", calls[2])):
+        got, want = row_gather_op(table, idx), take_rows(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"row gather differs at table {tuple(table.shape)}")
+        err = float((got.double() - want.double()).abs().max())
+        ms = median_ms(lambda: row_gather_op(table, idx), reps=10, inner=10)
+        plain_ms = median_ms(lambda: take_rows(table, idx), reps=10, inner=4)
+        idx64 = idx.clamp(0, table.shape[0] - 1).to(torch.int64)
+        library_ms = median_ms(lambda: torch.index_select(table, 0, idx64),
+                               reps=10, inner=10)
+        # index read and row written once per output row; of the table,
+        # the distinct rows these indices name
+        row_bytes = table.shape[1] * 4
+        distinct = int(torch.unique(idx64).numel())
+        least = bound(idx.numel() * (4 + row_bytes) + distinct * row_bytes, 0)
+        log(f"row gather {tuple(table.shape)} -> {tuple(idx.shape)} ({what}): "
+            f"equal bytes, max |diff| {err:.3g}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, "
+            f"torch.index_select {library_ms:.4f} ms, bound "
+            f"{least['bound_ms']:.4f} ms by bytes ({distinct} distinct rows)")
+        out[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, **least)
+    d = out["deform"]
+    out["corr"]["max_abs_err"] = max(out["corr"]["max_abs_err"], d["max_abs_err"])
+    return dict(**out["corr"], deform_points_ms=d["ms"],
+                deform_points_plain_ms=d["plain_ms"],
+                deform_points_library_ms=d["library_ms"],
+                deform_points_bound_ms=d["bound_ms"],
+                deform_points_rows=int(calls[2][1].numel()))
+
+
+def compare_gather_masked(dev, sf_depth, sf_flows) -> dict:
+    """The lane gather at the shapes the SceneFusion path gives it: the four
+    ``lane_gather_op`` calls of one masked-layout extraction of a real
+    255^3 volume, recorded from the extraction itself (vertex counts of
+    every cube, (254^3, 1) from a 256-word broadcast table; triangle table,
+    (2^18, 24) from 6144 words; slot vertices, (2^18, 72) from 36-word
+    rows; slot voxels, (2^18, 48) from 24-word int rows), each against
+    ``take_or_zero`` bit for bit. The times are sums over the four."""
+    from tsdf_tpu_torch.ops import marching_cubes
+
+    vol, _, _ = sf_run(dev, sf_depth, sf_flows, n_frames=2)
+    calls = []
+    with recorded(marching_cubes, "lane_gather_op", calls):
+        marching_cubes.extract_surface(
+            vol, max_cubes=SF_MAX_CUBES, max_vertices=1, layout="masked")
+    cubes = (SF_SIZE - 1) ** 3
+    shapes = [(tuple(t.shape), tuple(i.shape)) for t, i in calls]
+    check(shapes == [((cubes, 256), (cubes, 1)),
+                     ((SF_MAX_CUBES, 256 * 24), (SF_MAX_CUBES, 24)),
+                     ((SF_MAX_CUBES, 36), (SF_MAX_CUBES, 72)),
+                     ((SF_MAX_CUBES, 24), (SF_MAX_CUBES, 48))],
+          f"the masked extraction's lane gathers have shapes {shapes}")
+    out = hold_lane_gathers(calls, ["masked extraction, 255^3"] * 4)
+    del out["each"], out["bound_by"]
+    log(f"lane gather, one masked 255^3 extraction's four calls: bit-equal, "
+        f"max |diff| {out['max_abs_err']:.3g}; kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, torch.gather {out['library_ms']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms")
+    return {f"masked_{k}": v for k, v in out.items()}
+
+
+def compare_windowed(dev) -> dict:
+    """``lane_gather_windowed_op`` against its twin (out equal, miss
+    equal) and ``lane_gather_checked`` against the full lane gather (equal,
+    with no host sync inside), on a coherent index set (miss 0) and a wild
+    one (miss > 0), at a wide table (4096, 2048) and at the ICP/raycast
+    width (480, 640). No path of either package calls these functions."""
+    from tsdf_tpu_torch.kernels.gather import (
+        lane_gather_checked,
+        lane_gather_op,
+        lane_gather_windowed_op,
+        take_or_zero,
+        take_windowed,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for s, w, c in ((4096, 2048, 2048), (H, W, W)):
+        table = torch.randn(s, w, generator=gen, device=dev)
+        rows = torch.arange(s, dtype=torch.int32, device=dev)[:, None]
+        cols = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+        # coherent: a tile of 64 rows x 128 columns spans 128 + 63 // 4
+        # columns from its aligned first column: inside a 256-wide window;
+        # some slots out of range
+        coherent = cols + rows % 64 // 4
+        coherent = torch.where((rows + cols) % 97 == 0, -1, coherent).contiguous()
+        wild = torch.randint(-10, w + 10, (s, c), generator=gen, device=dev,
+                             dtype=torch.int32)
+        for what, idx in (("coherent", coherent), ("wild", wild)):
+            got, miss = lane_gather_windowed_op(table, idx)
+            want, want_miss = take_windowed(table, idx)
+            full = lane_gather_op(table, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"windowed gather differs from its twin ({s}x{w}, {what})")
+            check(int(miss) == int(want_miss),
+                  f"windowed miss {int(miss)}, twin {int(want_miss)}")
+            err = float((got.double() - want.double()).abs().max())
+            check((int(miss) == 0) == (what == "coherent"),
+                  f"windowed miss {int(miss)} on the {what} indices")
+            if what == "coherent":
+                check(torch.equal(got.view(torch.int32), full.view(torch.int32)),
+                      "windowed gather with miss 0 differs from the full gather")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                checked = lane_gather_checked(table, idx)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            check(torch.equal(checked.view(torch.int32), full.view(torch.int32)),
+                  f"lane_gather_checked differs from lane_gather_op ({what})")
+            checked_err = float((checked.double() - full.double()).abs().max())
+            times = dict(
+                ms=median_ms(lambda: lane_gather_windowed_op(table, idx),
+                             reps=10, inner=4),
+                checked_ms=median_ms(lambda: lane_gather_checked(table, idx),
+                                     reps=10, inner=4),
+                full_ms=median_ms(lambda: lane_gather_op(table, idx),
+                                  reps=10, inner=4),
+                plain_ms=median_ms(lambda: take_windowed(table, idx), reps=5),
+            )
+            in_range = (idx >= 0) & (idx < w)
+            idx64 = idx.clamp(0, w - 1).to(torch.int64)
+            times["library_ms"] = median_ms(
+                lambda: torch.gather(table, 1, idx64), reps=10, inner=4)
+            # index read and output written once; of the table, the
+            # distinct words these indices name
+            words = int(torch.unique((rows.to(torch.int64) * w + idx64)[in_range])
+                        .numel())
+            least = bound(4 * (2 * idx.numel() + words), idx.numel())
+            log(f"windowed lane gather ({s}, {w}) -> ({s}, {c}), {what}: out and "
+                f"miss ({int(miss)}) equal the twin's (max |diff| {err:.3g}), "
+                f"checked equals the full gather (max |diff| {checked_err:.3g}) "
+                f"with no host sync; windowed {times['ms']:.4f} ms, "
+                f"checked {times['checked_ms']:.4f} ms, lane_gather_op "
+                f"{times['full_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+                f"torch.gather {times['library_ms']:.4f} ms, bound "
+                f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
+            out[(w, what)] = dict(max_abs_err=err, checked_err=checked_err,
+                                  miss=int(miss), **times, **least)
+    wide, wide_wild = out[(2048, "coherent")], out[(2048, "wild")]
+    icp, icp_wild = out[(W, "coherent")], out[(W, "wild")]
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    windowed = {k: wide[k] for k in keys}
+    windowed["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    windowed.update(lane_gather_op_ms=wide["full_ms"], wild_ms=wide_wild["ms"],
+                    wild_miss=wide_wild["miss"], w640_ms=icp["ms"],
+                    w640_lane_gather_op_ms=icp["full_ms"],
+                    w640_library_ms=icp["library_ms"],
+                    w640_bound_ms=icp["bound_ms"], w640_wild_ms=icp_wild["ms"])
+    # the checked wrapper where it has to fall back: both launches
+    checked = {k: wide_wild[k] for k in keys}
+    checked.update(max_abs_err=max(o["checked_err"] for o in out.values()),
+                   ms=wide_wild["checked_ms"], plain_ms=wide_wild["plain_ms"],
+                   no_miss_ms=wide["checked_ms"], w640_ms=icp_wild["checked_ms"],
+                   w640_no_miss_ms=icp["checked_ms"])
+    return {"lane_gather_windowed": windowed, "lane_gather_checked": checked}
+
+
+def run_sfusion_cli(dev, rgbd: str, flow: str, mesh: str) -> dict:
+    """``cli.main(["sfusion", rgbd, flow, "--mesh", ...])`` at the verb's
+    defaults (255^3 over 2550 mm, max_cubes 2^18) with every launch count
+    set to 0 just before and read just after."""
+    import warnings
+
+    from tsdf_tpu_torch import cli
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    err, out = io.StringIO(), io.StringIO()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        warnings.simplefilter("always")
+        rc = cli.main(["sfusion", rgbd, flow, "--mesh", mesh,
+                       "--device", dev.type])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    sys.stderr.write(err.getvalue())
+    log(out.getvalue().rstrip())
+    log(f"sfusion: rc {rc} in {seconds:.2f} s; launches {counts}")
+    check(rc == 0, f"sfusion returned {rc}")
+    check(f"processed {SF_FRAMES} frames" in out.getvalue(),
+          "no 'processed N frames' line")
+    check(not [w for w in caught if "max_cubes" in str(w.message)],
+          "the extraction overflowed max_cubes")
+    with open(mesh) as f:
+        header = [next(f).strip() for _ in range(12)]
+    (n_vert,) = [int(h.split()[-1]) for h in header
+                 if h.startswith("element vertex")]
+    check(n_vert > 1000 and f"({n_vert} vertices)" in out.getvalue(),
+          "the PLY is empty or its vertex count was not printed")
+    # per frame after the first: four lane gathers in the masked
+    # extraction, one row gather, one warped integrate; four more lane
+    # gathers for the final mesh
+    check_counts(counts, "sfusion path", integrate_warped=SF_FRAMES,
+                 row_gather=SF_FRAMES - 1,
+                 lane_gather=4 * (SF_FRAMES - 1) + 4)
+    return dict(counts=counts, seconds=seconds, vertices=n_vert)
+
+
+class CardFrames:
+    """An RGB-D source and a scene-flow provider over frames that are
+    already on the card: the SceneFusion class without file I/O."""
+
+    def __init__(self, depth, flows):
+        self.depth, self.flows, self.index = depth, flows, 0
+        self.observer = None
+
+    def add_observer(self, observer):
+        self.observer = observer
+
+    def compute_scene_flow(self, depth=None, rgb=None):
+        self.index += 1
+        return None, None, self.flows[self.index - 1]
+
+    def start(self):
+        for _ in range(len(self.flows) + 1):
+            self.observer(self.depth, None)
+
+
+def phase_sfusion(dev, rgbd: str, flow: str, out_dir: str, sf_depth,
+                  sf_flows) -> dict:
+    """The SceneFusion path: the ``sfusion`` verb on the fabricated
+    directories; the ``SceneFusion`` class on the same files with dumps
+    (bit-equal to a run through the plain twins and to a second run;
+    the field against the flow that was fed); ms per frame, its split and
+    its host syncs on frames already on the card."""
+    import traceback
+    import warnings
+
+    from tsdf_tpu_torch.io.mock_kinect import MockKinect
+    from tsdf_tpu_torch.io.sceneflow import PDSFMockSceneFlow
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import integrate_warped_cuda
+    from tsdf_tpu_torch.ops.marching_cubes import extract_surface
+    from tsdf_tpu_torch.pipelines import scenefusion as sf
+
+    cli_run = run_sfusion_cli(dev, rgbd, flow, os.path.join(out_dir, "sf_mesh.ply"))
+
+    # the class on the same files, with a dump on the first and last frame
+    dumps = os.path.join(out_dir, "sf_dumps")
+    sfa = PDSFMockSceneFlow(flow)
+    check(sfa.init(), "no scene-flow files")
+    kinect = MockKinect(rgbd)
+    kinect.initialise()
+    fusion = sf.SceneFusion(sfa, kinect, sf.SceneFusionConfig(),
+                            camera=sf_camera(dev), dump_every=SF_FRAMES - 1,
+                            dump_dir=dumps, device=dev)
+    reset_launch_counts()
+    kinect.start()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"SceneFusion class with two dumps: launches {counts}")
+    # as the verb's frames, plus per dump one dense extraction (four lane
+    # gathers) and the 8 taps of deform_points (one row gather)
+    check_counts(counts, "SceneFusion class", integrate_warped=SF_FRAMES,
+                 row_gather=SF_FRAMES - 1 + 2,
+                 lane_gather=4 * (SF_FRAMES - 1) + 2 * 4)
+    n_corrs = [int(k) for k in fusion.correspondence_counts]
+    log(f"correspondences per frame after the first: {n_corrs}")
+    check(len(n_corrs) == SF_FRAMES - 1 and min(n_corrs) > 1000,
+          "a frame found no correspondences")
+    want = sorted(f"{stem}_{i:03d}.{ext}" for i in (0, SF_FRAMES - 1)
+                  for stem, ext in (("frame", "tsdf"), ("mesh_canonical", "ply"),
+                                    ("mesh_warped", "ply")))
+    check(sorted(os.listdir(dumps)) == want, f"dump files {os.listdir(dumps)}")
+    vol = fusion.volume
+
+    # the same frames through the plain twins, and through the kernels again
+    reset_launch_counts()
+    with plain_twins():
+        twin, twin_corrs, _ = sf_run(dev, sf_depth, sf_flows)
+    torch.cuda.synchronize()
+    check(launch_counts() == dict.fromkeys(launch_counts(), 0),
+          "the all-twin run launched a kernel")
+    again, again_corrs, overflows = sf_run(dev, sf_depth, sf_flows)
+    torch.cuda.synchronize()
+    check(not any(bool(o) for o in overflows), "the extraction overflowed")
+    check([int(k) for k in twin_corrs] == n_corrs == [int(k) for k in again_corrs],
+          "correspondence counts differ between the runs")
+    for name, other in (("the all-twin run", twin), ("a second kernel run", again)):
+        diff = {f: int((getattr(vol, f) != getattr(other, f)).sum())
+                for f in ("tsdf", "weight", "deform")}
+        log(f"sfusion {SF_FRAMES} frames at {SF_SIZE}^3 against {name}: values "
+            f"that differ {diff}")
+        check(not any(diff.values()), f"the SceneFusion path differs from {name}")
+    del twin, again
+
+    # the field against the flow that was fed
+    delta = vol.deform - vol.voxel_centres()
+    dx = delta[..., 0]
+    full = int(((dx - SF_TOTAL_FLOW_MM).abs() < 1e-3).sum())
+    moved = int((dx.abs() > 1e-3).sum())
+    behind = delta[SF_SIZE // 2 + 5:]  # centres beyond z = 1325 mm
+    log(f"deformation field after {SF_FRAMES} frames (flow fed: "
+        f"{SF_TOTAL_FLOW_MM} mm in x): {moved} voxels moved in x, {full} of them "
+        f"by the whole flow, x range {float(dx.min()):.4f}..{float(dx.max()):.4f} "
+        f"mm; max |y| {float(delta[..., 1].abs().max()):.3g}, max |z| "
+        f"{float(delta[..., 2].abs().max()):.3g} mm; behind the sphere's centre "
+        f"max |move| {float(behind.abs().max()):.3g} mm")
+    check(abs(float(dx.max()) - SF_TOTAL_FLOW_MM) < 1e-3 and float(dx.min()) > -1e-3,
+          "the field's x range is not 0..the flow fed")
+    check(full > 1000, "few voxels moved by the whole flow")
+    check(float(delta[..., 1:].abs().max()) < 1e-3, "the field moved in y or z")
+    check(float(behind.abs().max()) == 0.0, "voxels behind the surface moved")
+    del delta, dx, behind
+
+    def ply_vertices(name):
+        with open(os.path.join(dumps, name)) as f:
+            lines = f.read().splitlines()
+        head = lines.index("end_header")
+        (n,) = [int(h.split()[-1]) for h in lines[:head]
+                if h.startswith("element vertex")]
+        return np.array([ln.split() for ln in lines[head + 1:head + 1 + n]],
+                        np.float64)
+
+    last = f"{SF_FRAMES - 1:03d}"
+    canon, warped = (ply_vertices(f"mesh_{k}_{last}.ply")
+                     for k in ("canonical", "warped"))
+    check(canon.shape == warped.shape and len(canon) > 1000, "dumped meshes")
+    shift = warped - canon
+    front = np.abs(np.linalg.norm(canon - np.asarray(SF_SPHERE[0]), axis=1)
+                   - SF_SPHERE[1]) < 15.0
+    log(f"dumped meshes ({len(canon)} vertices): deform_points moved them by "
+        f"{shift[:, 0].min():.3f}..{shift[:, 0].max():.3f} mm in x (median of the "
+        f"{int(front.sum())} near the sphere {np.median(shift[front, 0]):.3f}), "
+        f"max |y, z| {np.abs(shift[:, 1:]).max():.3g} mm")
+    check(shift[:, 0].min() > -1e-2
+          and shift[:, 0].max() < SF_TOTAL_FLOW_MM + 1e-2, "warped mesh x range")
+    check(shift[:, 0].max() > 0.5 * SF_TOTAL_FLOW_MM, "the warped mesh hardly moved")
+    check(np.abs(shift[:, 1:]).max() < 1e-2, "the warped mesh moved in y or z")
+    for name in os.listdir(dumps):
+        os.remove(os.path.join(dumps, name))
+
+    # ms per frame: the class on frames already on the card
+    def timed():
+        src = CardFrames(sf_depth, sf_flows)
+        run = sf.SceneFusion(src, src, sf.SceneFusionConfig(),
+                             camera=sf_camera(dev), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src.start()
+        torch.cuda.synchronize()
+        return run, (time.perf_counter() - t0) * 1e3 / SF_FRAMES
+
+    timed()
+    times = []
+    for _ in range(3):
+        run, ms = timed()
+        times.append(ms)
+    ms_frame = float(np.median(times))
+    check(torch.equal(run.volume.deform, vol.deform)
+          and torch.equal(run.volume.tsdf, vol.tsdf),
+          "the card-resident run differs from the run on files")
+    log(f"SceneFusion loop on the device, {SF_SIZE}^3 {W}x{H}: {ms_frame:.4f} "
+        f"ms/frame (median of 3 runs of {SF_FRAMES} frames already on the card; "
+        f"runs {', '.join(f'{t:.4f}' for t in times)})")
+
+    syncs = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message) and "prototype" not in str(message):
+            syncs.append((filename, lineno, traceback.extract_stack()[:-1]))
+
+    src = CardFrames(sf_depth, sf_flows)
+    sf.SceneFusion(src, src, sf.SceneFusionConfig(), camera=sf_camera(dev),
+                   device=dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            src.start()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    per_frame = len(syncs) / (SF_FRAMES - 1)
+    log(f"SceneFusion loop host syncs: {len(syncs)} in {SF_FRAMES - 1} frames "
+        f"after the first ({per_frame:.3f} per frame)")
+    places = {}
+    for filename, lineno, stack in syncs:
+        places.setdefault((filename, lineno), []).append(stack)
+    for (filename, lineno), stacks in places.items():
+        via = " <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                          for f in reversed(stacks[0][-4:]))
+        log(f"  {len(stacks)} at {filename}:{lineno} ({via})")
+    check(len(syncs) <= SF_FRAMES - 1, "more than one host sync per frame")
+
+    # the frame's stages by CUDA events
+    cfg = sf.SceneFusionConfig()
+    cam = sf_camera(dev)
+    staged = cfg.make_volume(device=dev)
+    staged = integrate_warped_cuda(staged, sf_depth, cam)
+    split = dict(extract=0.0, update=0.0, integrate=0.0)
+    marks = []
+    for f in sf_flows:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        soup = extract_surface(staged, max_cubes=cfg.max_cubes, max_vertices=1,
+                               layout="masked")
+        ev[1].record()
+        staged, _ = sf.update_deformation(staged, soup, sf_depth, cam, f,
+                                          cfg.threshold_mm)
+        ev[2].record()
+        staged = integrate_warped_cuda(staged, sf_depth, cam)
+        ev[3].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    for ev in marks:
+        for i, name in enumerate(split):
+            split[name] += ev[i].elapsed_time(ev[i + 1]) / len(marks)
+    check(torch.equal(staged.deform, vol.deform), "the staged loop's field differs")
+    log("SceneFusion frame by stage, CUDA events (extract masked, "
+        "correspondences + update, integrate): "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+        + f"; sum {sum(split.values()):.4f} ms")
+    return dict(counts=cli_run["counts"], cli_seconds=cli_run["seconds"],
+                ms_per_frame=ms_frame, syncs_per_frame=per_frame, split_ms=split)
+
+
+def phase_warped_color(dev, sf_depth) -> dict:
+    """``fuse_frames`` on (depth, pose, rgb) triples into a deformed colour
+    volume at 255^3: the pipeline sends them to the warped colour kernel."""
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
+    from tsdf_tpu_torch.pipelines.scenefusion import SceneFusionConfig
+
+    cam = sf_camera(dev)
+    vol = SceneFusionConfig().make_volume(device=dev).with_color()
+    rgb = torch.full((H, W, 3), 200, dtype=torch.uint8, device=dev)
+    triples = [(sf_depth, cam.pose, rgb)] * 3
+    reset_launch_counts()
+    vol, _ = fuse_frames(vol, cam, triples, FusionConfig(width=W, height=H))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"fuse_frames, colour frames into a deformed volume: launches {counts}")
+    check_counts(counts, "deformed colour fuse", integrate_warped_color=3)
+    coloured = vol.color[(vol.color.to(torch.int32) > 0).any(-1)]
+    check(len(coloured) > 1000 and int(coloured.min()) == int(coloured.max()) == 200,
+          "the deformed colour fuse did not store the frame's colour")
+    check(float(vol.weight.max()) == 3.0, "deformed colour fuse weights")
+    return counts
+
+
+def probe_sfusion_loop(dev, sf_depth, sf_flows) -> dict:
+    """The SceneFusion loop on card-resident frames under torch.profiler:
+    the card's busy time and kernel launches per frame after the first,
+    beside the wall time of the same run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sf_run(dev, sf_depth, sf_flows)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms = run()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"probe sfusion loop kernel {e.key[:70]}: {e.count} launches, "
+            f"{e.self_device_time_total / 1e3:.4f} ms")
+    idle = 1.0 - busy_ms / wall_ms
+    frames = SF_FRAMES - 1
+    log(f"probe sfusion loop, {SF_FRAMES} frames at {SF_SIZE}^3: wall "
+        f"{wall_ms:.3f} ms ({profiled_ms:.3f} ms under the profiler), device "
+        f"busy {busy_ms:.3f} ms, idle share {idle:.3f} of the unprofiled wall, "
+        f"{launches / frames:.0f} kernel launches per frame after the first")
+    return dict(sfusion_wall_ms=wall_ms, sfusion_profiled_ms=profiled_ms,
+                sfusion_busy_ms=busy_ms, sfusion_idle=idle,
+                sfusion_launches_per_frame=launches / frames)
+
+
 # -- the probe (--probe): the measurements behind PERF.md's findings --------
 
 
@@ -1597,6 +2413,9 @@ def main() -> int:
             found.update(probe_integrate(dev, frames))
             found.update(probe_fuse_loop(dev, frames))
             found.update(probe_tracked_loop(dev, frames))
+            _, _, sf_made = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
+            found["pdflow_read_s"] = sf_made["pdflow_read_s"]
+            found.update(probe_sfusion_loop(dev, *sf_inputs(dev, sf_made["depth"])))
             log(smi)
             print(json.dumps(found))
             return 0
@@ -1613,6 +2432,16 @@ def main() -> int:
         check(len(rgbs) == len(frames) and all(c is not None for c in rgbs),
               "a colour frame is missing")
         results.update(compare_integrate_variants(dev, frames[:2], rgbs[:2]))
+        torch.cuda.empty_cache()
+        sf_rgbd, sf_flow, sf_made = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
+        sf_depth, sf_flows = sf_inputs(dev, sf_made["depth"])
+        results.update(compare_integrate_warped(
+            dev, frames[:2], sf_depth, sf_flows))
+        torch.cuda.empty_cache()
+        results["row_gather"] = compare_row_gather(dev, sf_depth, sf_flows)
+        results["lane_gather"].update(
+            compare_gather_masked(dev, sf_depth, sf_flows))
+        results.update(compare_windowed(dev))
         torch.cuda.empty_cache()
 
         first_pose = poses[0].astype(np.float32)
@@ -1638,6 +2467,10 @@ def main() -> int:
         color_tracked = phase_color_tracked_path(dev, tum, out_dir, rgbs)
         torch.cuda.empty_cache()
         fast = phase_fast(dev, frames, rgbs, poses)
+        del frames, rgbs
+        torch.cuda.empty_cache()
+        sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth, sf_flows)
+        warped_color = phase_warped_color(dev, sf_depth)
 
     meta = {
         "integrate": ("tsdf_tpu_torch/csrc/integrate.cu",
@@ -1676,8 +2509,40 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": rep, "launches": counts[k],
                         "launches_on": path, **more, **results[k]})
+    # the kernels of the SceneFusion path, with the launches of the
+    # ``sfusion`` verb; the lane gather's count there stands beside its
+    # others. The windowed lane gather and its guarded fallback are public
+    # functions that no path of either package calls: their counters, read
+    # after the verb like the others, stand at 0; they are compared with
+    # their twins in the gather phase above.
+    kernels[2]["launches_sfusion"] = sfusion["counts"]["lane_gather"]
+    warped_src = "tsdf_tpu_torch/csrc/integrate_warped.cu"
+    no_path = "no path of either package calls it"
+    for k, src, rep, launches, path in (
+        ("integrate_warped", warped_src, "tsdf_tpu/kernels/integrate.py:473",
+         sfusion["counts"]["integrate_warped"], "sfusion"),
+        ("integrate_warped_color", warped_src, "tsdf_tpu/kernels/integrate.py:473",
+         warped_color["integrate_warped_color"],
+         "fuse_frames, colour frames into a deformed volume"),
+        ("row_gather", "tsdf_tpu_torch/csrc/gather_rows.cu",
+         "tsdf_tpu/kernels/gather.py:270", sfusion["counts"]["row_gather"],
+         "sfusion"),
+        ("lane_gather_windowed", "tsdf_tpu_torch/csrc/gather_windowed.cu",
+         "tsdf_tpu/kernels/gather.py:132",
+         sfusion["counts"]["lane_gather_windowed"], no_path),
+        ("lane_gather_checked", "tsdf_tpu_torch/csrc/gather.cu",
+         "tsdf_tpu/kernels/gather.py:245",
+         sfusion["counts"]["lane_gather_if_missed"], no_path),
+    ):
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches,
+                        "launches_on": path, **results[k]})
     for entry in kernels:
-        check(entry["launches"] > 0, f"{entry['name']} was never launched")
+        check(entry["launches"] > 0 or entry["launches_on"] == no_path,
+              f"{entry['name']} was never launched")
+    log(f"SceneFusion: {sfusion['ms_per_frame']:.4f} ms/frame on the device, "
+        f"{sfusion['syncs_per_frame']:.3f} host syncs per frame, the sfusion "
+        f"verb {sfusion['cli_seconds']:.2f} s for {SF_FRAMES} frames")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

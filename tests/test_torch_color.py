@@ -230,7 +230,7 @@ def test_colour_wrapper_runs_twin_in_place_on_cpu(mode):
         ("rgb_strided", ValueError, "contiguous"),
         ("mode", ValueError, "mode must be"),
         ("rgb_meta", ValueError, "rgb is on"),
-        ("deformed", NotImplementedError, "deformed"),
+        ("deformed", ValueError, "rigid path"),
     ],
 )
 def test_colour_wrapper_rejects_bad_inputs(bad, error, match):
@@ -254,10 +254,21 @@ def test_colour_wrapper_rejects_bad_inputs(bad, error, match):
     elif bad == "rgb_meta":
         rgb = rgb.to("meta")
     elif bad == "deformed":
-        vol = vol.replace(deform=vol.voxel_centres())
+        vol = vol.replace(deform=(vol.voxel_centres() + 20.0).contiguous())
     with pytest.raises(error, match=match):
         kint.integrate_color_cuda(vol, depth, rgb, cam, mode=mode)
     assert float(vol.weight.sum()) == 0.0
+    if bad == "deformed":
+        # the rigid colour kernel refuses it with the JAX reason; the
+        # warped wrapper fuses depth + colour at the deformed centres, and
+        # is held against tsdf_tpu.ops.integrate(rgb=)
+        jvol = jvol.replace(deform=jnp.asarray(vol.deform.numpy()))
+        want = jax_integrate(jvol, jnp.asarray(depth.numpy()), _jax_cam(),
+                             rgb=jnp.asarray(rgb.numpy()))
+        out = kint.integrate_warped_cuda(vol, depth, cam, rgb=rgb)
+        assert float(out.weight.sum()) > 0 and int(out.color.sum()) > 0
+        _assert_volume_gate(out.tsdf.numpy(), out.weight.numpy(),
+                            out.color.numpy(), want)
 
 
 @pytest.mark.parametrize("fn", [integrate, integrate_fast], ids=["exact", "fast"])

@@ -8,9 +8,9 @@ test configuration:
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: the kernels are built with --fmad=false and evaluate the
-twins' expressions in the same order, so integrate (exact, colour, fast and
-colour-fast, miss counts included), gather and bilateral must agree bit for
-bit; raycast is held to the same gates as the twin-vs-JAX test
+twins' expressions in the same order, so integrate (exact, colour, fast,
+colour-fast and warped, miss counts included), the gathers (lane, row and
+windowed, its miss count included) and bilateral must agree bit for bit; raycast is held to the same gates as the twin-vs-JAX test
 (hit masks >= 99.9% equal, median vertex difference < 0.5 mm).
 """
 
@@ -302,3 +302,206 @@ def test_lookup_flat_kernel_matches_twin(dev, h, w):
     assert torch.equal(
         got[ok].view(torch.int32), flat[idx[ok].long()].view(torch.int32))
     assert not got[~ok].any()
+
+
+# -- the warped integrate, the row gather, the windowed lane gather ---------------
+
+
+def _warped_volume(dev, size, color=False):
+    """A volume whose field is warped by a smooth bump plus noise, with a
+    few centres that can never be updated (NaN, infinite, on the camera
+    plane)."""
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      with_deformation=True, with_color=color, max_weight=2.0,
+                      device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    c = vol.deform.cpu()
+    bump = torch.exp(-((c[..., 0] / 500.0) ** 2 + ((c[..., 2] - 900.0) / 400.0) ** 2))
+    c[..., 0] += 70.0 * bump
+    c[..., 1] -= 25.0 * bump
+    c += torch.rand(c.shape, generator=gen) - 0.5
+    c[0, 0, 0] = float("nan")
+    c[0, 0, 1, 2] = float("inf")
+    c[0, 0, 2, 2] = 0.0
+    return vol.replace(deform=c.to(dev).contiguous())
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize("color", [False, True], ids=["depth", "colour"])
+@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21)])
+def test_warped_integrate_kernel_matches_twin(dev, size, color, cap_weight):
+    vol = _warped_volume(dev, size, color)
+    rng = np.random.default_rng(0)
+    name = "integrate_warped_color" if color else "integrate_warped"
+    kern = integrate.KERNEL_WARPED_COLOR if color else integrate.KERNEL_WARPED
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                      color=None if vol.color is None else vol.color.clone())
+    for i in range(3):
+        cam = _camera(dev, [40.0 * i, -25.0 * i, -500.0 + 10.0 * i],
+                      [0.0, 0.0, 1000.0])
+        depth = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0)
+        depth = depth.astype(np.float32) + rng.uniform(0, 5, depth.shape).astype(
+            np.float32) * (depth > 0)
+        depth = torch.from_numpy(depth).to(dev)
+        rgb = None
+        if color:
+            rgb = torch.from_numpy(np.roll(
+                fixtures.gradient_rgb(W, H, diagonal=True), 31 * i, axis=1
+            ).copy()).to(dev)
+        ref = integrate_plain(ref, depth, cam, cap_weight=cap_weight, rgb=rgb)
+        before = kern.launches
+        vol = integrate.integrate_warped_cuda(vol, depth, cam,
+                                              cap_weight=cap_weight, rgb=rgb)
+        assert kern.launches == before + 1, name
+    torch.cuda.synchronize()
+    assert torch.equal(vol.weight, ref.weight)
+    assert torch.equal(vol.tsdf, ref.tsdf)
+    assert float(vol.weight.max()) == (2.0 if cap_weight else 3.0)
+    assert float(vol.weight[0, 0, :3].sum()) == 0.0  # the non-finite centres
+    if color:
+        assert torch.equal(vol.color, ref.color)
+        assert int((vol.color.to(torch.int32) > 0).sum()) > 100
+
+
+def test_warped_integrate_kernel_refuses_what_it_does_not_take(dev):
+    vol = _warped_volume(dev, (16, 16, 16))
+    cam = _camera(dev, [0.0, 0.0, -500.0], [0.0, 0.0, 1000.0])
+    depth = torch.full((H, W), 1100.0, device=dev)
+    big = torch.zeros((16, 16, 16, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        integrate.integrate_warped_cuda(
+            vol.replace(deform=big[..., :3]), depth, cam)
+    with pytest.raises(ValueError, match="needs vol.deform"):
+        integrate.integrate_warped_cuda(vol.replace(deform=None), depth, cam)
+    with pytest.raises(ValueError, match="deform is on"):
+        integrate.integrate_warped_cuda(
+            vol.replace(deform=vol.deform.cpu()), depth, cam)
+    with pytest.raises(ValueError, match="rigid path"):
+        integrate.integrate_cuda(vol, depth, cam)
+    assert float(vol.weight.sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint8,
+                                   torch.float64, torch.int16])
+@pytest.mark.parametrize("n,w,j", [(307, 4, 5001), (1001, 3, 777), (20, 130, 17),
+                                   (9, 1, 300), (5, 7, 1)])
+def test_row_gather_kernel_matches_twin(dev, dtype, n, w, j):
+    """Rows of 16, 12, 520, 4 and 28 bytes (f32) and every vector width
+    down to one byte (u8 rows of 3 and 7); indices outside [0, n) clamp."""
+    rng = np.random.default_rng(n + w + j)
+    if dtype.is_floating_point:
+        table = torch.from_numpy(rng.standard_normal((n, w))).to(dtype)
+    else:
+        hi = 255 if dtype == torch.uint8 else 30000
+        table = torch.from_numpy(rng.integers(0, hi, (n, w))).to(dtype)
+    table = table.to(dev)
+    idx = torch.from_numpy(rng.integers(-5, n + 5, j).astype(np.int32)).to(dev)
+    before = gather.KERNEL_ROWS.launches
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert gather.KERNEL_ROWS.launches == before + 1
+    assert got.dtype == dtype and got.shape == (j, w)
+    assert torch.equal(got, gather.take_rows(table, idx))
+    assert torch.equal(got.cpu(), table.cpu()[idx.cpu().clamp(0, n - 1).long()])
+
+
+def test_row_gather_kernel_unaligned_view_and_empty(dev):
+    """A table that starts 4 bytes into an allocation takes the 4-byte
+    path although its rows are 16 bytes; an empty index list launches
+    nothing."""
+    base = torch.arange(4 * 50 + 1, dtype=torch.float32, device=dev)
+    table = base[1:].view(50, 4)
+    assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    idx = torch.tensor([49, 0, 7, 7, 60, -1], dtype=torch.int32, device=dev)
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.take_rows(table, idx))
+    before = gather.KERNEL_ROWS.launches
+    out = gather.row_gather_op(table, idx[:0])
+    assert out.shape == (0, 4) and gather.KERNEL_ROWS.launches == before
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.row_gather_op(table.t(), idx)
+    with pytest.raises(ValueError, match="idx is on"):
+        gather.row_gather_op(table, idx.cpu())
+
+
+def _narrow_idx(s, c, w):
+    return (((np.arange(c)[None, :] % 100)
+             + (np.arange(s)[:, None] // 64) * 128).astype(np.int32) % w)
+
+
+@pytest.mark.parametrize(
+    "s,c,w,kw",
+    [
+        (96, 200, 512, {}),
+        (93, 200, 512, {}),
+        (50, 130, 640, {"window_blocks": 1, "block_rows": 16}),
+        (24, 300, 256, {"window_blocks": 4}),
+        (40, 64, 1024, {"block_rows": 48}),
+        (7, 1, 128, {}),
+        (300, 257, 2048, {"window_blocks": 3}),
+    ],
+)
+@pytest.mark.parametrize("case", ["narrow", "wild", "out_of_range"])
+def test_windowed_gather_kernel_matches_twin(dev, s, c, w, kw, case):
+    """out AND the miss count equal the twin's, on coherent indices (miss
+    0), wild ones (miss > 0) and indices all out of range (0 everywhere,
+    no miss); the checked and fast wrappers equal the full gather with no
+    host sync."""
+    rng = np.random.default_rng(s * c + w)
+    tab = torch.from_numpy(rng.standard_normal((s, w)).astype(np.float32))
+    tab[0, 0] = float("nan")
+    if case == "narrow":
+        idx = _narrow_idx(s, c, w)
+    elif case == "wild":
+        idx = rng.integers(-10, w + 10, (s, c)).astype(np.int32)
+    else:
+        idx = np.where(rng.uniform(size=(s, c)) < 0.5, -3, w + 4).astype(np.int32)
+    tab, idx = tab.to(dev), torch.from_numpy(idx).to(dev)
+    want, want_miss = gather.take_windowed(tab, idx, **kw)
+    before = gather.KERNEL_WINDOWED.launches
+    got, miss = gather.lane_gather_windowed_op(tab, idx, **kw)
+    torch.cuda.synchronize()
+    assert gather.KERNEL_WINDOWED.launches == before + 1
+    assert miss.dtype == torch.int32 and miss.dim() == 0
+    assert int(miss) == int(want_miss)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case != "wild":
+        assert int(miss) == 0
+    full = gather.take_or_zero(tab, idx)
+    counts = (gather.KERNEL_WINDOWED.launches, gather.KERNEL_IF_MISSED.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        checked = gather.lane_gather_checked(tab, idx, **kw)
+        fast = gather.lane_gather_fast(tab, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (gather.KERNEL_WINDOWED.launches,
+            gather.KERNEL_IF_MISSED.launches) == (counts[0] + 2, counts[1] + 2)
+    assert torch.equal(checked.view(torch.int32), full.view(torch.int32))
+    assert torch.equal(fast.view(torch.int32), full.view(torch.int32))
+
+
+def test_windowed_gather_kernel_int32_empty_and_refusals(dev):
+    rng = np.random.default_rng(5)
+    tab = torch.from_numpy(
+        rng.integers(0, 1 << 30, (8, 256)).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 100, (8, 40)).astype(np.int32)).to(dev)
+    out, miss = gather.lane_gather_windowed_op(tab, idx)
+    assert out.dtype == torch.int32 and int(miss) == 0
+    assert torch.equal(out, gather.take_or_zero(tab, idx))
+    before = gather.KERNEL_WINDOWED.launches
+    empty, miss = gather.lane_gather_windowed_op(tab, idx[:, :0].contiguous())
+    assert empty.shape == (8, 0) and int(miss) == 0
+    assert gather.lane_gather_checked(tab, idx[:, :0].contiguous()).shape == (8, 0)
+    assert gather.KERNEL_WINDOWED.launches == before
+    with pytest.raises(ValueError, match="multiple of 128"):
+        gather.lane_gather_windowed_op(tab[:, :130].contiguous(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.lane_gather_windowed_op(tab[:1].expand(8, 256), idx)
+    wide = torch.zeros((512, 1024), device=dev)
+    wide_idx = torch.zeros((512, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="a block can stage"):
+        gather.lane_gather_windowed_op(wide, wide_idx, window_blocks=8,
+                                       block_rows=128)

@@ -170,6 +170,20 @@ def test_wrapper_rejects_bad_inputs(bad):
     elif bad == "meta_device":
         depth = depth.to("meta")
     elif bad == "deformed":
-        vol = vol.replace(deform=vol.voxel_centres())
+        # the rigid kernel refuses a deformed volume with the reason of
+        # the JAX integrate_pallas; the warped wrapper fuses it, and is
+        # held against tsdf_tpu.ops.integrate
+        vol = vol.replace(deform=(vol.voxel_centres() + 20.0).contiguous())
+        with pytest.raises(ValueError, match="rigid path"):
+            kint.integrate_cuda(vol, depth, cam)
+        jvol = tsdf_tpu.make_volume(
+            (16, 16, 16), 1000.0, offset=(-500.0, -500.0, 0.0)
+        ).replace(deform=jnp.asarray(vol.deform.numpy()))
+        jcam = tsdf_tpu.Camera.default_depth_camera().move_to(
+            [0.0, 0.0, -300.0]).look_at([0.0, 0.0, 500.0])
+        want = jax_integrate(jvol, jnp.asarray(depth.numpy()), jcam)
+        out = kint.integrate_warped_cuda(vol, depth, cam)
+        _assert_gate(out.tsdf.numpy(), out.weight.numpy(), want)
+        return
     with pytest.raises((TypeError, ValueError, NotImplementedError)):
         kint.integrate_cuda(vol, depth, cam)

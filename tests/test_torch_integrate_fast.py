@@ -251,7 +251,9 @@ def test_fast_wrapper_runs_twin_in_place_on_cpu():
     assert float(vol.weight.sum()) > 0
     with pytest.raises(TypeError):
         kint.integrate_fast_cuda(vol, depth.to(torch.int32), cam)
-    with pytest.raises(NotImplementedError):
+    # a deformed column has no straight image line: refused with the
+    # reason of the JAX integrate_pallas
+    with pytest.raises(ValueError, match="rigid path"):
         kint.integrate_fast_cuda(
             vol.replace(deform=vol.voxel_centres()), depth, cam)
 

@@ -20,6 +20,13 @@ import torch
 
 _F32 = torch.float32
 
+# the reference's default depth camera (Camera::default_depth_camera)
+DEFAULT_FX = 591.1
+DEFAULT_FY = 590.1
+DEFAULT_CX = 331.0
+DEFAULT_CY = 234.6
+
+
 def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
 
@@ -50,6 +57,12 @@ class Camera:
             device=device,
         )
         return Camera.from_k(k, pose, device=device)
+
+    @staticmethod
+    def default_depth_camera(pose=None, *, device) -> "Camera":
+        return Camera.from_intrinsics(
+            DEFAULT_FX, DEFAULT_FY, DEFAULT_CX, DEFAULT_CY, pose, device=device
+        )
 
     @staticmethod
     def from_k(k, pose=None, *, device) -> "Camera":

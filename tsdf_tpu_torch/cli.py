@@ -12,12 +12,18 @@ Verbs:
   mesh     marching cubes a .tsdf to PLY (--color: per-vertex RGB)
   icp      raycast a .tsdf to depth, ICP against a depth PNG, print the
            incremental pose + lastError/lastInliers
+  sfusion  non-rigid fusion (SceneFusion) from an RGBD dir
+           (depth_NNNNN.png / colour_NNNNN.png) and a scene-flow dir
+           (PD-Flow text or SRSF XML), write mesh.ply
 
 Every verb takes ``--device`` (default ``cuda``). On a CUDA device every
 integration (depth, or depth + colour with --fuse-color), raycast,
 bilateral filter and lane gather a verb makes is the CUDA kernel (``icp``
 launches the raycast kernel alone: its exact association makes no lane
-gather); the colour render and the per-vertex colours are plain PyTorch
+gather; ``sfusion`` launches, per frame after the first, the lane gather
+four times in the masked surface extraction, the row gather once for the
+correspondences and the warped integrate once, and the lane gather four
+more times for the final mesh); the colour render and the per-vertex colours are plain PyTorch
 on the volume's device, as they are plain XLA in the JAX package;
 ``--device cpu`` runs the kernels' plain PyTorch twins. ``--device cuda``
 without a card raises.
@@ -313,6 +319,49 @@ def cmd_icp(args):
     return 0
 
 
+def cmd_sfusion(args):
+    from .io.mock_kinect import MockKinect
+    from .io.ply import write_ply
+    from .io.sceneflow import PDSFMockSceneFlow, SRSFMockSceneFlow
+    from .ops.marching_cubes import soup_to_numpy
+    from .pipelines.scenefusion import SceneFusion, SceneFusionConfig
+
+    if args.devices:
+        print(
+            "--devices (brick-parallel non-rigid fusion) is not yet ported "
+            "to tsdf_tpu_torch; see ROADMAP.md (run the JAX CLI, python -m "
+            "tsdf_tpu)",
+            file=sys.stderr,
+        )
+        return 2
+    sfa_cls = (
+        SRSFMockSceneFlow if args.flow_format == "srsf" else PDSFMockSceneFlow
+    )
+    sfa = sfa_cls(args.flow_dir)
+    if not sfa.init():
+        print(f"no scene-flow files found in {args.flow_dir}", file=sys.stderr)
+        return 1
+    device = resolve_device(args.device)
+    rgbd = MockKinect(args.rgbd_dir)
+    rgbd.initialise()
+    cfg = SceneFusionConfig(
+        volume_size=(args.size,) * 3,
+        physical_size_mm=args.physical,
+        offset_mm=(-args.physical / 2, -args.physical / 2, 0.0),
+        max_cubes=args.max_cubes,
+    )
+    sf = SceneFusion(
+        sfa, rgbd, cfg, camera=_make_camera(args, device), device=device
+    )
+    rgbd.start()
+    print(f"processed {sf.frame_index} frames")
+    if args.mesh:
+        verts, tris = soup_to_numpy(sf.extract_mesh())
+        write_ply(args.mesh, verts, tris)
+        print(f"wrote {args.mesh} ({len(verts)} vertices)")
+    return 0
+
+
 def cmd_mesh(args):
     from .io.tsdf_file import load_tsdf
 
@@ -394,6 +443,21 @@ def main(argv=None):
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_icp)
+
+    p = sub.add_parser("sfusion", help="non-rigid fusion (SceneFusion)")
+    p.add_argument("rgbd_dir")
+    p.add_argument("flow_dir")
+    p.add_argument("--flow-format", choices=("pdflow", "srsf"),
+                   default="pdflow")
+    p.add_argument("-s", "--size", type=int, default=255)
+    p.add_argument("--physical", type=float, default=2550.0)
+    p.add_argument("--mesh", default="mesh.ply")
+    # surface-cube capacity: scale down with --size for small volumes
+    p.add_argument("--max-cubes", type=int, default=1 << 18)
+    p.add_argument("--devices", help="not yet ported")
+    _add_device_arg(p)
+    _add_camera_args(p)
+    p.set_defaults(fn=cmd_sfusion)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,10 +1,12 @@
-// The colour and the decimated ("fast") variants of the rigid TSDF
-// integration for Hopper (sm_90a): one kernel template, instantiated by
-// integrate_color.cu and integrate_fast.cu.
+// The colour, the decimated ("fast") and the warped (deformed-centre)
+// variants of the TSDF integration for Hopper (sm_90a): one kernel
+// template, instantiated by integrate_color.cu, integrate_fast.cu and
+// integrate_warped.cu.
 //
 // Replaces tsdf_tpu/kernels/integrate.py:integrate_color_pallas (its
-// _kernel_color, modes exact/line/fast) and integrate_pallas(mode="fast")
-// (its _kernel_fast). The TPU kernels had no per-lane gather: they warped
+// _kernel_color, modes exact/line/fast), integrate_pallas(mode="fast")
+// (its _kernel_fast) and integrate_warped_pallas (its _kernel_warped; see
+// integrate_warped.cu). The TPU kernels had no per-lane gather: they warped
 // the depth (and packed rgb) image along each voxel column's image line in
 // two lane-gather passes and selected the matching candidate. Here one
 // thread per voxel reads its pixel directly, so only the contract is
@@ -20,6 +22,10 @@
 //     the voxel column's image line px = alpha + beta*py. A voxel whose
 //     column is steeper than |beta| = 1 is skipped; those inside the image
 //     are counted into *miss.
+//   WARPED = true (never with FAST): the voxel's centre is not computed
+//     from its indices but read from deform[z, y, x, 0:3], the deformed
+//     world-space centre of a non-rigid volume; everything after the
+//     centre is the FAST = false path, expression for expression.
 //   COLOR = true: where the voxel is updated and |sdf| < trunc, its three
 //     colour bytes move towards the pixel's rgb at rate
 //     max(1/w', 1/max_weight), w' the new (capped, if asked) weight.
@@ -98,10 +104,11 @@ static __global__ void fit_lines_kernel(float2* __restrict__ lines,
   lines[(int64_t)z * sx + x] = make_float2(alpha, beta);
 }
 
-template <bool FAST, bool COLOR>
+template <bool FAST, bool COLOR, bool WARPED>
 __global__ void integrate_variant_kernel(
     float* __restrict__ tsdf, float* __restrict__ weight,
-    uint8_t* __restrict__ color, const float* __restrict__ depth,
+    uint8_t* __restrict__ color, const float* __restrict__ deform,
+    const float* __restrict__ depth,
     const uint8_t* __restrict__ rgb, const float2* __restrict__ lines,
     int* __restrict__ miss, const float* __restrict__ p, int sx, int width,
     int height, int cap_weight) {
@@ -111,9 +118,18 @@ __global__ void integrate_variant_kernel(
   const bool valid = x < sx;
   const int64_t i = ((int64_t)z * gridDim.y + y) * sx + x;
 
-  const float wx = ((float)x + 0.5f) * p[19] + p[16];
-  const float wy = ((float)y + 0.5f) * p[20] + p[17];
-  const float wz = ((float)z + 0.5f) * p[21] + p[18];
+  float wx, wy, wz;
+  if (WARPED) {
+    // 12 B a voxel, x fastest: a warp reads one 384-byte run
+    const float* c = deform + 3 * i;
+    wx = valid ? c[0] : 0.0f;
+    wy = valid ? c[1] : 0.0f;
+    wz = valid ? c[2] : 0.0f;
+  } else {
+    wx = ((float)x + 0.5f) * p[19] + p[16];
+    wy = ((float)y + 0.5f) * p[20] + p[17];
+    wz = ((float)z + 0.5f) * p[21] + p[18];
+  }
 
   bool in_img = false;
   bool missed = false;
@@ -187,11 +203,13 @@ __global__ void integrate_variant_kernel(
 
 // Launch the variant on ``stream``; FAST runs the line pre-pass first
 // (``lines`` holds sx*sz float2, ``miss`` one int32 the caller zeroed).
-template <bool FAST, bool COLOR>
+// ``deform`` is the (sz, sy, sx, 3) f32 field of a WARPED launch.
+template <bool FAST, bool COLOR, bool WARPED = false>
 int launch(void* tsdf, void* weight, void* color, const void* depth,
            const void* rgb, void* lines, void* miss, const void* params,
            int sx, int sy, int sz, int width, int height, int cap_weight,
-           void* stream) {
+           void* stream, const void* deform = nullptr) {
+  static_assert(!(FAST && WARPED), "a deformed column has no image line");
   if (sx <= 0 || sy <= 0 || sz <= 0) return (int)cudaSuccess;
   if (sy > 65535 || sz > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
@@ -204,8 +222,10 @@ int launch(void* tsdf, void* weight, void* color, const void* depth,
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  integrate_variant_kernel<FAST, COLOR><<<dim3(xb, sy, sz), threads, 0, st>>>(
-      (float*)tsdf, (float*)weight, (uint8_t*)color, (const float*)depth,
+  integrate_variant_kernel<FAST, COLOR, WARPED>
+      <<<dim3(xb, sy, sz), threads, 0, st>>>(
+      (float*)tsdf, (float*)weight, (uint8_t*)color, (const float*)deform,
+      (const float*)depth,
       (const uint8_t*)rgb, (const float2*)lines, (int*)miss,
       (const float*)params, sx, width, height, cap_weight);
   return (int)cudaGetLastError();

@@ -15,7 +15,12 @@ KERNELS = {
     "integrate_fast": integrate.KERNEL_FAST,
     "integrate_color_fast": integrate.KERNEL_COLOR_FAST,
     "raycast": raycast.KERNEL,
+    "integrate_warped": integrate.KERNEL_WARPED,
+    "integrate_warped_color": integrate.KERNEL_WARPED_COLOR,
     "lane_gather": gather.KERNEL,
+    "row_gather": gather.KERNEL_ROWS,
+    "lane_gather_windowed": gather.KERNEL_WINDOWED,
+    "lane_gather_if_missed": gather.KERNEL_IF_MISSED,
     "bilateral": bilateral.KERNEL,
 }
 

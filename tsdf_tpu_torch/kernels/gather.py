@@ -1,10 +1,25 @@
-"""Lane gather: the CUDA kernel ``csrc/gather.cu`` and its wrapper.
+"""The gathers: the CUDA kernels ``csrc/gather.cu``,
+``csrc/gather_rows.cu`` and ``csrc/gather_windowed.cu`` and their wrappers.
 
-Replaces ``tsdf_tpu/kernels/gather.py:lane_gather_op``:
+``lane_gather_op`` replaces ``tsdf_tpu/kernels/gather.py:lane_gather_op``:
 out[s, c] = table[s, idx[s, c]], and 0 where the index is outside
 [0, W). The kernel moves 32-bit words, so float32 and int32 tables go
 through it unchanged. A table whose rows are one row broadcast (row
 stride 0, as ``expand`` gives) is read without being copied.
+
+``row_gather_op`` replaces ``row_gather_op`` of the same JAX module:
+out[j, :] = table[idx[j], :] with the index clamped, rows copied as bytes.
+
+``lane_gather_windowed_op`` replaces ``lane_gather_windowed_op``: the lane
+gather restricted to a window of the table per tile of ``idx``, with a
+count of the in-range indices the windows missed; ``lane_gather_checked``
+follows it with the full gather behind a guard on that count, decided on
+the device; ``lane_gather_fast`` is the backend dispatch. No path of
+either package calls the windowed gather: it is a public function of the
+module and is held against its twin like the others.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain twin
+only on CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,12 +30,31 @@ import torch
 
 from ._build import Kernel, check_same_device, check_tensor, stream_handle
 
-_P, _L = ctypes.c_void_p, ctypes.c_longlong
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel(
     "tsdf_lane_gather",
     # table, idx, out, rows, cols, width, row_stride, stream
     [_P, _P, _P, _L, _L, _L, _L, _P],
 )
+KERNEL_IF_MISSED = Kernel(
+    "tsdf_lane_gather_if_missed",
+    # table, idx, out, only_if, rows, cols, width, row_stride, stream
+    [_P, _P, _P, _P, _L, _L, _L, _L, _P],
+)
+KERNEL_ROWS = Kernel(
+    "tsdf_row_gather",
+    # table, idx, out, n_idx, n_rows, row_bytes, stream
+    [_P, _P, _P, _L, _L, _L, _P],
+)
+KERNEL_WINDOWED = Kernel(
+    "tsdf_lane_gather_windowed",
+    # table, idx, out, miss, rows, cols, width, bs, wb, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+)
+
+LANE = 128
+# the most dynamic shared memory a block can have on sm_90
+MAX_SHARED_BYTES = 232448
 
 _WORD_TYPES = (torch.float32, torch.int32)
 
@@ -35,6 +69,29 @@ def take_or_zero(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(in_range, g, torch.zeros_like(g))
 
 
+def _check_lane_gather(table, idx, broadcast_ok=True) -> torch.device:
+    """Raise on what the lane-gather kernels do not take; returns the
+    tensors' device."""
+    dev = table.device
+    check_same_device(dev, idx=idx)
+    if table.dtype not in _WORD_TYPES:
+        raise TypeError(f"table: dtype {table.dtype}, expected f32 or i32")
+    if table.dim() != 2:
+        raise ValueError(f"table: shape {tuple(table.shape)}, expected 2-D")
+    s, w = table.shape
+    row_strides = (0, w) if broadcast_ok else (w,)
+    if table.stride(1) != 1 or table.stride(0) not in row_strides:
+        raise ValueError(
+            f"table: strides {table.stride()} are neither contiguous nor "
+            "a broadcast row" if broadcast_ok else
+            f"table: strides {table.stride()}, expected contiguous"
+        )
+    check_tensor("idx", idx, torch.int32, ndim=2)
+    if idx.shape[0] != s:
+        raise ValueError(f"table has {s} rows, idx {idx.shape[0]}")
+    return dev
+
+
 def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[s, c] = table[s, idx[s, c]]; an out-of-range index gives 0.
 
@@ -46,21 +103,8 @@ def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns (S, C) of table's dtype. CUDA tensors go through the kernel,
     CPU tensors through ``take_or_zero``.
     """
-    dev = table.device
-    check_same_device(dev, idx=idx)
-    if table.dtype not in _WORD_TYPES:
-        raise TypeError(f"table: dtype {table.dtype}, expected f32 or i32")
-    if table.dim() != 2:
-        raise ValueError(f"table: shape {tuple(table.shape)}, expected 2-D")
+    dev = _check_lane_gather(table, idx)
     s, w = table.shape
-    if table.stride(1) != 1 or table.stride(0) not in (0, w):
-        raise ValueError(
-            f"table: strides {table.stride()} are neither contiguous nor "
-            "a broadcast row"
-        )
-    check_tensor("idx", idx, torch.int32, ndim=2)
-    if idx.shape[0] != s:
-        raise ValueError(f"table has {s} rows, idx {idx.shape[0]}")
     if dev.type == "cpu":
         return take_or_zero(table, idx)
 
@@ -87,3 +131,198 @@ def lookup_flat(image: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     """
     check_tensor("image", image, image.dtype, ndim=2)
     return lane_gather_op(image.reshape(1, -1).expand(lin.shape[0], -1), lin)
+
+
+# -- row gather -------------------------------------------------------------
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`row_gather_op`: out[j, :] = table[idx[j], :]
+    with ``idx`` clamped to [0, N)."""
+    n = table.shape[0]
+    return torch.index_select(table, 0, idx.clamp(0, n - 1).to(torch.int64))
+
+
+def row_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[j, :] = table[idx[j], :]: a gather of whole rows.
+
+    Args:
+      table: (N, W) of any dtype, contiguous, N >= 1. Rows are copied as
+        bytes and the dtype is kept.
+      idx: (J,) int32, contiguous. An index outside [0, N) is clamped.
+
+    Returns (J, W) of table's dtype. CUDA tensors go through the kernel,
+    CPU tensors through ``take_rows``.
+    """
+    dev = table.device
+    check_same_device(dev, idx=idx)
+    check_tensor("table", table, table.dtype, ndim=2)
+    check_tensor("idx", idx, torch.int32, ndim=1)
+    n, w = table.shape
+    if n < 1:
+        raise ValueError("table: no rows to gather from")
+    if dev.type == "cpu":
+        return take_rows(table, idx)
+
+    j = idx.shape[0]
+    out = torch.empty((j, w), dtype=table.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        KERNEL_ROWS(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            j, n, w * table.element_size(), stream_handle(dev),
+        )
+    return out
+
+
+# -- windowed lane gather -----------------------------------------------------
+
+
+def window_tiling(rows: int, width: int, window_blocks: int, block_rows: int):
+    """The tile height and window width of the windowed gather, as the JAX
+    kernel derives them: rows are padded to a multiple of 8, the tile
+    height is ``block_rows`` halved until it divides the padded count, the
+    window is ``window_blocks`` blocks of 128 columns, at most the table.
+
+    Returns (bs, wb).
+    """
+    if width % LANE != 0 or width == 0:
+        raise ValueError(f"table: width {width} is not a multiple of {LANE}")
+    if window_blocks < 1 or block_rows < 1:
+        raise ValueError("window_blocks and block_rows must be at least 1")
+    sp = -(-rows // 8) * 8
+    bs = int(block_rows)
+    while sp % bs:
+        bs //= 2
+    return bs, min(int(window_blocks), width // LANE)
+
+
+def take_windowed(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    window_blocks: int = 2,
+    block_rows: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`lane_gather_windowed_op`. It reproduces the
+    kernel's partition of ``idx`` into tiles of ``bs`` rows by 128 columns
+    (the miss count depends on it), padding with an out-of-range index."""
+    s, w = table.shape
+    c = idx.shape[1]
+    bs, wb = window_tiling(s, w, window_blocks, block_rows)
+    if s == 0 or c == 0:
+        return (
+            torch.zeros((s, c), dtype=table.dtype, device=table.device),
+            torch.zeros((), dtype=torch.int32, device=table.device),
+        )
+    nt, nc = -(-s // bs), -(-c // LANE)
+    padded = torch.full(
+        (nt * bs, nc * LANE), w, dtype=torch.int32, device=idx.device
+    )
+    padded[:s, :c] = idx
+    tiles = padded.reshape(nt, bs, nc, LANE)
+    in_range = (tiles >= 0) & (tiles < w)
+    m = torch.where(in_range, tiles, w - 1).amin(dim=(1, 3), keepdim=True)
+    m0 = torch.clamp((m >> 7) << 7, max=w - wb * LANE)
+    covered = (tiles >= m0) & (tiles < m0 + wb * LANE)
+    covered = covered.reshape(nt * bs, nc * LANE)[:s, :c]
+    g = torch.gather(table, 1, idx.clamp(0, w - 1).to(torch.int64))
+    out = torch.where(covered, g, torch.zeros_like(g))
+    in_range = (idx >= 0) & (idx < w)
+    miss = (in_range & ~covered).sum().to(torch.int32)
+    return out, miss
+
+
+def lane_gather_windowed_op(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    window_blocks: int = 2,
+    block_rows: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """out[s, c] = table[s, idx[s, c]] through per-tile index windows.
+
+    ``idx`` is cut into tiles of ``bs`` rows by 128 columns
+    (``window_tiling``). A tile's window starts at
+    ``m0 = min((m >> 7) << 7, W - wb*128)``, ``m`` the tile's smallest
+    in-range index (``W - 1`` if it has none), and spans ``wb*128``
+    columns. An element inside its tile's window reads the table; any
+    other gives 0.
+
+    Args:
+      table: (S, W) float32 or int32, contiguous, W a multiple of 128.
+      idx: (S, C) int32, contiguous.
+
+    Returns (out, miss): ``miss`` is a 0-d int32 tensor on the tensors'
+    device, the count of in-range indices outside their tile's window:
+    ``out`` equals ``lane_gather_op(table, idx)`` exactly iff it is 0.
+    Out-of-range indices give 0 and never count. It is not read here.
+
+    CUDA tensors go through the kernel (a block stages its tile's window
+    in shared memory), CPU tensors through ``take_windowed``.
+    """
+    dev = _check_lane_gather(table, idx, broadcast_ok=False)
+    s, w = table.shape
+    bs, wb = window_tiling(s, w, window_blocks, block_rows)
+    if dev.type == "cpu":
+        return take_windowed(table, idx, window_blocks, block_rows)
+    shared = bs * wb * LANE * 4
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"a window of {bs} rows by {wb * LANE} words is {shared} bytes, "
+            f"over the {MAX_SHARED_BYTES} a block can stage; lower "
+            "block_rows or window_blocks"
+        )
+    c = idx.shape[1]
+    out = torch.empty((s, c), dtype=table.dtype, device=dev)
+    miss = torch.zeros(1, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out, miss[0]
+    with torch.cuda.device(dev):
+        KERNEL_WINDOWED(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), miss.data_ptr(),
+            s, c, w, bs, wb, stream_handle(dev),
+        )
+    return out, miss[0]
+
+
+def lane_gather_checked(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    window_blocks: int = 2,
+    block_rows: int = 64,
+) -> torch.Tensor:
+    """The windowed gather with an exact fallback decided on the device:
+    equal to ``lane_gather_op(table, idx)`` on every input, with no host
+    read.
+
+    On CUDA tensors the windowed kernel is followed by a second launch of
+    the full lane gather behind a guard: each of its threads reads the
+    windowed kernel's miss word and returns at once when it is 0, else the
+    launch rewrites the output in full. Both launches are always queued;
+    the host never sees the count. On CPU tensors the twin's count selects
+    between the twins' results with ``torch.where``.
+    """
+    out, miss = lane_gather_windowed_op(table, idx, window_blocks, block_rows)
+    dev = table.device
+    if dev.type == "cpu":
+        return torch.where(miss > 0, take_or_zero(table, idx), out)
+    if out.numel() == 0:
+        return out
+    s, w = table.shape
+    with torch.cuda.device(dev):
+        KERNEL_IF_MISSED(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), miss.data_ptr(),
+            s, idx.shape[1], w, table.stride(0), stream_handle(dev),
+        )
+    return out
+
+
+def lane_gather_fast(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather for locally coherent indices, by device: the checked
+    windowed kernels on CUDA tensors, ``take_or_zero`` on CPU tensors. The
+    same values as ``lane_gather_op`` on every input."""
+    if table.device.type == "cpu":
+        _check_lane_gather(table, idx, broadcast_ok=False)
+        window_tiling(table.shape[0], table.shape[1], 2, 64)
+        return take_or_zero(table, idx)
+    return lane_gather_checked(table, idx)

@@ -1,6 +1,6 @@
-"""Rigid TSDF integration: the CUDA kernels ``csrc/integrate.cu``,
-``csrc/integrate_color.cu`` and ``csrc/integrate_fast.cu`` and their
-wrappers.
+"""TSDF integration: the CUDA kernels ``csrc/integrate.cu``,
+``csrc/integrate_color.cu``, ``csrc/integrate_fast.cu`` and
+``csrc/integrate_warped.cu`` and their wrappers.
 
 ``integrate_cuda`` replaces
 ``tsdf_tpu/kernels/integrate.py:integrate_pallas`` (modes "exact" and
@@ -10,7 +10,13 @@ count to return. ``integrate_fast_cuda`` replaces its mode "fast" (the
 decimated line convention, ``ops.integrate.integrate_fast``) and
 ``integrate_color_cuda`` replaces ``integrate_color_pallas`` in all three
 modes; both return ``(vol, miss)`` like the JAX functions, with the miss
-count left on the device.
+count left on the device. These three are the rigid path and refuse a
+volume with a deformation field, as the JAX functions do.
+
+``integrate_warped_cuda`` replaces ``integrate_warped_pallas``: the same
+update at the deformed centres ``vol.deform``. One thread per voxel reads
+its own centre and its own pixel, so no voxel is skipped: there is no miss
+count and no miss mask to return, and nothing to top up.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import ctypes
 import torch
 
 from ..camera import Camera
-from ..ops.integrate import check_frame
+from ..ops.integrate import check_frame, check_rigid
 from ..ops.integrate import integrate as integrate_plain
 from ..ops.integrate import integrate_fast as integrate_fast_plain
 from ..volume import TSDFVolume
@@ -49,6 +55,18 @@ KERNEL_COLOR_FAST = Kernel(
     # tsdf, weight, color, depth, rgb, lines, miss, params, sx, sy, sz,
     # width, height, cap, stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+KERNEL_WARPED = Kernel(
+    "tsdf_integrate_warped",
+    # tsdf, weight, deform, depth, params, sx, sy, sz, width, height, cap,
+    # stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+KERNEL_WARPED_COLOR = Kernel(
+    "tsdf_integrate_warped_color",
+    # tsdf, weight, color, deform, depth, rgb, params, sx, sy, sz, width,
+    # height, cap, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 MODES = ("exact", "line", "fast")
@@ -126,6 +144,7 @@ def integrate_cuda(
       camera: the frame's camera, on the volume's device.
       cap_weight: clamp the accumulated weight at vol.max_weight.
     """
+    check_rigid(vol, "integrate_cuda")
     dev = _check_frame(vol, depth, camera)
     if dev.type == "cpu":
         return _copy_back(
@@ -171,6 +190,7 @@ def integrate_fast_cuda(
     On CUDA tensors this launches the kernel; on CPU tensors it runs the
     plain twin. Arguments as ``integrate_cuda``.
     """
+    check_rigid(vol, "integrate_fast_cuda")
     dev = _check_frame(vol, depth, camera)
     if dev.type == "cpu":
         out, miss = integrate_fast_plain(
@@ -219,6 +239,7 @@ def integrate_color_cuda(
         colour rate then uses the clamped weight.
     """
     _check_mode(mode)
+    check_rigid(vol, "integrate_color_cuda")
     dev = _check_frame(vol, depth, camera, rgb=rgb)
     fast = mode == "fast"
     if dev.type == "cpu":
@@ -249,3 +270,69 @@ def integrate_color_cuda(
             return vol, miss[0]
         KERNEL_COLOR(*volume, *images, params.data_ptr(), *tail)
     return vol, torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def integrate_warped_cuda(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    cap_weight: bool = False,
+    rgb: torch.Tensor | None = None,
+) -> TSDFVolume:
+    """Fuse one depth frame into a DEFORMED volume, at the centres
+    ``vol.deform``, updating ``vol.tsdf`` and ``vol.weight`` (and
+    ``vol.color`` with ``rgb``) IN PLACE; returns ``vol``.
+
+    The contract is ``ops.integrate.integrate`` on a volume with a
+    deformation field. Every voxel projects its own centre and reads its
+    own pixel, so nothing is skipped: unlike the JAX
+    ``integrate_warped_pallas`` there is no miss count and no miss mask.
+    A centre that is NaN or infinite, or lands on Z == 0, is not updated.
+
+    On CUDA tensors this launches the kernel; on CPU tensors it runs the
+    plain twin and copies its result back.
+
+    Args:
+      vol: float32 volume with a contiguous (Z, Y, X, 3) float32
+        ``deform`` (a strided view raises: it is not copied silently).
+      depth: (H, W) float32 depth in mm, contiguous; 0 means no data.
+      camera: the frame's camera, on the volume's device.
+      cap_weight: clamp the accumulated weight at vol.max_weight.
+      rgb: optional (H, W, 3) uint8 colour frame; needs ``vol.color``.
+    """
+    if vol.deform is None:
+        raise ValueError(
+            "integrate_warped_cuda needs vol.deform; use integrate_cuda "
+            "for rigid volumes"
+        )
+    dev = _check_frame(vol, depth, camera, rgb=rgb)
+    check_same_device(dev, deform=vol.deform)
+    check_tensor(
+        "deform", vol.deform, torch.float32, shape=(*vol.tsdf.shape, 3)
+    )
+    if dev.type == "cpu":
+        return _copy_back(
+            vol,
+            integrate_plain(vol, depth, camera, cap_weight=cap_weight, rgb=rgb),
+        )
+
+    params = kernel_params(vol, camera)
+    sz, sy, sx = vol.tsdf.shape
+    h, w = depth.shape
+    tail = (
+        params.data_ptr(), sx, sy, sz, w, h, int(bool(cap_weight)),
+        stream_handle(dev),
+    )
+    with torch.cuda.device(dev):
+        if rgb is None:
+            KERNEL_WARPED(
+                vol.tsdf.data_ptr(), vol.weight.data_ptr(),
+                vol.deform.data_ptr(), depth.data_ptr(), *tail,
+            )
+        else:
+            KERNEL_WARPED_COLOR(
+                vol.tsdf.data_ptr(), vol.weight.data_ptr(),
+                vol.color.data_ptr(), vol.deform.data_ptr(),
+                depth.data_ptr(), rgb.data_ptr(), *tail,
+            )
+    return vol

@@ -1,21 +1,25 @@
 """Depth (and colour) frame integration into the TSDF volume, in plain
 PyTorch.
 
-Port of ``tsdf_tpu/ops/integrate.py`` (rigid; depth, and depth + rgb) and
-of the decimated line convention of
+Port of ``tsdf_tpu/ops/integrate.py`` (depth, and depth + rgb; rigid, or
+at the deformed centres of a volume with a deformation field) and of the
+decimated line convention of
 ``tsdf_tpu/kernels/integrate.py:_kernel_fast`` / ``_kernel_color``. These
 are the plain twins of the CUDA kernels in ``kernels/integrate.py``: the
 CPU path and the oracle each kernel is held against on the card.
 
 ``integrate`` -- the exact contract. Per voxel:
-  * centre c (world, mm) -> camera point X = R c + t with
-    (R | t) = pose_inv[0:3];
+  * centre c (world, mm): the voxel's centre, or ``vol.deform[z, y, x]``
+    (the deformed centre) when the volume has a deformation field
+    -> camera point X = R c + t with (R | t) = pose_inv[0:3];
   * pixel p = round((K X) / Z): ``(fx*X + cx*Z) / Z``, rounded half to
     even;
   * gate: p inside the image, Z > 0, depth(p) > 0, sdf >= -trunc where
     sdf = depth(p) - Z;
   * running mean: d' = (d*w + min(sdf, trunc)) / (w+1), w' = w+1
     (optionally capped at max_weight);
+  * a centre that is NaN or infinite, or that lands on Z == 0, projects
+    to a NaN or infinite pixel, which is outside the image: no update;
   * with ``rgb``: where also |sdf| < trunc, each colour byte moves towards
     rgb(p) at rate max(1/w', 1/max_weight): c' = c + rate*(rgb - c),
     rounded half to even and clipped to [0, 255]. w' is the capped weight
@@ -46,12 +50,24 @@ FAST_BIG = 1.0e6
 FAST_Y_PAD = 128
 
 
-def check_frame(vol: TSDFVolume, depth, rgb) -> None:
-    """Raise on a frame the rigid integration cannot fuse into ``vol``."""
+def check_rigid(vol: TSDFVolume, what: str) -> None:
+    """Raise on a deformed volume: ``what`` integrates at the voxel
+    centres only (the JAX ``integrate_pallas`` refuses it the same way)."""
     if vol.deform is not None:
-        raise NotImplementedError(
-            "integrating into a deformed volume is not ported yet "
-            "(ROADMAP.md: integrate_warped_pallas)"
+        raise ValueError(
+            f"{what} is the rigid path; use ops.integrate.integrate / "
+            "kernels.integrate.integrate_warped_cuda for deformed volumes"
+        )
+
+
+def check_frame(vol: TSDFVolume, depth, rgb) -> None:
+    """Raise on a frame that cannot be fused into ``vol``."""
+    if vol.deform is not None and tuple(vol.deform.shape) != (
+        *vol.tsdf.shape, 3
+    ):
+        raise ValueError(
+            f"deform: shape {tuple(vol.deform.shape)}, expected "
+            f"{(*vol.tsdf.shape, 3)}"
         )
     if rgb is None:
         return
@@ -120,10 +136,13 @@ def integrate(
     check_frame(vol, depth, rgb)
     h, w = depth.shape
 
-    cz, cy, cx = vol.axis_centres()
-    cx = cx[None, None, :]
-    cy = cy[None, :, None]
-    cz = cz[:, None, None]
+    if vol.deform is None:
+        cz, cy, cx = vol.axis_centres()
+        cx = cx[None, None, :]
+        cy = cy[None, :, None]
+        cz = cz[:, None, None]
+    else:
+        cx, cy, cz = vol.deform.unbind(-1)
     pi = camera.pose_inv
     cam = [
         pi[i, 0] * cx + pi[i, 1] * cy + pi[i, 2] * cz + pi[i, 3]
@@ -200,8 +219,10 @@ def integrate_fast(
     0 <= 4c < W. Columns steeper than |beta| = 1 (extreme camera roll)
     are skipped, and their in-image voxels are the miss count. The update
     and its other gates are ``integrate``'s; ``rgb`` is sampled at the
-    same pixel.
+    same pixel. A deformed volume is refused: the line of a column of
+    deformed centres is not straight.
     """
+    check_rigid(vol, "integrate_fast")
     check_frame(vol, depth, rgb)
     h, w = depth.shape
     zc, yc, xc = vol.axis_centres()

@@ -1,7 +1,7 @@
 """Marching-cubes surface extraction over the dense volume.
 
 Port of the full-volume path of ``tsdf_tpu/ops/marching_cubes.py``
-(``_extract_arrays`` with ``tpu_safe=False``, dense layout):
+(``_extract_arrays`` with ``tpu_safe=False``, dense and masked layouts):
 
   1. classify every cube from 8 shifted sign slices;
   2. compact the occupied cubes in ascending cube-id order, with each
@@ -9,7 +9,9 @@ Port of the full-volume path of ``tsdf_tpu/ops/marching_cubes.py``
      count;
   3. gather corner values, interpolate the 12 edge zero-crossings, look
      up the triangulation, resolve each triangle slot's edge, and
-     scatter the vertices densely to [0, n_vertices).
+     scatter the vertices densely to [0, n_vertices) (dense layout) or
+     leave them at their (cube, slot) position under a mask (masked
+     layout, which is queued on the device without a host read).
 
 The two table lookups (vertex counts and the triangle table) and the
 edge -> slot resolution go through ``kernels.gather.lane_gather_op``:
@@ -24,6 +26,7 @@ flat indices of the two voxels bracketing its edge.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +49,21 @@ class TriangleSoup(NamedTuple):
     valid: torch.Tensor  # (max_vertices,) bool
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device):
+    """The marching-cubes tables as tensors on ``device``, copied once: a
+    copy from the host per extraction would be a blocking transfer in a
+    loop that otherwise never waits for the host. Returns (vertex counts
+    (256,), triangle table (256 * 24,), the two corners of each edge
+    (12,) each)."""
+    return (
+        torch.as_tensor(VERT_COUNTS, dtype=torch.int32, device=device),
+        torch.as_tensor(TRI_TABLE.reshape(-1), dtype=torch.int32, device=device),
+        torch.as_tensor(EDGE_CORNERS[:, 0], dtype=torch.int64, device=device),
+        torch.as_tensor(EDGE_CORNERS[:, 1], dtype=torch.int64, device=device),
+    )
+
+
 def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[r, c] = table[idx[r, c]] for a small shared 1-D table: the
     table is broadcast over the rows (stride 0), not copied."""
@@ -64,37 +82,53 @@ def extract_surface(
     vol: TSDFVolume,
     max_cubes: int = 1 << 18,
     max_vertices: int = 1 << 20,
+    layout: str = "dense",
 ) -> TriangleSoup:
     """Extract the zero isosurface (tsdf < 0 is inside) as a soup.
 
     ``max_cubes``/``max_vertices`` are the buffer capacities; when either
     is exceeded ``overflowed`` is set and the soup holds what fitted.
+
+    layout:
+      "dense": vertices compacted to [0, n_vertices): the layout for mesh
+        export. Sizing the export reads counts on the host.
+      "masked": vertices stay at their (cube, slot) position in a buffer of
+        ``max_cubes * 24`` slots and ``valid`` marks the live ones
+        (``max_vertices`` is unused; ``overflowed`` is
+        ``occupied cubes > max_cubes``). Masked consumers (the SceneFusion
+        deformation update) need no compaction, and this layout reads
+        nothing on the host: the whole extraction is queued on the device.
     """
     return _extract(
-        vol.tsdf, vol.voxel_size, vol.offset, max_cubes, max_vertices
+        vol.tsdf, vol.voxel_size, vol.offset, max_cubes, max_vertices, layout
     )
 
 
-def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
-    dev = d.device
+def _classify(d):
+    """Phase 1: the 8-bit corner-sign type of every cube, flat in cube-id
+    order, and which cubes the surface crosses."""
     Z, Y, X = d.shape
     cz, cy, cx = Z - 1, Y - 1, X - 1
-    i64 = torch.int64
-
-    # --- phase 1: classify every cube ------------------------------------
     inside = (d < 0.0).to(torch.uint8)
-    cube_type = torch.zeros((cz, cy, cx), dtype=torch.uint8, device=dev)
+    cube_type = torch.zeros((cz, cy, cx), dtype=torch.uint8, device=d.device)
     for k in range(8):
         dx, dy, dz = (int(v) for v in CORNER_OFFSETS[k])
         cube_type |= inside[dz : dz + cz, dy : dy + cy, dx : dx + cx] << k
     cube_type = cube_type.reshape(-1)
-    occupied = (cube_type != 0) & (cube_type != 255)
+    return cube_type, (cube_type != 0) & (cube_type != 255)
 
-    # --- phase 2: compact occupied cubes (ascending ids == cumsum rank) ---
+
+def _compact_on_host_counts(cube_type, occupied, max_cubes):
+    """Phase 2 of the dense layout: the occupied cubes in ascending id
+    order (``nonzero``, which reads their count on the host), each with its
+    vertex write offset. Returns (cid, types, cube_valid, cube_offsets,
+    n_occ, n_verts), the two counts as Python ints."""
+    dev = cube_type.device
+    i64 = torch.int64
     occ_ids = torch.nonzero(occupied).squeeze(1)
     n_occ = occ_ids.numel()
     types_occ = cube_type[occ_ids].to(torch.int32)
-    vert_counts = torch.as_tensor(VERT_COUNTS, dtype=torch.int32, device=dev)
+    vert_counts = _device_tables(dev)[0]
     counts = _table_lookup(vert_counts, types_occ[:, None])[:, 0].to(i64)
     offsets_all = torch.cumsum(counts, 0) - counts
     n_verts = int(counts.sum())
@@ -107,8 +141,36 @@ def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
     types = torch.zeros(max_cubes, dtype=torch.int32, device=dev)
     types[:m] = types_occ[:m]
     cube_valid = torch.arange(max_cubes, device=dev) < n_occ
+    return cid, types, cube_valid, cube_offsets, n_occ, n_verts
 
-    # --- phase 3: sweep ---------------------------------------------------
+
+def _compact_on_device(cube_type, occupied, max_cubes):
+    """Phase 2 of the masked layout, with no host read: the j-th occupied
+    cube is the first cube whose running count of occupied cubes reaches
+    j + 1, found by a binary search of the cumulative count. Returns
+    (cid, types, cube_valid, n_occ, n_verts), the two counts as 0-d
+    tensors; ``n_verts`` counts every occupied cube, captured or not."""
+    dev = cube_type.device
+    vert_counts = _device_tables(dev)[0]
+    counts = _table_lookup(vert_counts, cube_type.to(torch.int32)[:, None])
+    n_verts = torch.where(occupied, counts[:, 0], 0).sum().to(torch.int32)
+    running = torch.cumsum(occupied, 0, dtype=torch.int32)
+    n_occ = running[-1]
+    rank = torch.arange(1, max_cubes + 1, dtype=torch.int32, device=dev)
+    cube_valid = rank <= n_occ
+    cid = torch.where(cube_valid, torch.searchsorted(running, rank), 0)
+    types = torch.where(cube_valid, cube_type[cid].to(torch.int32), 0)
+    return cid, types, cube_valid, n_occ, n_verts
+
+
+def _sweep(d, voxel_size, offset, cid, types, cube_valid):
+    """Phase 3: per compacted cube, the vertex and the bracketing voxel
+    pair of each of its 24 triangle slots, and which slots are live.
+    Returns (vert (C, 24, 3) f32, vvox (C, 24, 2) i32, slot_valid (C, 24))."""
+    dev = d.device
+    Z, Y, X = d.shape
+    cy, cx = Y - 1, X - 1
+    max_cubes = cid.shape[0]
     cub_z = cid // (cy * cx)
     rem = cid - cub_z * (cy * cx)
     cub_y = rem // cx
@@ -140,8 +202,7 @@ def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
     lins = torch.stack(lins, dim=-1).to(torch.int32)  # (max_cubes, 8)
 
     # per-edge interpolated vertices (max_cubes, 12, 3)
-    e0 = torch.as_tensor(EDGE_CORNERS[:, 0], dtype=i64, device=dev)
-    e1 = torch.as_tensor(EDGE_CORNERS[:, 1], dtype=i64, device=dev)
+    _, tri_table, e0, e1 = _device_tables(dev)
     w0, w1 = ws[:, e0], ws[:, e1]
     v0, v1 = centres[:, e0], centres[:, e1]
     denom = w1 - w0
@@ -152,10 +213,7 @@ def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
     edge_verts = v0 + ratio * (v1 - v0)
     edge_vox = torch.stack([lins[:, e0], lins[:, e1]], dim=-1)  # (.., 12, 2)
 
-    # triangulation: 15 slot edges per cube from the flattened table
-    tri_table = torch.as_tensor(
-        TRI_TABLE.reshape(-1), dtype=torch.int32, device=dev
-    )
+    # triangulation: 24 slot edges per cube from the flattened table
     slot = torch.arange(_MAX_V, dtype=torch.int32, device=dev)
     tri_edges = _table_lookup(tri_table, types[:, None] * _MAX_V + slot)
     slot_valid = (tri_edges >= 0) & cube_valid[:, None]
@@ -173,9 +231,41 @@ def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
         edge_vox.reshape(max_cubes, 24),
         (edge_idx[:, :, None] * 2 + ch2).reshape(max_cubes, _MAX_V * 2),
     ).reshape(max_cubes, _MAX_V, 2)
+    return vert, vvox, slot_valid
+
+
+def _extract(
+    d, voxel_size, offset, max_cubes, max_vertices, layout="dense"
+) -> TriangleSoup:
+    if layout not in ("dense", "masked"):
+        raise ValueError(f"layout must be 'dense' or 'masked', got {layout!r}")
+    dev = d.device
+    cube_type, occupied = _classify(d)
+
+    if layout == "masked":
+        cid, types, cube_valid, n_occ, n_verts = _compact_on_device(
+            cube_type, occupied, max_cubes
+        )
+        vert, vvox, slot_valid = _sweep(
+            d, voxel_size, offset, cid, types, cube_valid
+        )
+        n_slots = max_cubes * _MAX_V
+        return TriangleSoup(
+            vertices=vert.reshape(n_slots, 3),
+            vertex_voxels=vvox.reshape(n_slots, 2),
+            n_vertices=torch.clamp(n_verts, max=n_slots),
+            overflowed=n_occ > max_cubes,
+            valid=slot_valid.reshape(n_slots),
+        )
+
+    cid, types, cube_valid, cube_offsets, n_occ, n_verts = (
+        _compact_on_host_counts(cube_type, occupied, max_cubes)
+    )
+    vert, vvox, slot_valid = _sweep(d, voxel_size, offset, cid, types, cube_valid)
 
     # dense compaction: slot j of cube i goes to cube_offsets[i] + j
-    dest = cube_offsets[:, None] + slot.to(i64)[None, :]
+    slot = torch.arange(_MAX_V, dtype=torch.int64, device=dev)
+    dest = cube_offsets[:, None] + slot[None, :]
     dest = torch.where(
         slot_valid & (dest < max_vertices), dest, max_vertices
     ).reshape(-1)
@@ -199,10 +289,24 @@ def _extract(d, voxel_size, offset, max_cubes, max_vertices) -> TriangleSoup:
 
 
 def soup_to_numpy(soup: TriangleSoup):
-    """Host side: (n, 3) f32 vertices and the (n/3, 3) triangle indices,
-    copying only the live prefix off the device."""
-    n = int(soup.n_vertices) // 3 * 3
-    verts = soup.vertices[:n].detach().cpu().numpy()
+    """Host side: (n, 3) f32 vertices and the (n/3, 3) triangle indices.
+
+    Takes both layouts. A dense soup copies its live prefix off the
+    device. A masked soup is compacted here with numpy, up to its last
+    live slot: slot order is emission order, so triangles stay
+    contiguous. An overflowed masked soup counts ``n_vertices`` over every
+    occupied cube but holds ``max_cubes`` of them: the count is clamped to
+    whole triangles of what was captured.
+    """
+    n = int(soup.n_vertices)
+    cap = soup.vertices.shape[0]
+    if n <= cap and bool(soup.valid[:n].all()):  # dense layout
+        verts = soup.vertices[:n].detach().cpu().numpy()
+    else:
+        live = torch.nonzero(soup.valid).squeeze(1)
+        verts = soup.vertices[live[:n]].detach().cpu().numpy()
+    n = min(n, len(verts)) // 3 * 3
+    verts = verts[:n]
     tris = np.arange(n, dtype=np.int32).reshape(-1, 3)
     return verts, tris
 

@@ -74,3 +74,47 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
         + c110 * u * v * (1 - w)
         + c111 * u * v * w
     )
+
+
+def trilinear_weights_and_indices(values_shape, points, voxel_size):
+    """The 8 tap indices and weights of each point, under the border rules
+    of :func:`trilinear_sample` (the deformation-field interpolation).
+
+    Args:
+      values_shape: (Z, Y, X) of the sampled grid.
+      points: (..., 3) f32 tensor of grid-local mm coords.
+      voxel_size: (3,) f32 tensor on the points' device.
+
+    Returns:
+      lin: (..., 8) int32 flat indices into the grid, taps ordered x, y, z
+        with z fastest.
+      wts: (..., 8) f32 interpolation weights (they sum to 1).
+    """
+    sz, sy, sx = values_shape
+    dev = points.device
+    size = torch.tensor([sx, sy, sz], dtype=torch.float32, device=dev)
+    p = points.to(torch.float32)
+
+    max_values = size * voxel_size
+    p = torch.where(p >= max_values, max_values - voxel_size / 10.0, p)
+    p = torch.where(p < 0.0, torch.zeros_like(p), p)
+
+    g = p / voxel_size - 0.5
+    lower = torch.clamp(torch.floor(g), min=0.0)
+    u, v, w = (g - lower).unbind(-1)
+    lx, ly, lz = lower.to(torch.int32).unbind(-1)
+
+    lins, wts = [], []
+    for dx in (0, 1):
+        ix = torch.clamp(lx + dx, max=sx - 1)
+        for dy in (0, 1):
+            iy = torch.clamp(ly + dy, max=sy - 1)
+            for dz in (0, 1):
+                iz = torch.clamp(lz + dz, max=sz - 1)
+                lins.append((iz * sy + iy) * sx + ix)
+                wts.append(
+                    (u if dx else 1 - u)
+                    * (v if dy else 1 - v)
+                    * (w if dz else 1 - w)
+                )
+    return torch.stack(lins, dim=-1), torch.stack(wts, dim=-1)

@@ -25,6 +25,7 @@ from ..kernels.integrate import (
     integrate_color_cuda,
     integrate_cuda,
     integrate_fast_cuda,
+    integrate_warped_cuda,
 )
 from ..kernels.raycast import raycast_vertices_cuda
 from ..ops.raycast import vertices_to_camera_depth
@@ -87,7 +88,18 @@ def _check_integrate_mode(config: FusionConfig) -> None:
 def _integrate(vol, depth, camera, config: FusionConfig, miss_log, rgb=None):
     """Fuse one frame with the kernel the frame and the mode select. A
     kernel that returns a miss count leaves it on the device, in
-    ``miss_log``; ``_check_misses`` reads the run's counts once."""
+    ``miss_log``; ``_check_misses`` reads the run's counts once. A volume
+    with a deformation field is fused at its deformed centres (exact
+    pixels, no miss; the "fast" convention has no deformed variant)."""
+    if vol.deform is not None:
+        if config.integrate_mode == "fast":
+            raise ValueError(
+                "integrate_mode='fast' is the rigid path; a deformed "
+                "volume needs 'exact' or 'line'"
+            )
+        return integrate_warped_cuda(
+            vol, depth, camera, cap_weight=config.cap_weight, rgb=rgb
+        )
     if rgb is not None:
         vol, miss = integrate_color_cuda(
             vol, depth, rgb, camera, cap_weight=config.cap_weight,
@@ -219,8 +231,8 @@ def track_and_fuse_frames(
     if vol.deform is not None:
         raise ValueError(
             "track_and_fuse_frames does not support deformation-enabled "
-            "volumes: it integrates rigidly; non-rigid fusion is not ported "
-            "yet (ROADMAP.md)"
+            "volumes: it integrates rigidly. Use pipelines.scenefusion for "
+            "non-rigid fusion."
         )
     dev = vol.device
     k = camera.k

@@ -1,0 +1,321 @@
+"""SceneFusion: non-rigid fusion with a per-voxel deformation field.
+
+Port of ``tsdf_tpu/pipelines/scenefusion.py`` (ref:
+src/SceneFusion/SceneFusion.cpp:46-185, SceneFusion_krnl.cu:236-401). Per
+frame after the first:
+
+  1. extract the current isosurface with each vertex's two bracketing
+     voxels, in the masked layout (``ops.marching_cubes``), queued on the
+     device with no host read;
+  2. find correspondences: project each vertex into the depth frame and
+     accept it where the frame's depth agrees with the vertex's
+     camera-space depth within 10 mm. The pixel's ``[depth, flow]`` row is
+     fetched by ``kernels.gather.row_gather_op``;
+  3. update the deformation field: every corresponding vertex adds
+     flow(pixel) / usage(voxel) to BOTH its bracketing voxels, ``usage``
+     counting all mesh vertices at the voxel. The reference does this with
+     racy non-atomic adds; here the sums are deterministic (see
+     ``_accumulate_rows``);
+  4. integrate the depth frame at the deformed centres
+     (``kernels.integrate.integrate_warped_cuda``).
+
+On a CUDA volume the gathers and the integration are the hand-written
+kernels; on a CPU volume their plain twins. The JAX module's TPU
+factorings of the same update (cube-corner folding, per-edge streams, the
+blocked gather walk, the cube-cap ladder, the prewarmed fallback and the
+miss top-up) have no counterpart: a thread per voxel and a real gather
+need none of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..camera import Camera
+from ..kernels.gather import row_gather_op
+from ..kernels.integrate import integrate_warped_cuda
+from ..ops.marching_cubes import TriangleSoup, extract_surface
+from ..volume import TSDFVolume, make_volume
+
+# ref: SceneFusion_krnl.cu:15
+CORRESPONDENCE_THRESHOLD_MM = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneFusionConfig:
+    volume_size: tuple[int, int, int] = (255, 255, 255)  # ref: SceneFusion.cpp:49
+    physical_size_mm: float = 2550.0
+    offset_mm: tuple[float, float, float] = (-1275.0, -1275.0, 0.0)
+    threshold_mm: float = CORRESPONDENCE_THRESHOLD_MM
+    max_cubes: int = 1 << 18
+    max_vertices: int = 1 << 20
+
+    def make_volume(self, *, device) -> TSDFVolume:
+        return make_volume(
+            self.volume_size,
+            self.physical_size_mm,
+            offset=self.offset_mm,
+            with_deformation=True,
+            device=device,
+        )
+
+
+def _slot_correspondence(
+    verts: torch.Tensor,
+    slot_valid: torch.Tensor,
+    depth: torch.Tensor,
+    camera: Camera,
+    flow: torch.Tensor,
+    threshold_mm: float,
+):
+    """Project mesh vertices into the frame; accept a vertex where the
+    frame's depth agrees with its camera-space depth within the threshold
+    (ref: SceneFusion_krnl.cu:74-114). A vertex behind the camera would
+    mirror-project into the image, so ``cam_z > 0`` gates too.
+
+    Returns (corr (N,) bool, flow at each vertex (N, 3), zero where it
+    does not correspond).
+    """
+    h, w = depth.shape
+    cam_pts = camera.world_to_camera(verts)  # (N, 3)
+    img_h = cam_pts @ camera.k.T
+    pix = torch.round(img_h[:, 0:2] / img_h[:, 2:3])
+    px, py = pix[:, 0], pix[:, 1]
+    # compared as floats: a NaN or infinite projection is outside
+    in_img = (px >= 0) & (px < w) & (py >= 0) & (py < h) & slot_valid
+    lin = torch.where(in_img, py, 0.0).to(torch.int32) * w + torch.where(
+        in_img, px, 0.0
+    ).to(torch.int32)
+
+    # one gather of whole rows: [depth, flow] as 4 channels a pixel. Slots
+    # that are dead or outside the image read pixel 0 and are masked after.
+    img = torch.cat(
+        [depth.reshape(-1, 1), flow.to(torch.float32).reshape(-1, 3)], dim=-1
+    )
+    g = row_gather_op(img, lin)  # (N, 4)
+    d = g[:, 0]
+    cam_z = cam_pts[:, 2]
+    corr = (
+        in_img & (d > 0) & (cam_z > 0) & ((d - cam_z).abs() < threshold_mm)
+    )
+    return corr, torch.where(corr[:, None], g[:, 1:], 0.0)
+
+
+def _accumulate_rows(acc: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
+    """acc[idx[i], :] += rows[i, :] with duplicates in ``idx``, summed in
+    an order that does not change from run to run.
+
+    This site uses ``index_put_(accumulate=True)``. On a CUDA tensor
+    PyTorch sorts the indices (a stable radix sort) and adds each run of
+    duplicates sequentially, in order of appearance; float atomics
+    (``index_add_``) would add in an order that differs between runs. On a
+    CPU tensor the same call may add from several threads, so the sum is
+    made here instead, touching no process-wide switch: a stable sort of
+    the indices, ``torch.segment_reduce`` over each run of duplicates (one
+    run is summed serially, in order of appearance), and one add of each
+    run's sum into its row of ``acc``.
+    """
+    if acc.device.type != "cpu":
+        acc.index_put_((idx,), rows, accumulate=True)
+        return
+    order = torch.argsort(idx, stable=True)
+    hit, lengths = torch.unique_consecutive(idx[order], return_counts=True)
+    acc[hit] += torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0)
+
+
+def update_deformation(
+    vol: TSDFVolume,
+    soup: TriangleSoup,
+    depth: torch.Tensor,
+    camera: Camera,
+    flow: torch.Tensor,
+    threshold_mm: float = CORRESPONDENCE_THRESHOLD_MM,
+) -> tuple[TSDFVolume, torch.Tensor]:
+    """Apply one scene-flow observation to the deformation field.
+
+    Per voxel: ``counts`` over ALL valid mesh vertices the voxel brackets
+    and ``flow_sum`` over the corresponding ones (both bracketing voxels
+    of a vertex receive its contribution);
+    ``deform += flow_sum / max(counts, 1)``.
+
+    Args:
+      soup: the current surface (vertices + bracketing voxel pairs), dense
+        or masked layout.
+      depth: (H, W) f32 mm, on the volume's device.
+      flow: (H, W, 3) mm scene flow per pixel.
+
+    Returns (volume with the new ``deform``, number of corresponding
+    vertices as a 0-d int32 tensor). Nothing is read on the host.
+    """
+    depth = depth.to(torch.float32)
+    valid = soup.valid
+    corr, flow_at_vert = _slot_correspondence(
+        soup.vertices, valid, depth, camera, flow, threshold_mm
+    )
+
+    n_vox = vol.tsdf.numel()
+    # channel 0 counts every valid vertex, channels 1-3 sum the flow of the
+    # corresponding ones (already zero elsewhere)
+    payload = torch.cat([valid.to(torch.float32)[:, None], flow_at_vert], dim=-1)
+    # A dead slot adds an exact zero row. It is sent to a voxel of its own
+    # (its slot number modulo the volume) and not to one shared dump row:
+    # a run of millions of duplicates of one index would be added one
+    # after the other.
+    spread = torch.arange(valid.shape[0], device=valid.device) % n_vox
+    acc = torch.zeros((n_vox, 4), dtype=torch.float32, device=vol.device)
+    for side in (0, 1):
+        vox = soup.vertex_voxels[:, side].to(torch.int64)
+        _accumulate_rows(acc, torch.where(valid, vox, spread), payload)
+    delta = acc[:, 1:4] / torch.clamp(acc[:, 0:1], min=1.0)
+    new_deform = vol.deform + delta.reshape(vol.deform.shape)
+    return vol.replace(deform=new_deform), corr.sum().to(torch.int32)
+
+
+def scenefusion_step(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    flow: torch.Tensor,
+    camera: Camera,
+    *,
+    max_cubes: int,
+    threshold_mm: float = CORRESPONDENCE_THRESHOLD_MM,
+):
+    """One SceneFusion frame: masked-layout surface extraction ->
+    deformation update -> integrate at the deformed centres.
+
+    Everything is queued on the volume's device; nothing is read on the
+    host. ``vol.tsdf`` and ``vol.weight`` are updated in place; ``deform``
+    is replaced.
+
+    Returns (volume, correspondence count (0-d int32 tensor),
+    extraction-overflow flag (0-d bool tensor): the occupied cubes exceeded
+    ``max_cubes`` and the update saw a truncated surface).
+    """
+    soup = extract_surface(
+        vol, max_cubes=max_cubes, max_vertices=1, layout="masked"
+    )
+    vol, n_corr = update_deformation(
+        vol, soup, depth, camera, flow, threshold_mm
+    )
+    vol = integrate_warped_cuda(vol, depth, camera)
+    return vol, n_corr, soup.overflowed
+
+
+def _on_device(image, device) -> torch.Tensor:
+    """A frame (numpy array of any real dtype, or tensor) as a contiguous
+    float32 tensor on ``device``."""
+    if not isinstance(image, torch.Tensor):
+        image = torch.as_tensor(np.ascontiguousarray(image))
+    return image.to(device).to(torch.float32).contiguous()
+
+
+class SceneFusion:
+    """Orchestrator wiring an RGBD device to a scene-flow provider
+    (ref: SceneFusion.cpp:46-185): per frame pair, update the warp field
+    from scene flow and integrate.
+
+    One host read per frame after the first: the extraction's overflow
+    flag, which decides the warning. ``correspondence_counts`` keeps each
+    frame's count on the device.
+    """
+
+    def __init__(
+        self,
+        scene_flow_provider,
+        rgbd,
+        config: SceneFusionConfig = SceneFusionConfig(),
+        camera: Optional[Camera] = None,
+        dump_every: int = 0,
+        dump_dir: str = ".",
+        mesh=None,
+        *,
+        device,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "brick-parallel SceneFusion (mesh=) is not yet ported to "
+                "tsdf_tpu_torch; see ROADMAP.md"
+            )
+        self.config = config
+        self.sfa = scene_flow_provider
+        self.rgbd = rgbd
+        self.camera = camera or Camera.default_depth_camera(device=device)
+        self.volume = config.make_volume(device=device)
+        self.last_depth = None
+        self.frame_index = 0
+        self.dump_every = dump_every
+        self.dump_dir = dump_dir
+        self.correspondence_counts: list[torch.Tensor] = []
+        rgbd.add_observer(self.process_frames)
+
+    def process_frames(self, depth, colour=None):
+        """Observer callback (ref: SceneFusion::process_frames :84-185)."""
+        cfg = self.config
+        dev = self.volume.device
+        depth = _on_device(depth, dev)
+        if self.last_depth is not None:
+            _t, _r, flow = self.sfa.compute_scene_flow(depth, colour)
+            flow = _on_device(flow, dev)
+            self.volume, n_corr, overflow = scenefusion_step(
+                self.volume, depth, flow, self.camera,
+                max_cubes=cfg.max_cubes, threshold_mm=cfg.threshold_mm,
+            )
+            self.correspondence_counts.append(n_corr)
+            if bool(overflow):  # the frame's one host read
+                warnings.warn(
+                    f"SceneFusion frame {self.frame_index}: occupied "
+                    f"cubes exceed max_cubes={cfg.max_cubes}; mesh (and "
+                    "the deformation update) truncated — raise "
+                    "SceneFusionConfig.max_cubes",
+                    stacklevel=2,
+                )
+        else:
+            self.volume = self._integrate(depth)
+        self.last_depth = depth
+        if self.dump_every and self.frame_index % self.dump_every == 0:
+            self.dump(self.frame_index)
+        self.frame_index += 1
+
+    def _integrate(self, depth: torch.Tensor) -> TSDFVolume:
+        """The deformed-volume integrate: every voxel reads its own pixel,
+        so there is no miss to fall back from."""
+        return integrate_warped_cuda(self.volume, depth, self.camera)
+
+    def dump(self, index: int) -> None:
+        """Periodic checkpoint + canonical and warped meshes
+        (ref: SceneFusion.cpp:142-181)."""
+        from ..io.ply import write_ply
+        from ..io.tsdf_file import save_tsdf
+        from ..ops.deform import deform_points
+        from ..ops.marching_cubes import soup_to_numpy
+
+        os.makedirs(self.dump_dir, exist_ok=True)
+        save_tsdf(
+            self.volume,
+            os.path.join(self.dump_dir, f"frame_{index:03d}.tsdf"),
+        )
+        verts, tris = soup_to_numpy(self.extract_mesh())
+        write_ply(
+            os.path.join(self.dump_dir, f"mesh_canonical_{index:03d}.ply"),
+            verts,
+            tris,
+        )
+        warped, _valid = deform_points(self.volume, verts)
+        write_ply(
+            os.path.join(self.dump_dir, f"mesh_warped_{index:03d}.ply"),
+            warped.cpu().numpy(),
+            tris,
+        )
+
+    def extract_mesh(self) -> TriangleSoup:
+        return extract_surface(
+            self.volume,
+            max_cubes=self.config.max_cubes,
+            max_vertices=self.config.max_vertices,
+        )

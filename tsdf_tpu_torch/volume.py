@@ -13,9 +13,12 @@ CUDA integrate kernels write ``tsdf``/``weight`` (and ``color``) directly
 
 ``color`` is the fused per-voxel RGB, (Z, Y, X, 3) uint8 interleaved as in
 the ``.tsdf`` file; colour fusion needs it (``with_color()``). ``deform``
-and ``deform_rot`` are carried for the ``.tsdf`` file format; the rigid
-path in this package never reads them, and ``integrate`` refuses a volume
-with a deformation field.
+is the non-rigid SceneFusion state: the *deformed world-space centre* of
+every voxel (``with_identity_deformation()`` starts it at the voxel
+centres). A volume that has one is integrated at those centres
+(``ops.integrate.integrate``, ``kernels.integrate.integrate_warped_cuda``)
+and warps points through it (``ops.deform.deform_points``). ``deform_rot``
+is carried for the ``.tsdf`` file format only; nothing reads it.
 """
 
 from __future__ import annotations
@@ -44,8 +47,10 @@ class TSDFVolume:
       max_weight: () f32.
       global_rotation / global_translation: (3,) f32 whole-field pose.
       color: (Z, Y, X, 3) u8 fused colour, or None.
-      deform / deform_rot: (Z, Y, X, 3) f32 or None (file-format state
-        only: the deformed voxel centres and their Euler rotations).
+      deform: (Z, Y, X, 3) f32 or None: the deformed world-space centre
+        of each voxel, components (x, y, z).
+      deform_rot: (Z, Y, X, 3) f32 or None: per-node Euler rotations,
+        file-format state only.
     """
 
     tsdf: torch.Tensor
@@ -113,6 +118,13 @@ class TSDFVolume:
             dim=-1,
         )
 
+    def deformed_centres(self) -> torch.Tensor:
+        """(Z, Y, X, 3) deformed voxel centres: ``deform`` itself, the
+        voxel centres for a rigid volume."""
+        if self.deform is None:
+            return self.voxel_centres()
+        return self.deform
+
     # -- mutation as replacement --------------------------------------------
 
     def clear(self) -> "TSDFVolume":
@@ -122,11 +134,24 @@ class TSDFVolume:
             tsdf=self.truncation_distance.expand(self.tsdf.shape).clone(),
             weight=torch.zeros_like(self.weight),
             color=None if self.color is None else torch.zeros_like(self.color),
-            deform=None if self.deform is None else self.voxel_centres(),
+            deform=(
+                None if self.deform is None
+                else self.voxel_centres().contiguous()
+            ),
             deform_rot=(
                 None
                 if self.deform_rot is None
                 else torch.zeros_like(self.deform_rot)
+            ),
+        )
+
+    def with_identity_deformation(self) -> "TSDFVolume":
+        """The same volume with its deformation field at the identity
+        warp: every node at its voxel centre, rotations zero."""
+        return self.replace(
+            deform=self.voxel_centres().contiguous(),
+            deform_rot=torch.zeros(
+                tuple(self.tsdf.shape) + (3,), dtype=_F32, device=self.device
             ),
         )
 
@@ -210,6 +235,7 @@ def make_volume(
     offset=None,
     truncation_distance: float | None = None,
     max_weight: float = DEFAULT_MAX_WEIGHT,
+    with_deformation: bool = False,
     with_color: bool = False,
     *,
     device,
@@ -222,6 +248,7 @@ def make_volume(
       offset: world coords of the grid origin; defaults to centring the
         volume on x/y and starting z at 0 (the reference tools' usage).
       truncation_distance: defaults to 1.1 * ||voxel_size||.
+      with_deformation: allocate the deformation field at the identity.
       with_color: allocate the (Z, Y, X, 3) uint8 colour field.
     """
     sx, sy, sz = size
@@ -249,4 +276,6 @@ def make_volume(
         global_rotation=torch.zeros(3, dtype=_F32, device=device),
         global_translation=torch.zeros(3, dtype=_F32, device=device),
     )
+    if with_deformation:
+        vol = vol.with_identity_deformation()
     return vol.with_color() if with_color else vol
