@@ -1,8 +1,9 @@
 """Chip smoke of the PyTorch/CUDA port: the GT-pose fuse -> render -> mesh
-path, the tracked KinectFusion loop, colour fusion (GT-pose and tracked)
-and the decimated "fast" integrate mode at the repository's 512^3 /
-640x480 size, and non-rigid SceneFusion at the reference's 255^3 /
-2550 mm, on one NVIDIA card.
+path, the tracked KinectFusion loop, colour fusion (GT-pose and tracked),
+the decimated "fast" integrate mode and pose recovery through
+differentiable fusion and through the differentiable raycast at the
+repository's 512^3 / 640x480 size, and non-rigid SceneFusion at the
+reference's 255^3 / 2550 mm, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,22 @@ Phases (any failed check exits non-zero; nothing is caught):
      integrate at 512^3 under a uniform warp and at 255^3 under the field
      real deformation updates leave; the row gather at the correspondence
      and the deform_points shapes of a real frame; the windowed lane
-     gather and its checked wrapper on coherent and wild indices);
+     gather and its checked wrapper on coherent and wild indices; the
+     pose adjoint at 512^3 on the second frame over the volume the first
+     fused, with a seeded cotangent: dd and dw bit-equal, the pose_inv
+     cotangent within 1e-6, a second launch bit-equal; the gather-roofline
+     probe: out equal, its G elements/s and the integrate floor it implies);
+  3b. pose recovery at 512^3 / 640x480: the workload of
+     tools/run_config4b.py (normalised steps through integrate_pose from a
+     17 mm / 5.4 mrad twist, 14 steps, the best iterate kept: the gradient
+     at the start through the kernels against the same through the twins,
+     loss and |v| a step, ms a value-and-grad step by CUDA events and on
+     the host, device time by kernel under the profiler, peak memory,
+     integrate and integrate_pose_grad launches) and of
+     tools/run_config4.py (Levenberg-Marquardt through raycast_diff from a
+     25.6 mm offset until the translation error is under 1 mm, at most 80
+     iterations: rms and error a step, ms a step, one raycast launch a
+     step);
   4. the GT-pose path: a fabricated 20-frame TUM directory (a wall and
      two spheres, intersected in closed form) through
      ``tsdf_tpu_torch.cli.main(["fuse", ...])``, with launch counts,
@@ -2291,6 +2307,334 @@ def probe_tracked_loop(dev, frames) -> dict:
                 tracked_launches_per_frame=launches / tracked)
 
 
+# -- differentiable fusion and raycast: the pose adjoint, the probe, and the
+#    two pose recoveries (tools/run_config4b.py, tools/run_config4.py) -------
+
+# Float32 operations of the pose adjoint: the integrate's prologue at every
+# voxel and in front of the camera; an updated voxel's volume cotangents
+# (dd: a division and a product; dw: min, difference, two products, a
+# division, the cap factor and a sum), its coefficient, the image term (dx,
+# dy: 3 each; dz: 10) and the 12 products and float64 sums
+POSE_GRAD_OPS = dict(voxel=27, in_front=12, updated=10, band=41)
+# the probe: per gather an index sum, a clip (2) and the add
+PROBE_OPS_PER_GATHER = 4
+PROBE_ROWS = 64 * 512  # tools/probe_gather_roofline.py: N_PROG x S rows
+# dpinv: float64 sums of the same float32 terms in another order
+POSE_GRAD_DPINV_RTOL = 1e-6
+# config4b (tools/run_config4b.py)
+C4B_CAMERA = ((120.0, -80.0, -500.0), (0.0, 0.0, 1500.0))
+C4B_DELTA0 = (0.004, -0.003, 0.002, 12.0, -9.0, 8.0)
+C4B_STEPS = 14
+# config4 (tools/run_config4.py)
+C4_SPHERES = [((-700.0, -500.0, 900.0), 250.0), ((650.0, 400.0, 1200.0), 300.0),
+              ((-300.0, 700.0, 1800.0), 350.0)]
+C4_CAMERA = ((40.0, -30.0, -420.0), (0.0, 0.0, 1500.0))
+C4_PERTURB = (0.01, -0.008, 0.005, 15.0, -12.0, 16.0)
+C4_ITERS = 80
+C4_TERR_MM = 1.0
+POSE_OFFSET = (-1500.0, -1500.0, 0.0)
+
+
+def default_camera(dev, at, target):
+    from tsdf_tpu_torch import Camera
+
+    return Camera.default_depth_camera(device=dev).move_to(list(at)).look_at(
+        list(target))
+
+
+def compare_pose_grad(dev, frames) -> dict:
+    """The pose-adjoint kernel against its twin at 512^3 / 640x480: the
+    second frame's adjoint over a volume the first frame fused (its
+    updated voxels blend into weight), with a seeded cotangent. dd and dw
+    bit-equal, dpinv within POSE_GRAD_DPINV_RTOL of its largest entry, a
+    second launch bit-equal."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels.integrate import integrate_cuda, pose_grad_cuda
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad, sample_frame
+
+    vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames]
+    integrate_cuda(vol, frames[0][0], cams[0])
+    depth, cam = frames[1][0], cams[1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gd = torch.randn(vol.tsdf.shape, generator=gen, device=dev)
+    gw = torch.randn(vol.tsdf.shape, generator=gen, device=dev)
+    dd, dw, dp = pose_grad_cuda(vol, depth, cam, gd, gw)
+    dd2, dw2, dp2 = pose_grad_cuda(vol, depth, cam, gd, gw)
+    rd, rw, rp = integrate_pose_grad(vol, depth, cam, gd, gw)
+    torch.cuda.synchronize()
+    # the voxels the frame updates, and those in the band sdf < trunc,
+    # where the pose terms are summed
+    *_, sdf, updated = sample_frame(depth, vol, cam)
+    in_band = int((updated & (sdf < vol.truncation_distance)).sum())
+    del sdf
+    n_upd = int(updated.sum())
+    blended = int((updated & (vol.weight > 0)).sum())
+    same = [int((a != b).sum()) for a, b in ((dd, rd), (dw, rw))]
+    err = float((dp - rp).abs().max())
+    scale = float(rp.abs().max())
+    again = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in ((dd, dd2), (dw, dw2), (dp, dp2)))
+    log(f"pose adjoint 512^3: dd and dw differ from the twin on {same} "
+        f"voxels; dpinv max |diff| {err:.4g} (largest entry {scale:.6g}); "
+        f"{n_upd} voxels updated, {blended} of them blending into weight; "
+        f"a second launch bit-equal: {again}")
+    log(f"pose adjoint dpinv rows R|t: {dp[:3].cpu().numpy().tolist()}")
+    check(same == [0, 0], "the pose adjoint's dd/dw differ from the twin")
+    check(err <= POSE_GRAD_DPINV_RTOL * scale, "the pose adjoint's dpinv disagrees")
+    check(again, "two launches of the pose adjoint differ")
+    check(blended > 0 and scale > 0, "the pose adjoint did no work")
+    del dd2, dw2, rd, rw
+    ms = median_ms(lambda: pose_grad_cuda(vol, depth, cam, gd, gw), reps=20)
+    plain_ms = median_ms(lambda: integrate_pose_grad(vol, depth, cam, gd, gw),
+                         reps=3)
+    # bytes: gbar_d, gbar_w in and dd, dw out at every voxel, tsdf and
+    # weight at an updated one, depth and its two gradient images once
+    o = POSE_GRAD_OPS
+    least = bound(
+        16 * vol.tsdf.numel() + 8 * n_upd + 3 * 4 * depth.numel(),
+        o["voxel"] * vol.tsdf.numel() + o["in_front"] * voxels_in_front(vol, cam)
+        + o["updated"] * n_upd + o["band"] * in_band)
+    log(f"pose adjoint 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
+        f"({n_upd} updated, {in_band} in the band)")
+    return dict(max_abs_err=err, dd_dw_voxels_differ=sum(same),
+                bit_equal_second_run=again, ms=ms, plain_ms=plain_ms,
+                updated=n_upd, in_band=in_band, **least, library_ms=None)
+
+
+def compare_probe(dev) -> dict:
+    """The gather-roofline probe at tools/probe_gather_roofline.py's shape
+    ((64 x 512, 128) table, 64 chained gathers) against its twin (out
+    equal), the card's in-row gather rate it reaches, and the floor that
+    rate implies for csrc/integrate.cu at 512^3 (one direct tap a voxel)."""
+    from tsdf_tpu_torch.kernels.gather import (
+        PROBE_GATHERS,
+        gather_probe_cuda,
+        gather_probe_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tab = torch.randn(PROBE_ROWS, 128, generator=gen, device=dev)
+    idx = torch.randint(0, 128, (PROBE_ROWS, 128), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got = gather_probe_cuda(tab, idx)
+    want = gather_probe_plain(tab, idx)
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(differ == 0, "the gather probe disagrees with its twin")
+    ms = median_ms(lambda: gather_probe_cuda(tab, idx), reps=20)
+    plain_ms = median_ms(lambda: gather_probe_plain(tab, idx), reps=3)
+    n = tab.numel() * PROBE_GATHERS
+    rate = n / (ms / 1e3)
+    floor_ms = SIZE**3 / rate * 1e3
+    least = bound(3 * 4 * tab.numel(), PROBE_OPS_PER_GATHER * n)
+    log(f"gather probe: {ms:.4f} ms for {n} gathered elements = "
+        f"{rate / 1e9:.1f} G elements/s (plain {plain_ms:.4f} ms, bound "
+        f"{least['bound_ms']:.4f} ms by {least['bound_by']}); at one direct "
+        f"tap a voxel that ceiling puts csrc/integrate.cu's floor at "
+        f"{floor_ms:.4f} ms for 512^3")
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, g_elements_per_s=rate / 1e9,
+                integrate_floor_ms=floor_ms, **least, library_ms=None)
+
+
+def profile_step(fn, what: str, n: int = 3) -> dict:
+    """``n`` calls of ``fn`` under torch.profiler: the card's busy time and
+    kernel launches per call, the busy time by kernel (the top five), the
+    host time by operator (the top four), the host syncs per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    syncs = sum(e.count for e in events
+                if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+                             "cudaDeviceSynchronize")) / n
+    top = [(e.key[:60], e.count // n, e.self_device_time_total / 1e3 / n)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]]
+    for name, count, ms in top:
+        log(f"{what} step, kernel {name}: {count} a step, {ms:.4f} ms a step")
+    cpu = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:4]:
+        log(f"{what} step, host op {e.key[:40]}: {e.count // n} a step, "
+            f"{e.self_cpu_time_total / 1e3 / n:.4f} ms of host time a step, "
+            f"{e.self_cpu_time_total / max(e.count, 1):.1f} us a call")
+    log(f"{what} step under the profiler: device busy {busy_ms:.4f} ms, "
+        f"{launches:.0f} kernel launches, {syncs:.0f} host syncs a step")
+    return dict(busy_ms=busy_ms, launches=launches, syncs=syncs,
+                top=[list(t) for t in top])
+
+
+def phase_config4b(dev) -> dict:
+    """tools/run_config4b.py on the card: pose recovery THROUGH fusion at
+    512^3 / 640x480. The target is the four-bump frame fused at the true
+    pose; from delta0, 14 normalised steps of the masked MSE loss through
+    integrate_pose (integrate kernel forward, pose-adjoint kernel
+    backward), keeping the best iterate. First the gradient at delta0
+    through the kernels against the same through the plain twins."""
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels import integrate as kint
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad
+    from tsdf_tpu_torch.pipelines.pose_recovery import (
+        descend_through_fusion,
+        fusion_loss_and_grad,
+    )
+    from tsdf_tpu_torch.utils import fixtures
+
+    vol = make_volume((SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET, device=dev)
+    cam = default_camera(dev, *C4B_CAMERA)
+    # four spheres so all six degrees of freedom are observable
+    depth = fixtures.sphere_depth_map(W, H, 150.0, 1000.0, 2500.0)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for cx_, cy_, r_ in ((160, 120, 90.0), (480, 120, 70.0), (480, 360, 110.0)):
+        rr = (xs - cx_) ** 2 + (ys - cy_) ** 2
+        depth = np.where(rr < r_ ** 2, 900.0 + 0.3 * np.sqrt(rr), depth)
+    depth = torch.from_numpy(depth.astype(np.float32)).to(dev)
+    with torch.no_grad():
+        target, miss = kint.integrate_pose(vol, depth, cam, torch.zeros(6, device=dev),
+                                           mode="line")
+    check(int(miss) == 0, "config4b: the target fusion missed voxels")
+    delta0 = torch.tensor(C4B_DELTA0, dtype=torch.float32, device=dev)
+
+    # the gradient at delta0 through the kernels, then through the twins
+    loss_k, g_k = fusion_loss_and_grad(vol, depth, cam, target, delta0)
+
+    def integrate_twin(v, d, c, cap_weight=False):
+        out = integrate_plain(v, d, c, cap_weight=cap_weight)
+        v.tsdf.copy_(out.tsdf)
+        v.weight.copy_(out.weight)
+        return v
+
+    saved = kint.integrate_cuda, kint.pose_grad_cuda
+    kint.integrate_cuda, kint.pose_grad_cuda = integrate_twin, integrate_pose_grad
+    try:
+        loss_t, g_t = fusion_loss_and_grad(vol, depth, cam, target, delta0)
+    finally:
+        kint.integrate_cuda, kint.pose_grad_cuda = saved
+    g_err = float((g_k - g_t).abs().max())
+    g_scale = float(g_t.abs().max())
+    log(f"config4b: gradient at delta0 through the kernels "
+        f"{g_k.cpu().numpy().tolist()}, through the twins "
+        f"{g_t.cpu().numpy().tolist()}: max |diff| {g_err:.4g}; loss "
+        f"{float(loss_k):.6f} / {float(loss_t):.6f}")
+    check(float(loss_k) == float(loss_t), "config4b: kernel and twin losses differ")
+    check(g_err <= 1e-5 * g_scale, "config4b: kernel and twin gradients differ")
+
+    step_ms = median_ms(
+        lambda: fusion_loss_and_grad(vol, depth, cam, target, delta0), reps=5)
+    prof = profile_step(
+        lambda: fusion_loss_and_grad(vol, depth, cam, target, delta0),
+        "config4b value-and-grad")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best, best_loss, history = descend_through_fusion(
+        vol, depth, cam, target, delta0, steps=C4B_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    for i, h in enumerate(history):
+        log(f"config4b iter {i}: loss {h['loss']:.6f}, |v| {h['v_mm']:.4f} mm, "
+            f"|w| {h['w_mrad']:.4f} mrad, {h['seconds'] * 1e3:.3f} ms")
+    v0 = float(torch.linalg.vector_norm(delta0[3:]))
+    resid = float(torch.linalg.vector_norm(best[3:]))
+    host_ms = float(np.median([h["seconds"] for h in history])) * 1e3
+    log(f"config4b 512^3: {C4B_STEPS} steps in {seconds:.3f} s; value-and-grad "
+        f"step {step_ms:.4f} ms by CUDA events, {host_ms:.4f} ms median on the "
+        f"host with its sync; best loss {best_loss:.6f} (start "
+        f"{history[0]['loss']:.6f}); translation residual {resid:.4f} mm "
+        f"(start {v0:.4f}); peak device memory {peak_gib:.3f} GiB; launches "
+        f"integrate {counts['integrate']}, integrate_pose_grad "
+        f"{counts['integrate_pose_grad']}")
+    check(counts["integrate"] == C4B_STEPS + 1
+          and counts["integrate_pose_grad"] == C4B_STEPS + 1,
+          "config4b: unexpected launch counts")
+    check(best_loss < history[0]["loss"], "config4b: the loss did not fall")
+    check(resid < v0, "config4b: the translation residual did not fall")
+    return dict(counts=counts, step_ms=step_ms, host_step_ms=host_ms,
+                seconds=seconds, best_loss=best_loss,
+                start_loss=history[0]["loss"], residual_mm=resid,
+                start_mm=v0, peak_gib=peak_gib, grad_err=g_err,
+                profile=prof, history=history)
+
+
+def phase_config4(dev) -> dict:
+    """tools/run_config4.py on the card: pose recovery through the
+    differentiable raycast at 512^3 / 640x480. The scene is four spheres
+    and a wall; the target depth is rendered at the true pose; from the
+    perturbed pose, Levenberg-Marquardt on the banded depth residuals
+    (one raycast-kernel march a step, the Jacobian by forward mode through
+    the correction) until the translation error is under 1 mm."""
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.ops.raycast_diff import depth_image_diff
+    from tsdf_tpu_torch.pipelines.pose_recovery import lm_step, recover_pose_lm
+    from tsdf_tpu_torch.utils import fixtures
+    from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
+
+    scene = fixtures.sphere_tsdf(
+        make_volume((SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET, device=dev), 600.0)
+    tsdf = scene.tsdf
+    for c, r in C4_SPHERES:
+        tsdf = torch.minimum(tsdf, fixtures.sphere_tsdf(scene, r, centre=c).tsdf)
+    tsdf = torch.minimum(tsdf, fixtures.wall_tsdf(scene, 2500.0).tsdf)
+    scene = scene.replace(tsdf=tsdf.contiguous(),
+                          weight=torch.ones_like(scene.weight))
+    del tsdf
+    cam_true = default_camera(dev, *C4_CAMERA)
+    with torch.no_grad():
+        target, hit = depth_image_diff(scene, cam_true, W, H)
+    xi_p = torch.tensor(C4_PERTURB, dtype=torch.float32, device=dev)
+    cam0 = cam_true.set_pose(matmul_small(se3_exp(xi_p), cam_true.pose))
+
+    def terr(xi):
+        pose = matmul_small(se3_exp(xi), cam0.pose)
+        return float(torch.linalg.vector_norm((pose - cam_true.pose)[:3, 3]))
+
+    zero = torch.zeros(6, device=dev)
+    terr0 = terr(zero)
+    log(f"config4: target hits {int(hit.sum())} of {W * H} pixels; initial "
+        f"pose offset {terr0:.4f} mm")
+    step_ms = median_ms(lambda: lm_step(scene, cam0, target, zero, 1e-2), reps=5)
+    prof = profile_step(lambda: lm_step(scene, cam0, target, zero, 1e-2),
+                        "config4 LM")
+    errors = []
+
+    def stop(xi):
+        errors.append(terr(xi))
+        return errors[-1] < C4_TERR_MM
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xi, history = recover_pose_lm(scene, cam0, target, iters=C4_ITERS, stop=stop)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    for i, (h, e) in enumerate(zip(history, errors)):
+        log(f"config4 iter {i}: rms {h['rms']:.4f} mm, lam {h['lam']:.1e}, "
+            f"terr {e:.4f} mm, {h['seconds'] * 1e3:.3f} ms")
+    iters = len(history)
+    per_step = seconds / iters * 1e3
+    log(f"config4 512^3 {W}x{H}: {per_step:.4f} ms a Levenberg-Marquardt step "
+        f"(host clock, with its sync), {step_ms:.4f} ms by CUDA events; pose "
+        f"recovered to {errors[-1]:.4f} mm in {iters} iterations (start "
+        f"{terr0:.4f} mm); launches raycast {counts['raycast']}")
+    check(errors[-1] < C4_TERR_MM, "config4: the pose was not recovered to 1 mm")
+    check(counts["raycast"] == iters, "config4: one march a step expected")
+    return dict(counts=counts, iters=iters, step_ms=step_ms,
+                host_step_ms=per_step, start_mm=terr0, final_mm=errors[-1],
+                errors=errors, rms=[h["rms"] for h in history], profile=prof)
+
+
 # -- config 3 (--config3): the 500-pose tracked orbit at 256^3 -----------------
 
 
@@ -2443,6 +2787,14 @@ def main() -> int:
             compare_gather_masked(dev, sf_depth, sf_flows))
         results.update(compare_windowed(dev))
         torch.cuda.empty_cache()
+        results["integrate_pose_grad"] = compare_pose_grad(dev, frames[:2])
+        torch.cuda.empty_cache()
+        results["gather_probe"] = compare_probe(dev)
+        torch.cuda.empty_cache()
+        config4b = phase_config4b(dev)
+        torch.cuda.empty_cache()
+        config4 = phase_config4(dev)
+        torch.cuda.empty_cache()
 
         first_pose = poses[0].astype(np.float32)
         gt_path = phase_gt_path(dev, tum, out_dir)
@@ -2492,6 +2844,9 @@ def main() -> int:
          "launches_icp_verb": icp_counts[k], **results[k]}
         for k, (src, rep) in meta.items()
     ]
+    # the differentiable paths reuse two of them
+    kernels[0]["launches_config4b"] = config4b["counts"]["integrate"]
+    kernels[1]["launches_config4"] = config4["counts"]["raycast"]
     # the kernels of colour fusion and of the fast mode, each with the
     # launches of the path that runs it
     color_src = "tsdf_tpu_torch/csrc/integrate_color.cu"
@@ -2518,6 +2873,7 @@ def main() -> int:
     kernels[2]["launches_sfusion"] = sfusion["counts"]["lane_gather"]
     warped_src = "tsdf_tpu_torch/csrc/integrate_warped.cu"
     no_path = "no path of either package calls it"
+    probe = "no path: a probe of the card's gather rate"
     for k, src, rep, launches, path in (
         ("integrate_warped", warped_src, "tsdf_tpu/kernels/integrate.py:473",
          sfusion["counts"]["integrate_warped"], "sfusion"),
@@ -2537,9 +2893,26 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches,
                         "launches_on": path, **results[k]})
+    # the pose adjoint, with its launches on the config4b descent; the
+    # probe, with its counter read after that run (0)
+    for k, src, rep, path in (
+        ("integrate_pose_grad", "tsdf_tpu_torch/csrc/integrate_pose_grad.cu",
+         "tsdf_tpu/kernels/integrate.py:1378",
+         "config4b: descent through integrate_pose"),
+        ("gather_probe", "tsdf_tpu_torch/csrc/probe_gather.cu",
+         "tools/probe_gather_roofline.py:36", probe),
+    ):
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": config4b["counts"][k],
+                        "launches_on": path, **results[k]})
     for entry in kernels:
-        check(entry["launches"] > 0 or entry["launches_on"] == no_path,
+        check(entry["launches"] > 0 or entry["launches_on"] in (no_path, probe),
               f"{entry['name']} was never launched")
+    log(f"config4b: {config4b['host_step_ms']:.4f} ms a value-and-grad step, "
+        f"translation residual {config4b['start_mm']:.4f} -> "
+        f"{config4b['residual_mm']:.4f} mm; config4: "
+        f"{config4['host_step_ms']:.4f} ms a Levenberg-Marquardt step, "
+        f"{config4['final_mm']:.4f} mm in {config4['iters']} iterations")
     log(f"SceneFusion: {sfusion['ms_per_frame']:.4f} ms/frame on the device, "
         f"{sfusion['syncs_per_frame']:.3f} host syncs per frame, the sfusion "
         f"verb {sfusion['cli_seconds']:.2f} s for {SF_FRAMES} frames")

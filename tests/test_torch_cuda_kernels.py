@@ -10,9 +10,15 @@ test configuration:
 Tolerances: the kernels are built with --fmad=false and evaluate the
 twins' expressions in the same order, so integrate (exact, colour, fast,
 colour-fast and warped, miss counts included), the gathers (lane, row and
-windowed, its miss count included) and bilateral must agree bit for bit; raycast is held to the same gates as the twin-vs-JAX test
-(hit masks >= 99.9% equal, median vertex difference < 0.5 mm).
+windowed, its miss count included), the gather probe and bilateral must
+agree bit for bit; raycast is held to the same gates as the twin-vs-JAX
+test (hit masks >= 99.9% equal, median vertex difference < 0.5 mm). The
+pose adjoint's dd and dw are bit-equal; its pose_inv cotangent, float64
+sums of the same float32 terms in another order, is within 1e-6 of its
+largest entry.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -505,3 +511,204 @@ def test_windowed_gather_kernel_int32_empty_and_refusals(dev):
     with pytest.raises(ValueError, match="a block can stage"):
         gather.lane_gather_windowed_op(wide, wide_idx, window_blocks=8,
                                        block_rows=128)
+
+
+# -- the pose adjoint (csrc/integrate_pose_grad.cu) ------------------------
+
+def _adjoint_inputs(dev, size, seed):
+    """A weighted, filled volume (weights 10..14, so w + 1 == max_weight
+    15 is the tie on some voxels), a noisy depth frame with holes, and
+    two cotangents."""
+    rng = np.random.default_rng(seed)
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0), device=dev)
+    shape = vol.tsdf.shape
+    vol = vol.replace(
+        tsdf=torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                              * 10).to(dev),
+        weight=torch.from_numpy(rng.integers(10, 15, shape)
+                                .astype(np.float32)).to(dev))
+    depth = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0)
+    depth = depth.astype(np.float32) + rng.uniform(0, 5, depth.shape).astype(
+        np.float32) * (depth > 0)
+    depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
+    gd, gw = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              .to(dev) for _ in range(2))
+    return vol, torch.from_numpy(depth).to(dev), gd, gw
+
+
+def _assert_adjoint_equals_twin(vol, depth, cam, gd, gw, **kw):
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad
+
+    before = integrate.KERNEL_POSE_GRAD.launches
+    dd, dw, dp = integrate.pose_grad_cuda(vol, depth, cam, gd, gw, **kw)
+    dd2, dw2, dp2 = integrate.pose_grad_cuda(vol, depth, cam, gd, gw, **kw)
+    assert integrate.KERNEL_POSE_GRAD.launches == before + 2
+    rd, rw, rp = integrate_pose_grad(vol, depth, cam, gd, gw, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dd, rd) and torch.equal(dw, rw)
+    # float64 sums of the same float32 terms in another order
+    tol = 1e-6 * float(rp.abs().max()) + 1e-6
+    assert float((dp - rp).abs().max()) <= tol
+    # two launches, the same bits
+    for a, b in ((dd, dd2), (dw, dw2), (dp, dp2)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return dd, rp
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize("image_term", [False, True])
+@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21), (45, 130, 3)])
+def test_pose_grad_kernel_matches_twin(dev, size, image_term, cap_weight):
+    """The adjoint kernel against its twin: dd and dw bit-equal, dpinv
+    within 1e-6 of its largest entry, two launches bit-equal; sizes whose
+    x is no multiple of the warp and whose y is no multiple of the block's
+    64 rows."""
+    vol, depth, gd, gw = _adjoint_inputs(dev, size, seed=size[0])
+    cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
+    dd, dp = _assert_adjoint_equals_twin(vol, depth, cam, gd, gw,
+                                         cap_weight=cap_weight,
+                                         image_term=image_term)
+    updated = dd != gd
+    assert updated.any() and float(dp.abs().max()) > 0
+    if cap_weight:
+        assert (updated & (vol.weight == 14.0)).any()  # the tie
+
+
+def test_pose_grad_kernel_gates_at_slivers(dev):
+    """Voxels on the camera plane (Z == 0), behind it, at exact half-pixel
+    projections, and NaN depth pixels: the adjoint gates exactly like the
+    forward kernel and equals its twin."""
+    vol = make_volume((20, 18, 22), 200.0, offset=(0.0, 0.0, 0.0), device=dev)
+    zc = float(vol.axis_centres()[0][6])
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (95.0, 100.0, zc)  # on the centres x = 95 and z plane 6
+    cam = Camera.from_intrinsics(40.0, 40.0, 20.5, 15.5, pose=pose,
+                                 device=dev)
+    rng = np.random.default_rng(5)
+    depth = rng.uniform(10.0, 120.0, (32, 41)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.1] = np.nan
+    depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
+    depth = torch.from_numpy(depth).to(dev)
+    vol = vol.replace(
+        tsdf=torch.from_numpy(rng.normal(size=vol.tsdf.shape)
+                              .astype(np.float32)).to(dev),
+        weight=torch.from_numpy(rng.integers(0, 4, vol.tsdf.shape)
+                                .astype(np.float32)).to(dev))
+    g = torch.from_numpy(rng.normal(size=vol.tsdf.shape)
+                         .astype(np.float32)).to(dev)
+    fused = integrate.integrate_cuda(
+        vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone()),
+        depth, cam)
+    updated = fused.weight != vol.weight
+    dd, _dp = _assert_adjoint_equals_twin(vol, depth, cam, g, g)
+    assert updated.any() and not updated.all()
+    assert torch.equal(dd != g, updated)
+    # a NaN camera point at every voxel: nothing is updated
+    nan_cam = dataclasses.replace(cam, pose_inv=torch.full_like(cam.pose_inv,
+                                                                float("nan")))
+    dd, dp = _assert_adjoint_equals_twin(vol, depth, nan_cam, g, g)
+    assert torch.equal(dd, g) and float(dp.abs().max()) == 0.0
+
+
+def test_integrate_pose_on_the_card_matches_the_cpu(dev):
+    """integrate_pose end to end on CUDA tensors (integrate kernel forward,
+    adjoint kernel backward) against the same on CPU tensors (the twins):
+    weights equal on >= 99.9 % of voxels and the twist gradient within
+    1e-3 of its largest component (the two devices' sin, cos and LU
+    inverse may round the pose differently, and a voxel at a half-pixel
+    sliver may then read the neighbouring pixel)."""
+    from tsdf_tpu_torch.kernels.integrate import integrate_pose
+
+    vol, depth, gd, _gw = _adjoint_inputs(dev, (48, 40, 44), seed=7)
+    cam = _camera(dev, [100.0, -50.0, -500.0], [0.0, 0.0, 1200.0])
+    delta = np.array([0.004, -0.003, 0.002, 12.0, -9.0, 8.0], np.float32)
+    grads, outs = [], []
+    for d in (dev, torch.device("cpu")):
+        v = vol.replace(**{f: getattr(vol, f).to(d) for f in (
+            "tsdf", "weight", "physical_size", "offset",
+            "truncation_distance", "max_weight", "global_rotation",
+            "global_translation")})
+        c = Camera.from_numpy(*(t.cpu().numpy() for t in (
+            cam.k, cam.pose, cam.k_inv, cam.pose_inv)), device=d)
+        x = torch.tensor(delta, device=d, requires_grad=True)
+        before = integrate.KERNEL_POSE_GRAD.launches
+        out, miss = integrate_pose(v, depth.to(d), c, x)
+        loss = (gd.to(d) * out.tsdf).sum() + (0.1 * out.weight).sum()
+        (g,) = torch.autograd.grad(loss, x)
+        assert integrate.KERNEL_POSE_GRAD.launches == before + (d.type == "cuda")
+        assert int(miss) == 0
+        grads.append(g.cpu())
+        outs.append(out.weight.detach().cpu())
+    assert (outs[0] == outs[1]).float().mean() >= 0.999
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-3 * float(grads[1].abs().max()))
+
+
+def test_raycast_kernel_max_steps(dev):
+    """max_steps reaches the kernel: with few samples fewer rays hit, and
+    the hits equal the twin's at the same max_steps."""
+    vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0),
+                      device=dev)
+    vol = fixtures.wall_tsdf(vol, 1500.0)
+    cam = _camera(dev, [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0])
+    from tsdf_tpu_torch.ops.raycast import raycast_vertices
+
+    hits = []
+    for steps in (8, 256):
+        vk = raycast.raycast_vertices_cuda(vol, cam, W, H, max_steps=steps)
+        vp = raycast_vertices(vol, cam, W, H, max_steps=steps)
+        hk, hp = torch.isfinite(vk).all(-1), torch.isfinite(vp).all(-1)
+        assert (hk == hp).float().mean() >= 0.999
+        hits.append(int(hk.sum()))
+    assert hits[0] < hits[1]
+
+
+def test_raycast_diff_on_the_card_matches_the_cpu(dev):
+    """raycast_diff with the kernel march against the plain march on the
+    CPU: hits and vertices as the raycast gate, pose gradients within 1 %
+    of the largest."""
+    from tsdf_tpu_torch.ops.raycast_diff import depth_image_diff
+    from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
+
+    vol = make_volume((64,) * 3, 2000.0, offset=(-1000.0, -1000.0, 0.0),
+                      device=dev)
+    wall = fixtures.wall_tsdf(vol, 1500.0)
+    s1 = fixtures.sphere_tsdf(vol, 380.0, centre=(150.0, -100.0, 900.0))
+    vol = vol.replace(tsdf=torch.minimum(wall.tsdf, s1.tsdf).contiguous())
+    cam = _camera(dev, [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0])
+    res = []
+    for d in (dev, torch.device("cpu")):
+        v = vol.replace(**{f: getattr(vol, f).to(d) for f in (
+            "tsdf", "weight", "physical_size", "offset",
+            "truncation_distance", "max_weight")})
+        c = Camera.from_numpy(*(t.cpu().numpy() for t in (
+            cam.k, cam.pose, cam.k_inv, cam.pose_inv)), device=d)
+        x = torch.zeros(6, device=d, requires_grad=True)
+        c = c.set_pose(matmul_small(se3_exp(x), c.pose))
+        before = raycast.KERNEL.launches
+        depth, hit = depth_image_diff(v, c, W, H, max_steps=256)
+        assert raycast.KERNEL.launches == before + (d.type == "cuda")
+        (g,) = torch.autograd.grad(torch.where(hit, depth, 0.0).sum() / 1e3,
+                                   x)
+        res.append((depth.detach().cpu(), hit.cpu(), g.cpu()))
+    (dk, hk, gk), (dp, hp, gp) = res
+    assert (hk == hp).float().mean() >= 0.999
+    both = hk & hp
+    assert float((dk[both] - dp[both]).abs().median()) < 0.5
+    assert torch.isfinite(gk).all()
+    torch.testing.assert_close(gk, gp, rtol=0,
+                               atol=1e-2 * float(gp.abs().max()))
+
+
+def test_gather_probe_kernel_matches_twin(dev):
+    """The gather-roofline probe: out equal to its twin, rows no multiple
+    of the 512-row tile, indices past both ends of the row."""
+    rng = np.random.default_rng(9)
+    tab = torch.from_numpy(rng.normal(size=(1100, 128)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-10, 140, (1100, 128))
+                           .astype(np.int32))
+    before = gather.KERNEL_PROBE.launches
+    got = gather.gather_probe_cuda(tab.to(dev), idx.to(dev)).cpu()
+    assert gather.KERNEL_PROBE.launches == before + 1
+    want = gather.gather_probe_plain(tab, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -195,3 +195,24 @@ def test_windowed_int32_table_and_bad_inputs():
         tgather.lane_gather_windowed_op(tab, idx[:4].contiguous())
     with pytest.raises(ValueError, match="multiple of 128"):
         tgather.lane_gather_fast(tab[:, :130].contiguous(), idx)
+
+
+@pytest.mark.parametrize("rows,g", [(1000, 64), (512, 5), (7, 0)])
+def test_gather_probe_twin(rows, g):
+    """The probe's twin (what csrc/probe_gather.cu computes) against the
+    body of tools/probe_gather_roofline.py:_kern written in numpy: g
+    in-row gathers at clip(idx + i, 0, 127), summed in order of i; the
+    wrapper on CPU tensors is the twin."""
+    rng = np.random.default_rng(rows)
+    tab = rng.normal(size=(rows, 128)).astype(np.float32)
+    idx = rng.integers(-10, 140, (rows, 128)).astype(np.int32)
+    want = np.zeros_like(tab)
+    for i in range(g):
+        want = want + np.take_along_axis(tab, np.clip(idx + i, 0, 127), axis=1)
+    t, ix = torch.from_numpy(tab), torch.from_numpy(idx)
+    got = tgather.gather_probe_plain(t, ix, g)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(tgather.gather_probe_cuda(t, ix, g), got)
+    with pytest.raises(ValueError, match="columns"):
+        tgather.gather_probe_cuda(t[:, :64].contiguous(),
+                                  ix[:, :64].contiguous(), g)

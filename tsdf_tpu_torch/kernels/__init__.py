@@ -17,11 +17,13 @@ KERNELS = {
     "raycast": raycast.KERNEL,
     "integrate_warped": integrate.KERNEL_WARPED,
     "integrate_warped_color": integrate.KERNEL_WARPED_COLOR,
+    "integrate_pose_grad": integrate.KERNEL_POSE_GRAD,
     "lane_gather": gather.KERNEL,
     "row_gather": gather.KERNEL_ROWS,
     "lane_gather_windowed": gather.KERNEL_WINDOWED,
     "lane_gather_if_missed": gather.KERNEL_IF_MISSED,
     "bilateral": bilateral.KERNEL,
+    "gather_probe": gather.KERNEL_PROBE,
 }
 
 

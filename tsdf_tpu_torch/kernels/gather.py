@@ -326,3 +326,61 @@ def lane_gather_fast(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         window_tiling(table.shape[0], table.shape[1], 2, 64)
         return take_or_zero(table, idx)
     return lane_gather_checked(table, idx)
+
+
+# -- the gather-roofline probe -----------------------------------------------
+
+KERNEL_PROBE = Kernel(
+    "tsdf_probe_gather",
+    # table, idx, out, rows, g, stream
+    [_P, _P, _P, _L, _I, _P],
+)
+PROBE_GATHERS = 64
+
+
+def gather_probe_plain(
+    table: torch.Tensor, idx: torch.Tensor, g: int = PROBE_GATHERS
+) -> torch.Tensor:
+    """out[r, c] = sum over i < g, in order, of
+    table[r, clip(idx[r, c] + i, 0, 127)]: the plain twin of the probe."""
+    acc = torch.zeros_like(table)
+    for i in range(g):
+        cols = torch.clamp(idx + i, 0, LANE - 1).to(torch.int64)
+        acc = acc + torch.take_along_dim(table, cols, dim=1)
+    return acc
+
+
+def gather_probe_cuda(
+    table: torch.Tensor, idx: torch.Tensor, g: int = PROBE_GATHERS
+) -> torch.Tensor:
+    """The gather-roofline probe (``csrc/probe_gather.cu``), which replaces
+    ``tools/probe_gather_roofline.py:bench_kernel``: ``g`` chained in-row
+    gathers of each element from its (512, 128) table tile, summed. No
+    path calls it; ``chip_smoke.py`` measures the card's gather rate with
+    it.
+
+    Args:
+      table: (R, 128) float32, contiguous.
+      idx: (R, 128) int32, contiguous.
+
+    On CUDA tensors this launches the kernel; on CPU tensors it runs
+    ``gather_probe_plain``.
+    """
+    dev = table.device
+    check_same_device(dev, idx=idx)
+    check_tensor("table", table, torch.float32, ndim=2)
+    check_tensor("idx", idx, torch.int32, shape=table.shape)
+    if table.shape[1] != LANE:
+        raise ValueError(f"table: {table.shape[1]} columns, expected {LANE}")
+    if g < 0:
+        raise ValueError(f"g must be >= 0, got {g}")
+    if dev.type == "cpu":
+        return gather_probe_plain(table, idx, g)
+    if table.data_ptr() % 16:
+        raise ValueError("table: the kernel stages rows with 16-byte loads; "
+                         "its data must be 16-byte aligned")
+    out = torch.empty_like(table)
+    with torch.cuda.device(dev):
+        KERNEL_PROBE(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                     table.shape[0], g, stream_handle(dev))
+    return out

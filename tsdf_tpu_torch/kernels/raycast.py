@@ -51,10 +51,14 @@ def kernel_params(vol: TSDFVolume, camera: Camera) -> torch.Tensor:
 
 
 def raycast_vertices_cuda(
-    vol: TSDFVolume, camera: Camera, width: int = 640, height: int = 480
+    vol: TSDFVolume,
+    camera: Camera,
+    width: int = 640,
+    height: int = 480,
+    max_steps: int = REFERENCE_MAX_STEPS,
 ) -> torch.Tensor:
     """(H, W, 3) f32 surface points of ``vol`` seen from ``camera``, NaN
-    on a miss.
+    on a miss; a ray stops after at most ``max_steps`` samples.
 
     On CUDA tensors this is the kernel; on CPU tensors it is the plain
     twin ``ops.raycast.raycast_vertices``.
@@ -64,8 +68,11 @@ def raycast_vertices_cuda(
     check_tensor("tsdf", vol.tsdf, torch.float32, ndim=3)
     if width <= 0 or height <= 0:
         raise ValueError(f"bad raycast size {width}x{height}")
+    if max_steps < 0:
+        raise ValueError(f"max_steps must be >= 0, got {max_steps}")
     if dev.type == "cpu":
-        return raycast_vertices(vol, camera, width, height)
+        return raycast_vertices(vol, camera, width, height,
+                                max_steps=max_steps)
 
     params = kernel_params(vol, camera)
     verts = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -73,7 +80,7 @@ def raycast_vertices_cuda(
     with torch.cuda.device(dev):
         KERNEL(
             vol.tsdf.data_ptr(), verts.data_ptr(), params.data_ptr(),
-            sx, sy, sz, width, height, REFERENCE_MAX_STEPS,
+            sx, sy, sz, width, height, max_steps,
             stream_handle(dev),
         )
     return verts

@@ -134,8 +134,18 @@ def integrate(
       rgb: optional (H, W, 3) uint8 colour frame; needs ``vol.color``.
     """
     check_frame(vol, depth, rgb)
-    h, w = depth.shape
+    _centres, cam, lin, in_frustum = project_voxels(vol, camera, *depth.shape)
+    return _fuse(vol, depth, rgb, lin, cam[2], in_frustum, cap_weight)
 
+
+def project_voxels(vol: TSDFVolume, camera: Camera, h: int, w: int):
+    """The exact projection of every voxel centre (the deformed centre when
+    the volume has a deformation field) onto an (h, w) image.
+
+    Returns (centre, cam, lin, in_frustum): the world centre and the camera
+    point as three broadcastable (x, y, z) tensors each, the linear pixel
+    index (0 outside the image) and the in-image mask.
+    """
     if vol.deform is None:
         cz, cy, cx = vol.axis_centres()
         cx = cx[None, None, :]
@@ -157,7 +167,7 @@ def integrate(
     # outside the image (or NaN at Z == 0) the sample is never used:
     # read pixel 0 there
     lin = torch.where(in_frustum, py * w + px, 0.0).to(torch.int64)
-    return _fuse(vol, depth, rgb, lin, z, in_frustum, cap_weight)
+    return (cx, cy, cz), cam, lin, in_frustum
 
 
 def fit_column_lines(vol: TSDFVolume, camera: Camera):

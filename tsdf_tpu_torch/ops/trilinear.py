@@ -32,11 +32,14 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     """
     sz, sy, sx = values.shape
     dev = values.device
-    size = torch.tensor([sx, sy, sz], dtype=torch.float32, device=dev)
     voxel_size = torch.as_tensor(voxel_size, dtype=torch.float32, device=dev)
     p = torch.as_tensor(points, dtype=torch.float32, device=dev)
 
-    max_values = size * voxel_size
+    # the sizes stay Python numbers: a tensor of them made on a card would
+    # be a blocking host-to-device copy in every call
+    max_values = torch.stack(
+        [voxel_size[0] * sx, voxel_size[1] * sy, voxel_size[2] * sz]
+    )
     p = torch.where(p >= max_values, max_values - voxel_size / 10.0, p)
     p = torch.where(p < 0.0, torch.zeros_like(p), p)
 
@@ -44,16 +47,15 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     lower = torch.clamp(torch.floor(g), min=0.0)
     uvw = g - lower
     u, v, w = uvw[..., 0], uvw[..., 1], uvw[..., 2]
-    lower = lower.to(torch.int64)
+    lx, ly, lz = lower.to(torch.int64).unbind(-1)
+    ixs = [torch.clamp(lx + d, max=sx - 1) for d in (0, 1)]
+    iys = [torch.clamp(ly + d, max=sy - 1) for d in (0, 1)]
+    izs = [torch.clamp(lz + d, max=sz - 1) for d in (0, 1)]
 
     flat = values.reshape(-1)
-    size_i = torch.tensor([sx, sy, sz], dtype=torch.int64, device=dev)
 
     def tap(dx, dy, dz):
-        off = torch.tensor([dx, dy, dz], dtype=torch.int64, device=dev)
-        idx = torch.minimum(lower + off, size_i - 1)
-        lin = (idx[..., 2] * sy + idx[..., 1]) * sx + idx[..., 0]
-        return flat[lin]
+        return flat[(izs[dz] * sy + iys[dy]) * sx + ixs[dx]]
 
     c000 = tap(0, 0, 0)
     c001 = tap(0, 0, 1)
