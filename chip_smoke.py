@@ -16,10 +16,12 @@ Phases (any failed check exits non-zero; nothing is caught):
      least time the card could take for the same work (its bound) and,
      where one PyTorch call computes the same function, that call's time
      (integrate over two frames, so the second blends into voxels that
-     already hold weight; the bilateral filter on a noisy frame with
+     already hold weight, tsdf and weight bit-equal, a frame with no depth
+     timed beside it and the share of bricks culled; the bilateral filter on a noisy frame with
      holes, float32 and uint16; the lane gather on the recorded calls of
      a dense 512^3 and of a masked 255^3 extraction and at the ICP
-     association's shapes on all three pyramid levels; the
+     association's shapes on all three pyramid levels, each with the
+     launch it took; the
      colour, fast and colour-fast integrate kernels over two frames:
      tsdf, weight, colour bytes and miss counts equal; the warped
      integrate at 512^3 under a uniform warp and at 255^3 under the field
@@ -118,9 +120,8 @@ FX, FY, CX, CY = 591.1, 590.1, 331.0, 234.6
 WALL_Z = 2500.0
 SPHERES = [((300.0, -150.0, 1500.0), 400.0), ((-450.0, 250.0, 1100.0), 250.0)]
 
-# agreement gates between each kernel and its plain twin
-INTEGRATE_MIN_WEIGHT_AGREE = 0.9999
-INTEGRATE_TSDF_ATOL = 5e-3  # mm, where the weights agree
+# agreement gates between each kernel and its plain twin (the others are
+# bit-equal)
 RAYCAST_MIN_HIT_AGREE = 0.999
 RAYCAST_MEDIAN_MM = 0.5
 SURFACE_MEDIAN_MM = PHYSICAL / SIZE  # one voxel
@@ -384,9 +385,11 @@ def compare_integrate(dev, frames) -> dict:
     """Fuse the first two frames into one 512^3 volume with the kernel
     and into another with the plain twin, and compare after the second:
     the second frame blends into voxels that already hold weight, as 19
-    of the main path's 20 frames do."""
+    of the main path's 20 frames do. tsdf and weight must be equal bit for
+    bit. Then time the second frame, a frame with no depth beside it, and
+    log the share of bricks the kernel culls on each (``brick_cull``)."""
     from tsdf_tpu_torch import Camera, make_volume
-    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
+    from tsdf_tpu_torch.kernels.integrate import brick_cull, integrate_cuda
     from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
 
     ref = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
@@ -399,17 +402,20 @@ def compare_integrate(dev, frames) -> dict:
         out = integrate_cuda(out, depth, cam)
     torch.cuda.synchronize()
     blended = int(((ref.weight > before.weight) & (before.weight > 0)).sum())
-    same_w = out.weight == ref.weight
-    agree = float(same_w.float().mean())
-    err = float((out.tsdf - ref.tsdf)[same_w].abs().max())
-    log(f"integrate 512^3, two frames: weights equal on {agree:.8f} of "
-        f"voxels, max |tsdf diff| where equal {err:.3g} mm; the second "
-        f"frame blended into {blended} voxels of weight > 0")
+    equal = torch.equal(out.tsdf, ref.tsdf) and torch.equal(out.weight, ref.weight)
+    err = float((out.tsdf - ref.tsdf).abs().max())
+    log(f"integrate 512^3, two frames: tsdf and weight equal bit for bit: "
+        f"{equal} (max |tsdf diff| {err:.3g} mm); the second frame blended "
+        f"into {blended} voxels of weight > 0")
     check(blended > 0, "the second frame blended into no voxel")
-    check(agree >= INTEGRATE_MIN_WEIGHT_AGREE, "integrate weights disagree")
-    check(err <= INTEGRATE_TSDF_ATOL, "integrate tsdf disagrees")
+    check(equal, "integrate differs from its twin")
     depth, cam = frames[1][0], cams[1]
+    no_depth = torch.zeros_like(depth)
+    culled = float(brick_cull(out, depth, cam).float().mean())
+    check(bool(brick_cull(out, no_depth, cam).all()),
+          "a frame with no depth leaves a brick unculled")
     ms = median_ms(lambda: integrate_cuda(out, depth, cam), reps=20)
+    zero_depth_ms = median_ms(lambda: integrate_cuda(out, no_depth, cam), reps=20)
     plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=5)
     # the work of that second frame: every voxel is projected, a voxel
     # in front of the camera is divided and rounded to its pixel, an
@@ -423,9 +429,12 @@ def compare_integrate(dev, frames) -> dict:
         + ops["updated"] * updated)
     log(f"integrate 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
-        f"({updated} voxels updated, {in_front} in front of the camera)")
+        f"({updated} voxels updated, {in_front} in front of the camera); "
+        f"{culled:.4f} of the bricks culled; a frame with no depth "
+        f"{zero_depth_ms:.4f} ms (every brick culled)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
-                library_ms=None)
+                library_ms=None, zero_depth_ms=zero_depth_ms,
+                culled_share=culled)
 
 
 def compare_integrate_variants(dev, frames, rgbs) -> dict:
@@ -637,16 +646,24 @@ def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
     """Each ``(table, idx)`` of ``calls`` through ``lane_gather_op`` and
     through ``take_or_zero``, which must agree bit for bit; the first
     ``n_timed`` of them (all by default) are timed, beside ``torch.gather``
-    and the bound. ``whats[n]`` names call ``n`` in the log. Returns the
-    sums of the times and bounds, the largest |difference|, and the
-    per-call values."""
-    from tsdf_tpu_torch.kernels.gather import lane_gather_op, take_or_zero
+    and the bound. ``whats[n]`` names call ``n`` in the log, beside the
+    launch the kernel took. Returns the sums of the times and bounds, the
+    largest |difference|, and the per-call values."""
+    from tsdf_tpu_torch.kernels.gather import (
+        lane_gather_launch,
+        lane_gather_op,
+        take_or_zero,
+    )
 
     n_timed = len(calls) if n_timed is None else n_timed
     out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, bound_by="bytes", each=[])
+               bound_ms=0.0, bound_by="bytes", each=[], launch_choices=[])
     for n, ((table, idx), what) in enumerate(zip(calls, whats)):
-        shapes = f"{tuple(table.shape)} -> {tuple(idx.shape)} ({what})"
+        launch, tile_rows = lane_gather_launch(
+            idx.shape[1], table.shape[1], table.stride(0))
+        out["launch_choices"].append(launch)
+        shapes = (f"{tuple(table.shape)} -> {tuple(idx.shape)} ({what}; "
+                  f"launch {launch}, tile {tile_rows} rows)")
         got = lane_gather_op(table, idx)
         want = take_or_zero(table, idx)
         torch.cuda.synchronize()
@@ -673,9 +690,9 @@ def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
             f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound "
             f"{least['bound_ms']:.4f} ms by bytes")
         each = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=least["bound_ms"])
-        for key, value in each.items():
-            out[key] += value
+                    bound_ms=least["bound_ms"], launch=launch)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += each[key]
         out["each"].append(each)
     return out
 

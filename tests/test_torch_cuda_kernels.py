@@ -8,7 +8,8 @@ test configuration:
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: the kernels are built with --fmad=false and evaluate the
-twins' expressions in the same order, so integrate (exact, colour, fast,
+twins' expressions in the same order, so integrate (exact, brick-culled,
+colour, fast,
 colour-fast and warped, miss counts included), the gathers (lane, row and
 windowed, its miss count included), the gather probe and bilateral must
 agree bit for bit; raycast is held to the same gates as the twin-vs-JAX
@@ -712,3 +713,151 @@ def test_gather_probe_kernel_matches_twin(dev):
     assert gather.KERNEL_PROBE.launches == before + 1
     want = gather.gather_probe_plain(tab, idx)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- the redesigned lane gather and rigid integrate ---------------------------
+
+
+def _word_table(rng, rows, width, dtype):
+    """Random 32-bit words: NaN payloads, infinities and int32 extremes
+    among them, so a float round trip or a sign extension would show."""
+    words = rng.integers(-(2**31), 2**31 - 1, (rows, width), dtype=np.int64)
+    words.flat[::7] = 0x7FC00001  # a quiet NaN with a payload
+    words.flat[1::11] = -(2**31)
+    words.flat[2::13] = 2**31 - 1
+    words.flat[3::17] = 0x7F800000  # +inf
+    t = torch.from_numpy(words.astype(np.int32))
+    return t if dtype == torch.int32 else t.view(torch.float32)
+
+
+def _assert_lane_gather(dev, table, idx, want_launch):
+    """The kernel on the card against ``take_or_zero`` on the CPU, bit for
+    bit, with one counted launch (none for an empty output)."""
+    launch = gather.lane_gather_launch(idx.shape[1], table.shape[1],
+                                       table.stride(0))[0]
+    assert launch == want_launch
+    before = gather.KERNEL.launches
+    got = gather.lane_gather_op(table, idx)
+    empty = got.numel() == 0
+    assert gather.KERNEL.launches == before + (0 if empty else 1)
+    want = gather.take_or_zero(table.cpu(), idx.cpu())
+    assert got.dtype == table.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("cols", [1, 3, 4, 5, 24, 48, 72, 73])
+@pytest.mark.parametrize(
+    "kind,width,want",
+    [
+        ("rows", 36, "rows"),
+        ("rows", 24, "rows"),
+        ("rows", 100, "direct"),
+        ("broadcast", 256, "broadcast"),
+        ("broadcast", gather.BROADCAST_SHARED_BYTES // 4, "broadcast"),
+        ("broadcast", gather.BROADCAST_SHARED_BYTES // 4 + 1, "direct"),
+    ],
+)
+def test_lane_gather_launches_match_twin(dev, kind, width, want, cols, dtype):
+    """Every launch on every column count, at a row count that is no
+    multiple of any tile; indices below 0, inside, and at and past W."""
+    rng = np.random.default_rng(cols * 1000 + width)
+    rows = 301
+    if kind == "rows":
+        table = _word_table(rng, rows, width, dtype).to(dev)
+    else:
+        table = _word_table(rng, 1, width, dtype).to(dev).expand(rows, width)
+    idx = torch.from_numpy(
+        rng.integers(-3, width + 3, (rows, cols)).astype(np.int32))
+    idx[0, 0], idx[-1, -1] = width, -1
+    idx[1 % rows, cols // 2] = width - 1
+    _assert_lane_gather(dev, table, idx.to(dev), want)
+
+
+@pytest.mark.parametrize(
+    "kind,width,want",
+    [("rows", 36, "rows"), ("broadcast", 6144, "broadcast"),
+     ("broadcast", 640 * 48, "direct")],
+)
+@pytest.mark.parametrize("cols", [4, 72, 73])
+def test_lane_gather_unaligned_idx_and_empty(dev, kind, width, want, cols):
+    """An ``idx`` view 4 bytes past a 16-byte boundary takes the scalar
+    path of every launch; an empty output launches nothing."""
+    rng = np.random.default_rng(width + cols)
+    rows = 2 * 113 + 3
+    table = _word_table(rng, rows if kind == "rows" else 1, width, torch.float32)
+    table = table.to(dev)
+    if kind == "broadcast":
+        table = table.expand(rows, width)
+    flat = torch.from_numpy(
+        rng.integers(-5, width + 5, rows * cols + 1).astype(np.int32)).to(dev)
+    idx = flat[1:].view(rows, cols)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    _assert_lane_gather(dev, table, idx, want)
+    _assert_lane_gather(dev, table[:0], idx[:0], want)
+    _assert_lane_gather(dev, table, idx[:, :0].contiguous(), want)
+
+
+def _frame_depth(seed, holes=0.05):
+    rng = np.random.default_rng(seed)
+    d = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0).astype(np.float32)
+    d = d + (d > 0) * rng.uniform(0, 5, d.shape).astype(np.float32)
+    d[rng.uniform(size=d.shape) < holes] = 0.0
+    return d
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize(
+    "size,at,target,roll",
+    [
+        ((33, 50, 21), [300.0, 200.0, -700.0], [0.0, 0.0, 1000.0], 0.0),
+        ((64, 48, 40), [100.0, -50.0, 900.0], [400.0, 200.0, 2000.0], 0.0),
+        ((64, 48, 40), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 1.2),
+        ((45, 130, 3), [0.0, 0.0, -500.0], [0.0, 0.0, 1000.0], 0.0),
+        ((64, 48, 40), [0.0, 0.0, -500.0], [0.0, 0.0, -2000.0], 0.0),
+    ],
+    ids=["odd", "inside", "roll", "thin", "away"],
+)
+def test_brick_integrate_matches_twin(dev, size, at, target, roll, cap_weight):
+    """The brick kernel against the twin over three frames from moving
+    poses (the later ones blend into weighted voxels; max_weight 2 so the
+    cap bites): tsdf and weight equal bit for bit. Odd shapes with ragged
+    bricks, a camera inside the volume, a 1.2 rad roll, a volume three
+    voxels deep, and a camera looking away, which updates nothing."""
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      max_weight=2.0, device=dev)
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())
+    for i in range(3):
+        cam = _rolled(_camera(dev, np.add(at, [30.0 * i, -20.0 * i, 15.0 * i]),
+                              target), roll)
+        depth = torch.from_numpy(_frame_depth(i)).to(dev)
+        ref = integrate_plain(ref, depth, cam, cap_weight=cap_weight)
+        before = integrate.KERNEL.launches
+        vol = integrate.integrate_cuda(vol, depth, cam, cap_weight=cap_weight)
+        assert integrate.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(vol.weight, ref.weight)
+    assert torch.equal(vol.tsdf, ref.tsdf)
+    if target[2] < at[2]:
+        assert float(vol.weight.sum()) == 0.0
+    else:
+        assert float(vol.weight.max()) >= 2.0
+        assert not cap_weight or float(vol.weight.max()) == 2.0
+
+
+def test_brick_integrate_zero_depth_leaves_the_volume(dev):
+    """A frame with no depth > 0 (zeros, NaN, negative) culls every brick:
+    tsdf and weight keep every bit, after a real frame filled them."""
+    vol = make_volume((33, 50, 21), 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      device=dev)
+    cam = _camera(dev, [300.0, 200.0, -700.0], [0.0, 0.0, 1000.0])
+    vol = integrate.integrate_cuda(
+        vol, torch.from_numpy(_frame_depth(0)).to(dev), cam)
+    tsdf, weight = vol.tsdf.clone(), vol.weight.clone()
+    assert float(weight.sum()) > 0
+    for empty in (torch.zeros((H, W)), torch.full((H, W), float("nan")),
+                  torch.full((H, W), -5.0)):
+        vol = integrate.integrate_cuda(vol, empty.to(dev), cam)
+        assert bool(integrate.brick_cull(vol, empty.to(dev), cam).all())
+    torch.cuda.synchronize()
+    assert torch.equal(vol.tsdf, tsdf) and torch.equal(vol.weight, weight)

@@ -33,8 +33,9 @@ from ._build import Kernel, check_same_device, check_tensor, stream_handle
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel(
     "tsdf_lane_gather",
-    # table, idx, out, rows, cols, width, row_stride, stream
-    [_P, _P, _P, _L, _L, _L, _L, _P],
+    # table, idx, out, rows, cols, width, row_stride, launch, tile_rows,
+    # stream
+    [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
 )
 KERNEL_IF_MISSED = Kernel(
     "tsdf_lane_gather_if_missed",
@@ -57,6 +58,20 @@ LANE = 128
 MAX_SHARED_BYTES = 232448
 
 _WORD_TYPES = (torch.float32, torch.int32)
+
+# The lane gather's three launches (csrc/gather.cu), by their codes there.
+LAUNCHES = ("broadcast", "rows", "direct")
+# a broadcast table of at most this many bytes is staged in shared memory
+BROADCAST_SHARED_BYTES = 48 * 1024
+# rows of at most this many words are staged a tile at a time ...
+ROWS_MAX_WIDTH = 64
+# ... a tile of at most this many table words (16 KB), in rows a multiple
+# of 4, so that a tile starts 16-byte aligned in the table and the output
+ROWS_TILE_WORDS = 4096
+# a direct launch's block takes rows until it has at least this many outputs
+DIRECT_TILE_OUTPUTS = 2048
+# a tile's outputs are counted in 32 bits on the card
+_MAX_TILE_OUTPUTS = 2**31 - 1
 
 
 def take_or_zero(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,6 +107,34 @@ def _check_lane_gather(table, idx, broadcast_ok=True) -> torch.device:
     return dev
 
 
+def lane_gather_launch(
+    cols: int, width: int, row_stride: int
+) -> tuple[str, int]:
+    """Which of ``csrc/gather.cu``'s launches a lane gather takes, and the
+    rows a block of it owns (0 for "broadcast", whose blocks walk one flat
+    stream), from the shapes and strides alone:
+
+    * "broadcast": one row broadcast over all (``row_stride`` 0) that fits
+      in ``BROADCAST_SHARED_BYTES``: staged in shared memory by each block;
+    * "rows": contiguous rows of at most ``ROWS_MAX_WIDTH`` words: a block
+      stages its tile of rows in shared memory;
+    * "direct": anything else, read in place.
+
+    Raises ValueError where one tile would hold 2^31 outputs or more.
+    """
+    if row_stride == 0 and width * 4 <= BROADCAST_SHARED_BYTES:
+        return "broadcast", 0
+    if row_stride == width and 0 < width <= ROWS_MAX_WIDTH:
+        launch = "rows"
+        tile_rows = max(4, ROWS_TILE_WORDS // width // 4 * 4)
+    else:
+        launch = "direct"
+        tile_rows = max(1, -(-DIRECT_TILE_OUTPUTS // max(cols, 1)))
+    if tile_rows * cols > _MAX_TILE_OUTPUTS:
+        raise ValueError(f"idx: {cols} columns are too many for one launch")
+    return launch, tile_rows
+
+
 def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[s, c] = table[s, idx[s, c]]; an out-of-range index gives 0.
 
@@ -101,7 +144,8 @@ def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
       idx: (S, C) int32, contiguous.
 
     Returns (S, C) of table's dtype. CUDA tensors go through the kernel,
-    CPU tensors through ``take_or_zero``.
+    in the launch ``lane_gather_launch`` picks; CPU tensors through
+    ``take_or_zero``.
     """
     dev = _check_lane_gather(table, idx)
     s, w = table.shape
@@ -112,10 +156,12 @@ def lane_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((s, c), dtype=table.dtype, device=dev)
     if out.numel() == 0:
         return out
+    launch, tile_rows = lane_gather_launch(c, w, table.stride(0))
     with torch.cuda.device(dev):
         KERNEL(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            s, c, w, table.stride(0), stream_handle(dev),
+            s, c, w, table.stride(0), LAUNCHES.index(launch), tile_rows,
+            stream_handle(dev),
         )
     return out
 

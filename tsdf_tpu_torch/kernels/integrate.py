@@ -4,9 +4,11 @@
 
 ``integrate_cuda`` replaces
 ``tsdf_tpu/kernels/integrate.py:integrate_pallas`` (modes "exact" and
-"line"): one thread per voxel reads its pixel directly, the
-``ops/integrate.py`` contract, so no voxel is skipped and there is no miss
-count to return. ``integrate_fast_cuda`` replaces its mode "fast" (the
+"line"): each voxel reads its pixel directly, the ``ops/integrate.py``
+contract, so no voxel is skipped and there is no miss count to return. Its
+kernel walks bricks of voxels and skips a brick that no voxel of it can
+update; ``brick_cull`` is that test in plain PyTorch.
+``integrate_fast_cuda`` replaces its mode "fast" (the
 decimated line convention, ``ops.integrate.integrate_fast``) and
 ``integrate_color_cuda`` replaces ``integrate_color_pallas`` in all three
 modes; both return ``(vol, miss)`` like the JAX functions, with the miss
@@ -93,21 +95,99 @@ POSE_GRAD_SUMS = 12
 MODES = ("exact", "line", "fast")
 
 
-def kernel_params(vol: TSDFVolume, camera: Camera) -> torch.Tensor:
-    """The kernel's 24 f32 parameters, assembled on the volume's device:
+# csrc/integrate.cu's brick, (z, y, x) voxels: a block of 32 x 4 threads,
+# each walking 8 voxels in z
+BRICK = (8, 4, 32)
+# its cull keeps every brick within this many pixels of the image
+CULL_MARGIN_PX = 2.0
+# the words of csrc/integrate.cu's scratch before its list of live bricks:
+# the frame's largest depth and the count of live bricks
+_INTEGRATE_SCRATCH_HEAD = 2
+
+
+def brick_grid(shape) -> tuple[int, int, int]:
+    """The (z, y, x) count of ``BRICK``-sized bricks that cover a volume of
+    ``shape`` (Z, Y, X), the last of each axis ragged."""
+    return tuple(-(-n // b) for n, b in zip(shape, BRICK))
+
+
+def kernel_params(
+    vol: TSDFVolume, camera: Camera, scratch: int = 0
+) -> torch.Tensor:
+    """The kernels' 24 f32 parameters, assembled on the volume's device:
     pose_inv rows 0-2 (12), fx, fy, cx, cy, offset (3), voxel size (3),
-    truncation distance, max weight."""
+    truncation distance, max weight; then ``scratch`` zeroed words a
+    kernel may write into (``integrate_cuda`` sizes the scratch of
+    ``csrc/integrate.cu``)."""
     k = camera.k
-    return torch.cat(
-        [
-            camera.pose_inv[0:3, :].reshape(-1),
-            torch.stack([k[0, 0], k[1, 1], k[0, 2], k[1, 2]]),
-            vol.offset,
-            vol.voxel_size,
-            vol.truncation_distance.reshape(1),
-            vol.max_weight.reshape(1),
-        ]
-    ).contiguous()
+    parts = [
+        camera.pose_inv[0:3, :].reshape(-1),
+        torch.stack([k[0, 0], k[1, 1], k[0, 2], k[1, 2]]),
+        vol.offset,
+        vol.voxel_size,
+        vol.truncation_distance.reshape(1),
+        vol.max_weight.reshape(1),
+    ]
+    if scratch:
+        parts.append(torch.zeros(scratch, dtype=torch.float32,
+                                 device=vol.tsdf.device))
+    return torch.cat(parts).contiguous()
+
+
+def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera):
+    """Which bricks of ``BRICK`` voxels ``csrc/integrate.cu`` skips for
+    this frame: a ``brick_grid(vol.tsdf.shape)`` bool tensor, True where no
+    voxel of the brick can pass the exact gates of
+    ``ops.integrate.integrate``.
+
+    The kernel's test, in float32 and in its order: at the 8 corners of
+    the brick's box of voxel centres widened by one voxel each way, the
+    camera point (X, Y, Z), u = fx X + cx Z and v = fy Y + cy Z; the brick
+    is culled when all 8 corners are outside one plane -- Z <= 0,
+    u + m Z < 0, (W - 1 + m) Z - u < 0, v + m Z < 0, (H - 1 + m) Z - v < 0
+    or Z > max depth + truncation, m = ``CULL_MARGIN_PX`` -- or when the
+    frame has no depth > 0. All six are affine in the voxel index, so a
+    plane negative at the corners is negative on the box.
+    """
+    sz, sy, sx = vol.tsdf.shape
+    h, w = depth.shape
+    dev = vol.tsdf.device
+    vs, off = vol.voxel_size, vol.offset
+    m = CULL_MARGIN_PX
+
+    def ends(n, b, axis):
+        """The low and high corner coordinate of every brick on an axis."""
+        first = torch.arange(0, n, b, device=dev).to(torch.float32)
+        return [(c + 0.5) * vs[axis] + off[axis]
+                for c in (first - 1, first + b)]
+
+    bz, by, bx = BRICK
+    xs, ys, zs = ends(sx, bx, 0), ends(sy, by, 1), ends(sz, bz, 2)
+    depth = depth.to(torch.float32)
+    dmax = torch.where(depth > 0, depth, 0.0).max()
+    far = dmax + vol.truncation_distance
+    pi, k = camera.pose_inv, camera.k
+    culled = None
+    for wz in zs:
+        for wy in ys:
+            for wx in xs:
+                x, y, z = wx[None, None, :], wy[None, :, None], wz[:, None, None]
+                cx, cy, cz = (
+                    pi[i, 0] * x + pi[i, 1] * y + pi[i, 2] * z + pi[i, 3]
+                    for i in range(3)
+                )
+                u = k[0, 0] * cx + k[0, 2] * cz
+                v = k[1, 1] * cy + k[1, 2] * cz
+                outside = torch.stack([
+                    cz <= 0,
+                    u + m * cz < 0,
+                    float(w - 1 + m) * cz - u < 0,
+                    v + m * cz < 0,
+                    float(h - 1 + m) * cz - v < 0,
+                    cz > far,
+                ])
+                culled = outside if culled is None else culled & outside
+    return culled.any(0) | ~(dmax > 0)
 
 
 def _check_frame(vol: TSDFVolume, depth, camera: Camera, rgb=None):
@@ -156,8 +236,11 @@ def integrate_cuda(
     ``vol.weight`` IN PLACE (at 512^3 a functional update would copy
     1 GiB per frame); returns ``vol``.
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs the
-    plain twin ``ops.integrate.integrate`` and copies its result back.
+    On CUDA tensors this launches the kernel (one counted launch: a
+    pre-pass reduces the frame's largest depth, a second lists the bricks
+    ``brick_cull`` keeps, and the brick kernel walks that list); on CPU
+    tensors it runs the plain twin ``ops.integrate.integrate`` and copies
+    its result back.
 
     Args:
       vol: float32 volume, tsdf/weight contiguous (Z, Y, X).
@@ -172,7 +255,11 @@ def integrate_cuda(
             vol, integrate_plain(vol, depth, camera, cap_weight=cap_weight)
         )
 
-    params = kernel_params(vol, camera)
+    # the kernel's zeroed scratch after the parameters: the largest depth,
+    # the count of live bricks and their list
+    nb = brick_grid(vol.tsdf.shape)
+    params = kernel_params(
+        vol, camera, scratch=_INTEGRATE_SCRATCH_HEAD + nb[0] * nb[1] * nb[2])
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     with torch.cuda.device(dev):
