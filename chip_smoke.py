@@ -17,13 +17,17 @@ Phases (any failed check exits non-zero; nothing is caught):
      where one PyTorch call computes the same function, that call's time
      (integrate over two frames, so the second blends into voxels that
      already hold weight, tsdf and weight bit-equal, a frame with no depth
-     timed beside it and the share of bricks culled; the bilateral filter on a noisy frame with
+     timed beside it and the share of bricks culled; the raycast on the
+     analytic scene and on the volume the 20-frame fuse leaves, hit masks
+     and vertices bit-equal, with the share of samples in uniform bricks
+     and a render of no step; the bilateral filter on a noisy frame with
      holes, float32 and uint16; the lane gather on the recorded calls of
      a dense 512^3 and of a masked 255^3 extraction and at the ICP
      association's shapes on all three pyramid levels, each with the
      launch it took; the
      colour, fast and colour-fast integrate kernels over two frames:
-     tsdf, weight, colour bytes and miss counts equal; the warped
+     tsdf, weight, colour bytes and miss counts equal, the colour ones'
+     culled bricks and a frame with no depth beside them; the warped
      integrate at 512^3 under a uniform warp and at 255^3 under the field
      real deformation updates leave; the row gather at the correspondence
      and the deform_points shapes of a real frame; the windowed lane
@@ -80,6 +84,12 @@ The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
 JAX.
 
+    python3 chip_smoke.py --parent DIR
+
+runs the smoke and also builds the kernels of the checkout at DIR (the
+parent commit, unpacked there) and times its raycast and integrate entry
+points on the same inputs, in turns with this tree's.
+
     python3 chip_smoke.py --probe
 
 runs, in place of phases 3-9, the measurements PERF.md's findings rest
@@ -120,10 +130,8 @@ FX, FY, CX, CY = 591.1, 590.1, 331.0, 234.6
 WALL_Z = 2500.0
 SPHERES = [((300.0, -150.0, 1500.0), 400.0), ((-450.0, 250.0, 1100.0), 250.0)]
 
-# agreement gates between each kernel and its plain twin (the others are
-# bit-equal)
-RAYCAST_MIN_HIT_AGREE = 0.999
-RAYCAST_MEDIAN_MM = 0.5
+# every kernel must equal its plain twin bit for bit; the gates below hold
+# the paths' outputs against the analytic scene
 SURFACE_MEDIAN_MM = PHYSICAL / SIZE  # one voxel
 ATE_MAX_MM = PHYSICAL / SIZE  # one voxel
 # the ``icp`` verb: the motion between the model's view and the depth
@@ -206,6 +214,71 @@ def median_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+# The kernels library of another checkout (``--parent DIR``, the parent
+# commit unpacked at DIR), built from its own sources: its entry points are
+# timed beside this tree's on the same inputs, in the same process.
+PARENT_LIB = None
+
+
+def load_parent(path: str):
+    """Build and load the kernels library of the checkout at ``path``."""
+    import ctypes
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(path, "tsdf_tpu_torch", "kernels",
+                                     "_build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    mod.build(force=True)
+    log(f"parent build: {time.perf_counter() - t0:.1f} s "
+        f"({mod.library_path()})")
+    return ctypes.CDLL(str(mod.library_path()))
+
+
+@contextlib.contextmanager
+def parent_kernels(*kernels):
+    """Run ``kernels``' wrappers on the parent library's entry points of the
+    same names (the wrappers' arguments are a superset of what the parent
+    reads: its parameters come first, its scratch fits in this tree's)."""
+    import ctypes
+
+    saved = [k._fn for k in kernels]
+    for k in kernels:
+        fn = getattr(PARENT_LIB, k.symbol)
+        fn.argtypes = k.argtypes
+        fn.restype = ctypes.c_int
+        k._fn = fn
+    try:
+        yield
+    finally:
+        for k, fn in zip(kernels, saved):
+            k._fn = fn
+
+
+def parent_ms(kernels, fn, reps: int) -> float | None:
+    """``median_ms(fn)`` with ``kernels`` on the parent's entry points, or
+    None without ``--parent``."""
+    if PARENT_LIB is None:
+        return None
+    with parent_kernels(*kernels):
+        return median_ms(fn, reps=reps)
+
+
+def parent_in_turns(kernels, fn, reps: int, ms: float, what: str):
+    """With ``--parent``: the parent's time of ``fn``, then this tree's and
+    the parent's again, logged beside ``ms`` (this tree's, just taken);
+    returns the parent's first time, or None without ``--parent``."""
+    parent = parent_ms(kernels, fn, reps)
+    if parent is not None:
+        ms2 = median_ms(fn, reps=reps)
+        parent2 = parent_ms(kernels, fn, reps)
+        log(f"{what}, in turns: kernel {ms:.4f}, parent {parent:.4f}, kernel "
+            f"{ms2:.4f}, parent {parent2:.4f} ms")
+    return parent
 
 
 # -- the fabricated dataset --------------------------------------------------
@@ -389,6 +462,7 @@ def compare_integrate(dev, frames) -> dict:
     bit. Then time the second frame, a frame with no depth beside it, and
     log the share of bricks the kernel culls on each (``brick_cull``)."""
     from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import integrate
     from tsdf_tpu_torch.kernels.integrate import brick_cull, integrate_cuda
     from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
 
@@ -417,6 +491,9 @@ def compare_integrate(dev, frames) -> dict:
     ms = median_ms(lambda: integrate_cuda(out, depth, cam), reps=20)
     zero_depth_ms = median_ms(lambda: integrate_cuda(out, no_depth, cam), reps=20)
     plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=5)
+    parent = parent_in_turns([integrate.KERNEL],
+                             lambda: integrate_cuda(out, depth, cam), 20, ms,
+                             "integrate 512^3 one frame")
     # the work of that second frame: every voxel is projected, a voxel
     # in front of the camera is divided and rounded to its pixel, an
     # updated voxel reads and writes tsdf and weight (16 B)
@@ -434,7 +511,7 @@ def compare_integrate(dev, frames) -> dict:
         f"{zero_depth_ms:.4f} ms (every brick culled)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
                 library_ms=None, zero_depth_ms=zero_depth_ms,
-                culled_share=culled)
+                culled_share=culled, parent_ms=parent)
 
 
 def compare_integrate_variants(dev, frames, rgbs) -> dict:
@@ -442,9 +519,13 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
     plain twins at 512^3: the first two frames into one volume through the
     kernel and into another through the twin, compared after the second,
     which blends into weighted (and coloured) voxels. Everything must be
-    equal: tsdf, weight, colour bytes, miss counts."""
+    equal: tsdf, weight, colour bytes, miss counts. For the colour kernels,
+    the share of bricks culled and a frame with no depth (timed; the
+    volume must not change)."""
     from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import integrate as kint
     from tsdf_tpu_torch.kernels.integrate import (
+        brick_cull,
         integrate_color_cuda,
         integrate_fast_cuda,
     )
@@ -461,11 +542,16 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
         rgb = rgbs[i] if name == "integrate_color_fast" else None
         return integrate_fast(vol, depths[i], cams[i], rgb=rgb)
 
-    def kernel(name, vol, i):
+    def kernel(name, vol, i, depth=None):
+        depth = depths[i] if depth is None else depth
         if name == "integrate_fast":
-            return integrate_fast_cuda(vol, depths[i], cams[i])
+            return integrate_fast_cuda(vol, depth, cams[i])
         mode = "fast" if name == "integrate_color_fast" else "exact"
-        return integrate_color_cuda(vol, depths[i], rgbs[i], cams[i], mode=mode)
+        return integrate_color_cuda(vol, depth, rgbs[i], cams[i], mode=mode)
+
+    wrappers = {"integrate_color": kint.KERNEL_COLOR,
+                "integrate_fast": kint.KERNEL_FAST,
+                "integrate_color_fast": kint.KERNEL_COLOR_FAST}
 
     # the masks of the second frame, from the twins on a cleared volume
     # and a white colour frame: a voxel is updated where its weight rose
@@ -517,6 +603,27 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
 
         ms = median_ms(lambda: kernel(name, out, 1), reps=20)
         plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
+        extra = {}
+        if color:
+            # the bricks the colour kernel culls, and a frame with no depth:
+            # it must leave the volume as it is
+            extra["culled_share"] = float(
+                brick_cull(out, depths[1], cams[1], fast=fast).float().mean())
+            no_depth = torch.zeros_like(depths[1])
+            kept = [t.clone() for t in (out.tsdf, out.weight, out.color)]
+            extra["zero_depth_ms"] = median_ms(
+                lambda: kernel(name, out, 1, no_depth), reps=20)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      zip((out.tsdf, out.weight, out.color), kept)),
+                  f"{name}: a frame with no depth changed the volume")
+            del kept
+            log(f"{name}: {extra['culled_share']:.4f} of the bricks culled; a "
+                f"frame with no depth {extra['zero_depth_ms']:.4f} ms, the "
+                f"volume untouched")
+        extra["parent_ms"] = parent_in_turns(
+            [wrappers[name]], lambda: kernel(name, out, 1), 20, ms,
+            f"{name} 512^3 one frame")
         # the work of that second frame: tsdf and weight read and written
         # where a voxel is updated (16 B), three colour bytes read and
         # written in the colour band (6 B), the images read once (the
@@ -542,18 +649,21 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
             f"({updated} voxels updated"
             + (f", {band} in the colour band" if color else "") + ")")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             **least, library_ms=None)
+                             **least, library_ms=None, **extra)
         del ref, out, before
     return results
 
 
-def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
+def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor, int]:
     """The work one render of ``vol`` from ``cam`` needs: the samples
-    taken, the distinct voxels they read, and the (H*W,) hit mask.
+    taken, the distinct voxels they read, the (H*W,) hit mask, and the
+    samples whose lower corner lies in a uniform brick
+    (``kernels.raycast.uniform_bricks``: the kernel reads no tap there).
 
     Counted by marching every ray with the sphere-traced rule of
     ``ops.raycast.march_rays`` (the same start, step and stops), one pass
     of all rays at a time."""
+    from tsdf_tpu_torch.kernels.raycast import RAY_BRICK, uniform_bricks
     from tsdf_tpu_torch.ops.raycast import (
         REFERENCE_MAX_STEPS,
         ray_directions,
@@ -567,6 +677,8 @@ def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
     far_face = torch.tensor([sx, sy, sz], dtype=torch.float32, device=dev) * vs
     touched = torch.zeros((sz, sy, sx), dtype=torch.bool, device=dev)
     samples = torch.zeros((), dtype=torch.int64, device=dev)
+    uniform = torch.isfinite(uniform_bricks(vol.tsdf))
+    in_uniform = torch.zeros((), dtype=torch.int64, device=dev)
 
     dirs = ray_directions(cam, W, H).reshape(-1, 3)
     origin = cam.position[None, :]
@@ -586,6 +698,8 @@ def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
         p = torch.where(p < 0.0, torch.zeros_like(p), p)  # sampler's border rules
         lo = torch.clamp(torch.floor(p / vs - 0.5), min=0.0).to(torch.int64)
         touched[lo[:, 2], lo[:, 1], lo[:, 0]] = True
+        b = lo // RAY_BRICK
+        in_uniform += uniform[b[:, 2], b[:, 1], b[:, 0]].sum()
 
         tsdf = trilinear_sample(vol.tsdf, pts, vs)
         new_t = t + torch.clamp(0.75 * tsdf, trunc * 0.05, trunc * 0.9)
@@ -600,46 +714,76 @@ def raycast_work(vol, cam) -> tuple[int, int, torch.Tensor]:
         n = touched.shape[dim]
         upper.narrow(dim, 1, n - 1).copy_(touched.narrow(dim, 0, n - 1))
         touched |= upper
-    return int(samples), int(touched.sum()), hit
+    return int(samples), int(touched.sum()), hit, int(in_uniform)
 
 
-def compare_raycast(dev, vol, pose) -> dict:
-    """The kernel's vertices against the twin's; normals, plain in both,
-    are outside the comparison and the times."""
+def compare_raycast(dev, vols: dict, pose) -> dict:
+    """The kernel's vertices against the twin's on each volume of ``vols``
+    (the analytic scene, then the volume the 20-frame fuse leaves): hit
+    masks equal and vertices equal bit for bit where hit. Normals, plain
+    in both, are outside the comparison and the times. Each volume's time,
+    bound, share of samples in uniform bricks and the time of a render of
+    no step (the brick table and the ray set-up) are logged; the first
+    volume's numbers are the kernel's row, the others sit under their
+    name."""
     from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.kernels.raycast import KERNEL, raycast_vertices_cuda
     from tsdf_tpu_torch.ops.raycast import raycast_vertices
 
     cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(pose)
-    vk = raycast_vertices_cuda(vol, cam, W, H)
-    vp = raycast_vertices(vol, cam, W, H)
-    torch.cuda.synchronize()
-    hk = torch.isfinite(vk).all(-1)
-    hp = torch.isfinite(vp).all(-1)
-    n_samples, n_voxels, counted_hit = raycast_work(vol, cam)
-    check(torch.equal(counted_hit, hp.reshape(-1)),
-          "the counting march ends other rays on a hit than the twin")
-    agree = float((hk == hp).float().mean())
-    both = hk & hp
-    diff = (vk[both] - vp[both]).norm(dim=-1)
-    med = float(diff.median())
-    err = float((vk[both] - vp[both]).abs().max())
-    log(f"raycast 512^3 {W}x{H}: hit masks agree on {agree:.6f}, "
-        f"{int(both.sum())} hits, median |vertex diff| {med:.3g} mm, "
-        f"max abs {err:.3g} mm")
-    check(agree >= RAYCAST_MIN_HIT_AGREE, "raycast hit masks disagree")
-    check(med < RAYCAST_MEDIAN_MM, "raycast vertices disagree")
-    ms = median_ms(lambda: raycast_vertices_cuda(vol, cam, W, H), reps=10)
-    plain_ms = median_ms(lambda: raycast_vertices(vol, cam, W, H), reps=3)
-    least = bound(
-        4 * n_voxels + 12 * W * H,
-        RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
-    log(f"raycast 512^3 {W}x{H} vertices: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
-        f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
-        f"voxels read)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
-                library_ms=None)
+    rows = {}
+    for name, vol in vols.items():
+        vk = raycast_vertices_cuda(vol, cam, W, H)
+        vp = raycast_vertices(vol, cam, W, H)
+        torch.cuda.synchronize()
+        hk = torch.isfinite(vk).all(-1)
+        hp = torch.isfinite(vp).all(-1)
+        n_samples, n_voxels, counted_hit, n_uniform = raycast_work(vol, cam)
+        check(torch.equal(counted_hit, hp.reshape(-1)),
+              "the counting march ends other rays on a hit than the twin")
+        same_hits = torch.equal(hk, hp)
+        equal = same_hits and torch.equal(vk[hk].view(torch.int32),
+                                          vp[hp].view(torch.int32))
+        both = hk & hp
+        err = float((vk[both] - vp[both]).abs().max()) if bool(both.any()) else 0.0
+        log(f"raycast 512^3 {W}x{H}, {name} volume: hit masks equal: "
+            f"{same_hits} ({int(hk.sum())} hits), vertices equal bit for bit "
+            f"where hit: {equal} (max abs diff {err:.3g} mm)")
+        check(equal, f"raycast on the {name} volume differs from its twin")
+        ms = median_ms(lambda: raycast_vertices_cuda(vol, cam, W, H), reps=10)
+        prepass_ms = median_ms(
+            lambda: raycast_vertices_cuda(vol, cam, W, H, max_steps=0), reps=10)
+        plain_ms = median_ms(lambda: raycast_vertices(vol, cam, W, H), reps=3)
+        parent = parent_in_turns(
+            [KERNEL], lambda: raycast_vertices_cuda(vol, cam, W, H), 10, ms,
+            f"raycast 512^3, {name} volume")
+        least = bound(
+            4 * n_voxels + 12 * W * H,
+            RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
+        log(f"raycast 512^3 {W}x{H} vertices, {name} volume: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
+            f"voxels read); {n_uniform / n_samples:.4f} of the samples in "
+            f"uniform bricks; a render of no step (brick table, ray set-up) "
+            f"{prepass_ms:.4f} ms")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+                          library_ms=None, samples=n_samples,
+                          uniform_share=n_uniform / n_samples,
+                          prepass_ms=prepass_ms, parent_ms=parent)
+    first, *others = rows
+    return {**rows[first], **{name: rows[name] for name in others}}
+
+
+def fused_volume(dev, frames):
+    """The 512^3 volume ``fuse_frames`` leaves after the frames: the model
+    the renders and the tracked loop raycast."""
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
+
+    cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    vol, _ = fuse_frames(cfg.make_volume(device=dev), cam, frames, cfg)
+    return vol
 
 
 def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
@@ -1022,6 +1166,7 @@ def load_rgbs(dev, tum: str) -> list[torch.Tensor]:
 
 def phase_fuse_time(dev, frames) -> float:
     from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels.integrate import KERNEL
     from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
 
     cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
@@ -1031,6 +1176,10 @@ def phase_fuse_time(dev, frames) -> float:
     ms /= len(frames)
     log(f"fuse loop on the device, 512^3: {ms:.4f} ms/frame "
         f"(median of 3 runs of {len(frames)} frames already on the card)")
+    parent = parent_ms([KERNEL], lambda: fuse_frames(vol, cam, frames, cfg), 3)
+    if parent is not None:
+        log(f"fuse loop on the device, the parent's integrate kernel: "
+            f"{parent / len(frames):.4f} ms/frame")
     return ms
 
 
@@ -1186,6 +1335,7 @@ def phase_color_path(dev, tum: str, out_dir: str, frames, rgbs) -> dict:
     equal an in-process fuse of the same frames."""
     from tsdf_tpu_torch import Camera
     from tsdf_tpu_torch.io.tsdf_file import load_tsdf
+    from tsdf_tpu_torch.kernels.integrate import KERNEL_COLOR
     from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
 
     torch.cuda.synchronize()
@@ -1224,6 +1374,11 @@ def phase_color_path(dev, tum: str, out_dir: str, frames, rgbs) -> dict:
     ms = median_ms(lambda: fuse_frames(vol, cam, triples, cfg), reps=3) / len(triples)
     log(f"colour fuse loop on the device, 512^3: {ms:.4f} ms/frame (median of "
         f"3 runs of {len(triples)} frames already on the card)")
+    parent = parent_ms([KERNEL_COLOR],
+                       lambda: fuse_frames(vol, cam, triples, cfg), 3)
+    if parent is not None:
+        log(f"colour fuse loop on the device, the parent's colour kernel: "
+            f"{parent / len(triples):.4f} ms/frame")
     run.update(peak_gib=peak, fuse_ms_per_frame=ms)
     return run
 
@@ -2202,6 +2357,86 @@ def probe_main_path(dev, tum: str, out_dir: str, color: bool = False) -> dict:
     return {f"{key}_s": seconds, f"{key}_peak_gib": peak / 2**30}
 
 
+def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
+    """The registers of ``kernel`` (from the build log of ``-Xptxas=-v``)
+    and the instructions of its longest innermost loop (the longest span of
+    a backward branch in ``cuobjdump -sass`` of the library that holds no
+    other such span), with the global loads among them."""
+    import re
+
+    text = open(build_log).read()
+    regs = None
+    for block in text.split("Function properties for ")[1:]:
+        name = block.split()[0]
+        m = re.search(r"Used (\d+) registers", block)
+        if kernel in name and m:
+            regs = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(
+        __import__("tsdf_tpu_torch.kernels._build", fromlist=["x"]).nvcc_path()),
+        "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = [f for f in sass.split("Function : ")[1:] if kernel in f.split()[0]]
+    insts = [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[0] if body else "")]
+    spans = []
+    for addr, t in insts:
+        m = re.search(r"BRA.*0x([0-9a-f]+)$", t)
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    inner = [a for a in spans
+             if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
+    lo, hi = max(inner, key=lambda a: a[1] - a[0], default=(0, -1))
+    span = [t for a, t in insts if lo <= a <= hi]
+    return dict(registers=regs, instructions=len(insts), loop_instructions=len(span),
+                loop_loads=sum("LDG" in t for t in span))
+
+
+def probe_raycast(dev, frames) -> dict:
+    """What bounds the raycast kernel (and, with ``--parent``, the
+    parent's, in turns on the same inputs): its registers and the
+    instructions of its march loop, a render of the analytic scene at 0,
+    16, 64 and 256 steps and in full, and a render of a quarter of the rays
+    (half the resolution, the same view): time that does not fall with the
+    rays is the latency of a ray's chain of samples, not issue."""
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels import _build
+    from tsdf_tpu_torch.kernels.raycast import KERNEL, raycast_vertices_cuda
+
+    vol = analytic_volume(dev)
+    pose = frames[0][1]
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(pose)
+    quarter = Camera.from_intrinsics(FX / 2, FY / 2, CX / 2, CY / 2,
+                                     device=dev).set_pose(pose)
+    runs = {f"{n} steps": (cam, W, H, n) for n in (0, 16, 64, 256)}
+    runs["full"] = (cam, W, H, 4400)
+    runs["a quarter of the rays"] = (quarter, W // 2, H // 2, 4400)
+    libs = {"kernel": (str(_build.library_path()),
+                       str(_build.BUILD_DIR / "build.log"))}
+    if PARENT_LIB is not None:
+        path = PARENT_LIB._name
+        libs["parent"] = (path, os.path.join(os.path.dirname(path), "build.log"))
+    out = {}
+    for who, (lib, build_log) in libs.items():
+        found = sass_loop(lib, build_log, "raycast_kernel")
+        log(f"probe raycast, {who}: {found['registers']} registers, march "
+            f"loop of {found['loop_instructions']} instructions "
+            f"({found['loop_loads']} global loads) of {found['instructions']}")
+        out.update({f"raycast {who} {k}": v for k, v in found.items()})
+    for what, (c, w, h, n) in runs.items():
+        def render():
+            return raycast_vertices_cuda(vol, c, w, h, max_steps=n)
+        ms = median_ms(render, reps=10)
+        text = f"probe raycast 512^3, {what}: kernel {ms:.4f} ms"
+        out[f"raycast {what} ms"] = ms
+        parent = parent_ms([KERNEL], render, 10)
+        if parent is not None:
+            text += f", parent {parent:.4f} ms"
+            out[f"raycast {what} parent ms"] = parent
+        log(text)
+    return out
+
+
 def probe_integrate(dev, frames) -> dict:
     """The integrate kernel at 512^3 on frames that move different bytes
     and skip different work, beside a 1 GiB device copy (2 GiB of
@@ -2245,10 +2480,11 @@ def probe_integrate(dev, frames) -> dict:
     return out
 
 
-def probe_fuse_loop(dev, frames) -> dict:
-    """One 20-frame ``fuse_frames`` run under torch.profiler: device busy
-    time (the sum of the card's kernel times), wall time, idle share,
-    and the host syncs the loop makes."""
+def probe_fuse_loop(dev, frames, rgbs=None) -> dict:
+    """One 20-frame ``fuse_frames`` run under torch.profiler (with
+    ``rgbs``, the colour loop of ``fuse --fuse-color``): device busy time
+    (the sum of the card's kernel times), wall time, idle share, and the
+    host syncs the loop makes."""
     from torch.profiler import ProfilerActivity, profile
 
     from tsdf_tpu_torch import Camera
@@ -2257,7 +2493,14 @@ def probe_fuse_loop(dev, frames) -> dict:
     cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
     cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
     vol = cfg.make_volume(device=dev)
-    fuse_frames(vol, cam, frames, cfg)
+    what = "fuse loop"
+    if rgbs is not None:
+        vol = vol.with_color()
+        frames = [(d, p, c) for (d, p), c in zip(frames, rgbs)]
+        what = "colour fuse loop"
+    ms = median_ms(lambda: fuse_frames(vol, cam, frames, cfg), reps=3)
+    ms /= len(frames)
+    log(f"probe {what}: {ms:.4f} ms/frame by CUDA events")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2271,14 +2514,16 @@ def probe_fuse_loop(dev, frames) -> dict:
                 if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
                              "cudaDeviceSynchronize"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        log(f"probe fuse loop kernel {e.key[:60]}: {e.count} launches, "
+        log(f"probe {what} kernel {e.key[:60]}: {e.count} launches, "
             f"{e.self_device_time_total / 1e3:.4f} ms")
     idle = 1.0 - busy_ms / wall_ms
-    log(f"probe fuse loop, {len(frames)} frames: wall {wall_ms:.3f} ms under "
+    log(f"probe {what}, {len(frames)} frames: wall {wall_ms:.3f} ms under "
         f"the profiler, device busy {busy_ms:.3f} ms, idle share {idle:.3f}, "
         f"{syncs} host syncs")
-    return dict(fuse_wall_ms=wall_ms, fuse_busy_ms=busy_ms, fuse_idle=idle,
-                fuse_host_syncs=syncs)
+    key = "color_fuse" if rgbs is not None else "fuse"
+    return {f"{key}_ms_per_frame": ms, f"{key}_wall_ms": wall_ms,
+            f"{key}_busy_ms": busy_ms, f"{key}_idle": idle,
+            f"{key}_host_syncs": syncs}
 
 
 def probe_tracked_loop(dev, frames) -> dict:
@@ -2737,6 +2982,12 @@ def main() -> int:
         help="instead of the smoke, track and fuse the 500-pose orbit of "
              "tools/run_config3.py at 256^3 and print ms/frame, ATE and RPE",
     )
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="also build the kernels of the checkout at DIR (the parent "
+             "commit, unpacked) and time its raycast and integrate entry "
+             "points beside this tree's on the same inputs",
+    )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")
     parser.add_argument("--noise", action="store_true",
@@ -2755,6 +3006,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name, smi = phase_environment()
     phase_build()
+    if args.parent:
+        global PARENT_LIB
+        PARENT_LIB = load_parent(args.parent)
     if args.config3:
         found = run_config3(dev, args.frames, args.noise,
                             0.02 if args.eps else 0.0)
@@ -2771,8 +3025,10 @@ def main() -> int:
             found = probe_main_path(dev, tum, out_dir)
             found.update(probe_main_path(dev, tum, out_dir, color=True))
             frames = load_frames(dev, tum)
+            found.update(probe_raycast(dev, frames))
             found.update(probe_integrate(dev, frames))
             found.update(probe_fuse_loop(dev, frames))
+            found.update(probe_fuse_loop(dev, frames, load_rgbs(dev, tum)))
             found.update(probe_tracked_loop(dev, frames))
             _, _, sf_made = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
             found["pdflow_read_s"] = sf_made["pdflow_read_s"]
@@ -2784,7 +3040,10 @@ def main() -> int:
         frames = load_frames(dev, tum)
         results = {"integrate": compare_integrate(dev, frames[:2])}
         scene_vol = analytic_volume(dev)
-        results["raycast"] = compare_raycast(dev, scene_vol, frames[0][1])
+        fused = fused_volume(dev, frames)
+        results["raycast"] = compare_raycast(
+            dev, {"analytic": scene_vol, "fused": fused}, frames[0][1])
+        del fused
         results["lane_gather"] = compare_gather(dev, scene_vol, frames[0][0])
         del scene_vol
         results["bilateral"] = compare_bilateral(dev, frames[1][0])

@@ -1,4 +1,5 @@
-"""The brick cull of ``csrc/integrate.cu``, as its plain PyTorch predicate
+"""The brick cull of ``csrc/integrate_bricks.cuh`` (the walk of the exact
+and the colour integrate kernels), as its plain PyTorch predicate
 ``kernels.integrate.brick_cull``, against the voxels the integrate twins
 update.
 
@@ -11,6 +12,13 @@ brick the predicate keeps. No tolerance: a single such voxel fails. The
 predicate must also cull (it is not vacuous): everything for a camera
 that looks away or a frame without depth, and much of the volume in the
 smoke's view.
+
+The fast convention (``brick_cull(..., fast=True)``, the colour-fast
+kernel's cull) is held the same way against ``ops.integrate.integrate_fast``
+with a colour frame (the twin the kernel is bit-equal with; it is held
+against the JAX kernel in tests/test_torch_integrate_fast.py): no voxel it
+updates lies in a culled brick, and when it counts misses (a column steeper
+than |beta| = 1) no brick is culled, so the kernel's count is whole.
 """
 
 import dataclasses
@@ -24,8 +32,19 @@ import tsdf_tpu
 from tsdf_tpu.ops.integrate import integrate as jax_integrate
 from tsdf_tpu.utils import fixtures as jax_fixtures
 from tsdf_tpu_torch import Camera, TSDFVolume
-from tsdf_tpu_torch.kernels.integrate import BRICK, brick_cull, brick_grid
-from tsdf_tpu_torch.ops.integrate import integrate
+from tsdf_tpu_torch.kernels.integrate import (
+    BRICK,
+    CULL_MARGIN_PX,
+    FAST_CULL_MARGIN_PX,
+    brick_cull,
+    brick_grid,
+)
+from tsdf_tpu_torch.ops.integrate import (
+    fit_column_lines,
+    integrate,
+    integrate_fast,
+)
+from tsdf_tpu_torch.utils import fixtures
 
 CPU = torch.device("cpu")
 W, H = 160, 120
@@ -188,3 +207,99 @@ def test_cull_skips_much_of_the_smoke_view():
     culled, updated = _check_never_culls_an_update(jvol, jcam, depth)
     assert updated.sum() > 10000
     assert culled.mean() > 0.5, culled.mean()
+
+
+def _check_fast_never_culls_an_update(jvol, jcam, depth):
+    """Fuse ``depth`` and a colour frame with the fast twin; return (culled
+    bricks, updated voxels, miss count) after asserting that no update lies
+    in a culled brick and that a frame with misses culls nothing."""
+    vol = _to_port(jvol).with_color()
+    cam = Camera.from_numpy(np.asarray(jcam.k), np.asarray(jcam.pose),
+                            device=CPU)
+    d = torch.from_numpy(depth)
+    h, w = depth.shape
+    rgb = torch.from_numpy(fixtures.gradient_rgb(w, h, diagonal=True))
+    culled = brick_cull(vol, d, cam, fast=True).numpy()
+    out, miss = integrate_fast(vol, d, cam, rgb=rgb)
+    updated = out.weight.numpy() > 0
+    coloured = (out.color.numpy() > 0).any(-1)
+    assert not (coloured & ~updated).any()
+    lost = culled[_bricks_of(updated)]
+    assert not lost.any(), f"{int(lost.sum())} updated voxels are culled"
+    _alpha, beta = fit_column_lines(vol, cam)
+    steep = bool((~(beta.abs() <= 1.0)).any())
+    assert steep or int(miss) == 0
+    if steep:
+        assert not culled.any(), "a frame with a steep column culls a brick"
+    return culled, updated, int(miss), steep
+
+
+@pytest.mark.parametrize("depth_kind", ["far", "sphere", "near"])
+@pytest.mark.parametrize(
+    "size,at,target,roll",
+    [
+        ((64, 48, 40), [0.0, 0.0, -500.0], [0.0, 0.0, 1000.0], 0.0),
+        ((40, 32, 36), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 0.0),
+        ((64, 48, 40), [100.0, -50.0, 900.0], [400.0, 200.0, 2000.0], 0.0),
+        ((64, 48, 40), [150.0, 100.0, 2600.0], [0.0, 0.0, 500.0], 0.0),
+        # a 1.2 rad roll: every column is steeper than |beta| = 1
+        ((64, 48, 40), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 1.2),
+        # a roll at which some columns are steep and others not
+        ((64, 48, 40), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 0.72),
+        ((33, 50, 21), [300.0, 200.0, -700.0], [0.0, 0.0, 1000.0], 0.3),
+        ((21, 33, 50), [-200.0, 100.0, 500.0], [100.0, -50.0, 1800.0], -1.2),
+    ],
+    ids=["outside", "oblique", "inside", "behind", "roll", "half-roll", "odd",
+         "odd-inside"],
+)
+def test_fast_cull_never_skips_an_updated_or_missed_voxel(
+        size, at, target, roll, depth_kind):
+    rng = np.random.default_rng(len(depth_kind) + size[0])
+    jvol = tsdf_tpu.make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0))
+    jcam = tsdf_tpu.Camera.from_intrinsics(FX, FY, CX, CY).move_to(at)
+    jcam = jcam.look_at(target)
+    jcam = jcam.set_pose(jnp.asarray(_rolled_pose(jcam, roll)))
+    culled, updated, miss, steep = _check_fast_never_culls_an_update(
+        jvol, jcam, _depth(depth_kind, rng))
+    if abs(roll) < 1.0:
+        assert updated.sum() > 100  # the frame exercises the test
+    if not steep:
+        assert 0.0 < culled.mean() < 1.0
+    if abs(roll) >= 1.0:
+        assert miss > 0 and updated.sum() == 0
+
+
+def test_fast_pixel_reaches_past_the_exact_margin_and_stays_in_its_own():
+    """The premise of the fast cull's margin: a voxel the fast twin updates
+    projects (u / Z, v / Z) within 3.5 pixels of the image in x and 0.5 in
+    y, so ``FAST_CULL_MARGIN_PX`` leaves 1.5. Sub-pixel voxels (3 mm at
+    2.4 m, ~0.2 px) on the image's left edge under a roll that tilts the
+    columns' lines to |beta| ~ 0.55: here the decimated pixel reaches
+    voxels more than ``CULL_MARGIN_PX`` left of the image, which the exact
+    margin alone would not bound."""
+    jvol = tsdf_tpu.make_volume((96, 64, 32), (300.0, 200.0, 100.0),
+                                offset=(-150.0, -100.0, 2400.0))
+    x0 = CX / FX * 2450.0
+    jcam = tsdf_tpu.Camera.from_intrinsics(FX, FY, CX, CY).move_to(
+        [x0, 0.0, 0.0]).look_at([x0, 0.0, 2450.0])
+    jcam = jcam.set_pose(jnp.asarray(_rolled_pose(jcam, -0.5)))
+    depth = np.full((H, W), 2600.0, np.float32)
+    culled, updated, miss, steep = _check_fast_never_culls_an_update(
+        jvol, jcam, depth)
+    assert not steep and miss == 0 and updated.sum() > 1000
+    vol = _to_port(jvol)
+    cam = Camera.from_numpy(np.asarray(jcam.k), np.asarray(jcam.pose),
+                            device=CPU)
+    zc, yc, xc = vol.axis_centres()
+    pi, k = cam.pose_inv, cam.k
+    x, y, z = (pi[i, 0] * xc[None, None, :] + pi[i, 1] * yc[None, :, None]
+               + pi[i, 2] * zc[:, None, None] + pi[i, 3] for i in range(3))
+    u = ((k[0, 0] * x + k[0, 2] * z) / z).expand(updated.shape)
+    v = ((k[1, 1] * y + k[1, 2] * z) / z).expand(updated.shape)
+    mask = torch.from_numpy(updated)
+    slack = FAST_CULL_MARGIN_PX - 1.5
+    assert float(u[mask].min()) < -CULL_MARGIN_PX
+    assert float(u[mask].min()) >= -slack
+    assert float(u[mask].max()) <= W - 1 + slack
+    assert float(v[mask].min()) >= -0.5 - 1e-3
+    assert float(v[mask].max()) <= H - 0.5 + 1e-3

@@ -8,288 +8,22 @@
 // ops/integrate.py contract holds for every voxel, nothing is skipped and
 // there is no miss count.
 //
-// What bounds it on this card. Bytes set the floor: tsdf and weight are
-// 8 B of reads and 8 B of writes per updated voxel (0.13 ms a frame at
-// 512^3 for the ~27 M voxels a real frame updates). The work before the
-// gates is what held the one-thread-per-voxel form at 6.5x that floor: a
-// frame with no depth cost as much as a real one (PERF.md). This design
-// cuts that work three ways:
-//   * bricks of kBX x kBY x kBZ voxels (x fastest), a block of kBX x kBY
-//     threads a brick: no thread divides a voxel index, and a warp's
-//     tsdf/weight accesses are 128-byte runs;
-//   * a conservative brick cull, first, in a pre-pass of one thread a
-//     brick: the planes below are evaluated at the 8 corners of the brick's
-//     box of voxel centres, widened by one voxel each way, and a brick whose
-//     8 corners are all outside one plane is dropped; the others are
-//     appended to a list, and the brick kernel's blocks walk only that
-//     list, so a culled brick costs no block and touches no depth or volume
-//     memory (on an H100 at 512^3, launching a block for every brick and
-//     returning from the culled ones cost ~0.1 ms, a third of a real
-//     frame: the card's rate of starting blocks).
-//     Camera-space X, Y, Z and u = fx X + cx Z, v = fy Y + cy Z are affine
-//     in the voxel index, so a plane's function that is negative at all 8
-//     corners is negative on the whole box. The planes, with a margin of
-//     kMarginPx pixels, which a voxel that passes the exact gates
-//     (0 <= rint(u/Z) < W, 0 <= rint(v/Z) < H, Z > 0, d - Z >= -trunc
-//     with d > 0 its pixel's depth) is inside of by 1.5 pixels or more:
-//       Z <= 0 (behind the camera), u + m Z < 0, (W - 1 + m) Z - u < 0,
-//       v + m Z < 0, (H - 1 + m) Z - v < 0, Z > dmax + trunc,
-//     dmax the largest depth of the frame (a first pre-pass reduces it); a
-//     frame with no depth > 0 culls every brick. The widening puts a voxel
-//     or more of slack between the box's corners and any kept voxel, far
-//     more than the rounding of either. kernels/integrate.py:brick_cull is
-//     the same test in plain PyTorch, held against the twin on the CPU;
-//   * a z-strip per thread: a thread owns one (x, y) of its brick and walks
-//     its kBZ voxels. p0*wx + p1*wy of each camera row is computed once
-//     (C sums left to right, so the reused partial gives the same bits),
-//     and the loop is unrolled so the projections and depth reads of all
-//     kBZ voxels are issued before any of their tsdf/weight loads: several
-//     memory round trips in flight per thread.
-// The exact per-voxel gates still run for every voxel of a kept brick; the
-// depth image (1.2 MB at 640x480) stays in the 50 MB L2; tsdf/weight are
-// updated in place.
-//
-// Rounding: the pixel is round((fx*X + cx*Z) / Z) with rintf (half to
-// even, as torch.round) and an IEEE division, and the library is built with
-// --fmad=false, so each product and sum rounds as in the PyTorch twin
-// ops/integrate.py, in its order: kernel and twin agree bit for bit.
+// The kernel, what bounds it and its design (bricks culled in a pre-pass,
+// a list of the live ones, a z-strip a thread) are in integrate_bricks.cuh;
+// this file instantiates its depth-only form at each voxel's own pixel.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "integrate_bricks.cuh"
 
-namespace {
-
-// a brick: kBX x kBY threads, each walking kBZ voxels in z
-// (kernels/integrate.py:BRICK mirrors these)
-constexpr int kBX = 32;
-constexpr int kBY = 4;
-constexpr int kBZ = 8;
-constexpr float kMarginPx = 2.0f;  // kernels/integrate.py:CULL_MARGIN_PX
-constexpr int kBlocksPerSM = 8;   // 64 registers a thread
-// The brick kernel's grid, in SMs' worth of resident blocks: bricks differ
-// in work (partly culled, partly outside the image), and a grid of many
-// waves lets the card balance them. On an H100 at 512^3, one wave with a
-// fixed stride over the list lost to a block a brick on a real frame; 16
-// waves cost a frame with no live brick ~0.01 ms of empty blocks.
-constexpr int kWaves = 16;
-constexpr int kMaxThreads = 256;
-constexpr int kMaxBlocks = 4096;  // the depth pre-pass: about a pixel a thread
-
-// params: pose_inv rows 0-2 (12), fx, fy, cx, cy, offset (3),
-// voxel size (3), truncation distance, max weight; then the scratch the
-// wrapper allocates zeroed (kernels/integrate.py:integrate_cuda): one word
-// into which the pre-pass writes the largest depth > 0 of the frame as
-// float bits (non-negative floats order as unsigned integers), one word
-// counting the live bricks, and the list of live bricks, one word each of
-// all of the volume's bricks.
-constexpr int kParams = 24;
-constexpr int kDepthMax = kParams;
-constexpr int kLiveCount = kParams + 1;
-constexpr int kLiveList = kParams + 2;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Pre-pass 1: the largest depth > 0 of the frame (0 if none; +inf if any
-// is +inf; NaN never counts), by block and then one atomicMax a block.
-__global__ void __launch_bounds__(kMaxThreads)
-depth_max_kernel(const float* __restrict__ depth, int n,
-                 unsigned* __restrict__ dmax) {
-  __shared__ float part[kMaxThreads / 32];
-  float m = 0.0f;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const float d = depth[i];
-    m = fmaxf(m, d > 0.0f ? d : 0.0f);
-  }
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < blockDim.x / 32 ? part[threadIdx.x] : 0.0f;
-    m = warp_max(m);
-    if (threadIdx.x == 0) atomicMax(dmax, __float_as_uint(m));
-  }
-}
-
-// True when no voxel of the brick at (x0, y0, z0) can pass the gates: all
-// 8 corners of its widened box outside one plane, or no depth at all.
-__device__ __forceinline__ bool brick_culled(const float* __restrict__ p,
-                                             float dmax, int x0, int y0,
-                                             int z0, int width, int height) {
-  const float right = (float)(width - 1) + kMarginPx;
-  const float bottom = (float)(height - 1) + kMarginPx;
-  unsigned all = 0x3fu;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int ix = (c & 1) ? x0 + kBX : x0 - 1;
-    const int iy = (c & 2) ? y0 + kBY : y0 - 1;
-    const int iz = (c & 4) ? z0 + kBZ : z0 - 1;
-    const float wx = ((float)ix + 0.5f) * p[19] + p[16];
-    const float wy = ((float)iy + 0.5f) * p[20] + p[17];
-    const float wz = ((float)iz + 0.5f) * p[21] + p[18];
-    const float cx = p[0] * wx + p[1] * wy + p[2] * wz + p[3];
-    const float cy = p[4] * wx + p[5] * wy + p[6] * wz + p[7];
-    const float cz = p[8] * wx + p[9] * wy + p[10] * wz + p[11];
-    const float u = p[12] * cx + p[14] * cz;
-    const float v = p[13] * cy + p[15] * cz;
-    all &= (unsigned)(cz <= 0.0f) | (unsigned)(u + kMarginPx * cz < 0.0f) << 1 |
-           (unsigned)(right * cz - u < 0.0f) << 2 |
-           (unsigned)(v + kMarginPx * cz < 0.0f) << 3 |
-           (unsigned)(bottom * cz - v < 0.0f) << 4 |
-           (unsigned)(cz > dmax + p[22]) << 5;
-  }
-  return all != 0u || !(dmax > 0.0f);
-}
-
-// Pre-pass 2: one thread a brick, b = (bz * nby + by) * nbx + bx; the live
-// ones are appended to the list, one atomicAdd a warp. The order of the
-// list varies from run to run; the bricks are independent, so the volume
-// does not.
-__global__ void __launch_bounds__(kMaxThreads)
-brick_cull_kernel(float* __restrict__ params, int nbx, int nby, int nbz,
-                  int width, int height) {
-  const float* p = params;
-  unsigned* head = reinterpret_cast<unsigned*>(params);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  bool live = false;
-  if (b < nbx * nby * nbz) {
-    const int bx = b % nbx, t = b / nbx;
-    live = !brick_culled(p, __uint_as_float(head[kDepthMax]), bx * kBX,
-                         (t % nby) * kBY, (t / nby) * kBZ, width, height);
-  }
-  const unsigned mask = __ballot_sync(0xffffffffu, live);
-  if (mask == 0u) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(mask) - 1;
-  unsigned base = 0u;
-  if (lane == leader) base = atomicAdd(head + kLiveCount, __popc(mask));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (live) head[kLiveList + base + __popc(mask & ((1u << lane) - 1u))] = b;
-}
-
-// The z-strip of one thread: voxels (x, y, z0 .. z0 + kBZ - 1), their
-// camera rows' (x, y) parts ax, ay, az already summed.
-__device__ __forceinline__ void fuse_strip(
-    float* __restrict__ tsdf, float* __restrict__ weight,
-    const float* __restrict__ depth, const float* __restrict__ p, float ax,
-    float ay, float az, int64_t i0, int64_t plane, int z0, int nz, int width,
-    int height, int cap_weight) {
-  const float trunc = p[22];
-  int pixel[kBZ];
-  float cz[kBZ];
-  bool in_img[kBZ];
-#pragma unroll
-  for (int k = 0; k < kBZ; ++k) {
-    in_img[k] = false;
-    pixel[k] = 0;
-    const float wz = ((float)(z0 + k) + 0.5f) * p[21] + p[18];
-    const float cx = ax + p[2] * wz + p[3];
-    const float cy = ay + p[6] * wz + p[7];
-    cz[k] = az + p[10] * wz + p[11];
-    if (k < nz && cz[k] > 0.0f) {
-      const float px = rintf((p[12] * cx + p[14] * cz[k]) / cz[k]);
-      const float py = rintf((p[13] * cy + p[15] * cz[k]) / cz[k]);
-      in_img[k] = px >= 0.0f && px < (float)width && py >= 0.0f &&
-                  py < (float)height;
-      if (in_img[k]) pixel[k] = (int)py * width + (int)px;
-    }
-  }
-  float d[kBZ];
-#pragma unroll
-  for (int k = 0; k < kBZ; ++k) d[k] = in_img[k] ? __ldg(depth + pixel[k]) : 0.0f;
-  bool upd[kBZ];
-  float obs[kBZ], w[kBZ], t[kBZ];
-#pragma unroll
-  for (int k = 0; k < kBZ; ++k) {
-    const float sdf = d[k] - cz[k];
-    upd[k] = in_img[k] && d[k] > 0.0f && sdf >= -trunc;
-    obs[k] = fminf(sdf, trunc);
-    if (upd[k]) {
-      w[k] = weight[i0 + k * plane];
-      t[k] = tsdf[i0 + k * plane];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kBZ; ++k) {
-    if (!upd[k]) continue;
-    float new_w = w[k] + 1.0f;
-    const float new_d = (t[k] * w[k] + obs[k]) / new_w;
-    if (cap_weight) new_w = fminf(new_w, p[23]);
-    tsdf[i0 + k * plane] = new_d;
-    weight[i0 + k * plane] = new_w;
-  }
-}
-
-// kWaves * kBlocksPerSM blocks an SM walk the list of live bricks with a
-// fixed stride, one brick a block at a time: a culled brick costs no block.
-__global__ void __launch_bounds__(kBX * kBY, kBlocksPerSM)
-integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight,
-                 const float* __restrict__ depth,
-                 const float* __restrict__ params, int sx, int sy, int sz,
-                 int nbx, int nby, int width, int height, int cap_weight) {
-  const float* p = params;
-  const unsigned* head = reinterpret_cast<const unsigned*>(params);
-  const unsigned live = head[kLiveCount];
-  const int64_t plane = (int64_t)sx * sy;
-  for (unsigned i = blockIdx.x; i < live; i += gridDim.x) {
-    const int b = (int)head[kLiveList + i];
-    const int t = b / nbx;
-    const int x = (b % nbx) * kBX + threadIdx.x;
-    const int y = (t % nby) * kBY + threadIdx.y;
-    const int z0 = (t / nby) * kBZ;
-    if (x >= sx || y >= sy) continue;
-    const float wx = ((float)x + 0.5f) * p[19] + p[16];
-    const float wy = ((float)y + 0.5f) * p[20] + p[17];
-    // the (x, y) part of each camera row, summed first as in the twin
-    fuse_strip(tsdf, weight, depth, p, p[0] * wx + p[1] * wy,
-               p[4] * wx + p[5] * wy, p[8] * wx + p[9] * wy,
-               ((int64_t)z0 * sy + y) * sx + x, plane, z0,
-               min(kBZ, sz - z0), width, height, cap_weight);
-  }
-}
-
-}  // namespace
-
-// params holds kParams floats and then the zeroed scratch above, 2 words
-// and one a brick: ceil(sx/kBX) * ceil(sy/kBY) * ceil(sz/kBZ) of them
-// (kernels/integrate.py:brick_grid). Three launches on the stream: the
+// params holds 24 floats and then the zeroed scratch of the brick walk
+// (kernels/integrate.py:integrate_cuda). Three launches on the stream: the
 // depth maximum, the brick cull, the live bricks.
 extern "C" int tsdf_integrate(void* tsdf, void* weight, const void* depth,
                               const void* params, int sx, int sy, int sz,
                               int width, int height, int cap_weight,
                               void* stream) {
-  if (sx <= 0 || sy <= 0 || sz <= 0) return (int)cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  float* scratch = (float*)const_cast<void*>(params);
-  const int nbx = (sx + kBX - 1) / kBX;
-  const int nby = (sy + kBY - 1) / kBY;
-  const int nbz = (sz + kBZ - 1) / kBZ;
-  const int64_t bricks = (int64_t)nbx * nby * nbz;
-  if (bricks > (1 << 30)) return (int)cudaErrorInvalidConfiguration;
-  const int n = width * height;
-  int blocks = (n + kMaxThreads - 1) / kMaxThreads;
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  depth_max_kernel<<<blocks, kMaxThreads, 0, st>>>(
-      (const float*)depth, n, (unsigned*)scratch + kDepthMax);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  brick_cull_kernel<<<(unsigned)((bricks + kMaxThreads - 1) / kMaxThreads),
-                      kMaxThreads, 0, st>>>(scratch, nbx, nby, nbz, width,
-                                            height);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int64_t grid = (int64_t)(sms > 0 ? sms : 1) * kBlocksPerSM * kWaves;
-  if (grid > bricks) grid = bricks;
-  integrate_kernel<<<(unsigned)grid, dim3(kBX, kBY), 0, st>>>(
-      (float*)tsdf, (float*)weight, (const float*)depth, scratch, sx, sy, sz,
-      nbx, nby, width, height, cap_weight);
-  return (int)cudaGetLastError();
+  const tsdf_bricks::Frame f{nullptr, (const float*)depth, nullptr, nullptr};
+  return tsdf_bricks::launch<false, false>(
+      (float*)tsdf, (float*)weight, f, nullptr, nullptr,
+      const_cast<void*>(params), sx, sy, sz, width, height, cap_weight,
+      (cudaStream_t)stream);
 }

@@ -3,24 +3,33 @@
 // Replaces tsdf_tpu/kernels/integrate.py:integrate_color_pallas (its
 // _kernel_color): modes "exact" and "line" are tsdf_integrate_color (every
 // voxel reads its own pixel), mode "fast" is tsdf_integrate_color_fast
-// (the decimated line convention). The kernel, its design and what bounds
-// it are in integrate_variants.cuh; this file instantiates the two colour
-// variants.
+// (the decimated line convention). The kernel, what bounds it and its
+// design (bricks culled in a pre-pass, a list of the live ones, a z-strip a
+// thread, the colour blend in the strip) are in integrate_bricks.cuh; this
+// file instantiates its two colour forms.
 
-#include "integrate_variants.cuh"
+#include "integrate_bricks.cuh"
 
-// color: (Z, Y, X, 3) u8, updated in place; rgb: (H, W, 3) u8.
+// color: (Z, Y, X, 3) u8, updated in place; rgb: (H, W, 3) u8. params
+// holds 24 floats and then the zeroed scratch of the brick walk
+// (kernels/integrate.py:integrate_color_cuda). Three launches: the depth
+// maximum, the brick cull, the live bricks.
 extern "C" int tsdf_integrate_color(void* tsdf, void* weight, void* color,
                                     const void* depth, const void* rgb,
                                     const void* params, int sx, int sy,
                                     int sz, int width, int height,
                                     int cap_weight, void* stream) {
-  return tsdf_variants::launch<false, true>(
-      tsdf, weight, color, depth, rgb, nullptr, nullptr, params, sx, sy, sz,
-      width, height, cap_weight, stream);
+  const tsdf_bricks::Frame f{(uint8_t*)color, (const float*)depth,
+                             (const uint8_t*)rgb, nullptr};
+  return tsdf_bricks::launch<false, true>(
+      (float*)tsdf, (float*)weight, f, nullptr, nullptr,
+      const_cast<void*>(params), sx, sy, sz, width, height, cap_weight,
+      (cudaStream_t)stream);
 }
 
 // lines: scratch of sx*sz float2; miss: one int32, zeroed by the caller.
+// Four launches: the depth maximum, the column lines, the brick cull, the
+// live bricks.
 extern "C" int tsdf_integrate_color_fast(void* tsdf, void* weight,
                                          void* color, const void* depth,
                                          const void* rgb, void* lines,
@@ -28,7 +37,10 @@ extern "C" int tsdf_integrate_color_fast(void* tsdf, void* weight,
                                          int sx, int sy, int sz, int width,
                                          int height, int cap_weight,
                                          void* stream) {
-  return tsdf_variants::launch<true, true>(
-      tsdf, weight, color, depth, rgb, lines, miss, params, sx, sy, sz,
-      width, height, cap_weight, stream);
+  const tsdf_bricks::Frame f{(uint8_t*)color, (const float*)depth,
+                             (const uint8_t*)rgb, (const float2*)lines};
+  return tsdf_bricks::launch<true, true>(
+      (float*)tsdf, (float*)weight, f, lines, (int*)miss,
+      const_cast<void*>(params), sx, sy, sz, width, height, cap_weight,
+      (cudaStream_t)stream);
 }

@@ -1,10 +1,10 @@
-// The colour, the decimated ("fast") and the warped (deformed-centre)
-// variants of the TSDF integration for Hopper (sm_90a): one kernel
-// template, instantiated by integrate_color.cu, integrate_fast.cu and
-// integrate_warped.cu.
+// The decimated ("fast") and the warped (deformed-centre, with or without
+// colour) variants of the TSDF integration for Hopper (sm_90a): one kernel
+// template, instantiated by integrate_fast.cu and integrate_warped.cu; the
+// rigid colour kernels walk bricks instead (integrate_bricks.cuh), and
+// share only this file's line pre-pass.
 //
-// Replaces tsdf_tpu/kernels/integrate.py:integrate_color_pallas (its
-// _kernel_color, modes exact/line/fast), integrate_pallas(mode="fast")
+// Replaces tsdf_tpu/kernels/integrate.py:integrate_pallas(mode="fast")
 // (its _kernel_fast) and integrate_warped_pallas (its _kernel_warped; see
 // integrate_warped.cu). The TPU kernels had no per-lane gather: they warped
 // the depth (and packed rgb) image along each voxel column's image line in
@@ -15,8 +15,8 @@
 //
 //   FAST = false: the pixel is the voxel's own rounded projection, as in
 //     integrate.cu (the ops/integrate.py contract): nothing is skipped.
-//   FAST = true: the decimated line convention of _kernel_fast, written
-//     once here for the depth and the colour kernel. The row is
+//   FAST = true: the decimated line convention of _kernel_fast (and of
+//     integrate_bricks.cuh's fast colour strip). The row is
 //     pyr = round(fy*Y/Z + cy); the sampled pixel is (r, 4c) with
 //     r = 2*(clip(pyr, 0, H-1) / 2) and c = round((alpha + beta*r) / 4) on
 //     the voxel column's image line px = alpha + beta*py. A voxel whose
@@ -35,13 +35,13 @@
 // beta once and the voxel kernel reads them coalesced along x. Evaluating
 // them per voxel would cost every one of the sx*sy*sz threads two more
 // projections and five more IEEE divisions in a kernel that is bound by
-// its per-thread instructions, not its bytes (see integrate.cu).
+// its per-thread instructions, not its bytes (see integrate_bricks.cuh).
 //
 // What bounds these kernels on this card. Bytes set the floor: 16 B per
 // updated voxel for tsdf and weight, 6 B per voxel in the colour band;
 // the images (1.2 MB depth, 0.9 MB rgb at 640x480) stay in the 50 MB L2.
-// As in integrate.cu the projection every thread does before its gates
-// costs more than the bytes. The design: threads x-fastest so tsdf/weight
+// As in the one-thread-per-voxel form integrate_bricks.cuh replaced, the
+// projection every thread does before its gates costs more than the bytes. The design: threads x-fastest so tsdf/weight
 // accesses are 128-byte runs and a warp's colour bytes are one 96-byte run
 // (the (Z, Y, X, 3) u8 layout of the .tsdf file is kept: no f32 colour
 // planes); a 3-D launch grid (x blocks, y, z) so no thread divides a
@@ -73,10 +73,14 @@ __device__ __forceinline__ float clip_big(float v) {
 }
 
 // One thread per voxel column (z, x): lines[(z*sx + x)] = (alpha, beta).
-// y_far = Y - 0.5 voxels with Y the column length rounded up to 128.
+// y_far = Y - 0.5 voxels with Y the column length rounded up to 128. With
+// FLAG_STEEP, a column steeper than |beta| = 1 also sets *steep (the brick
+// cull of integrate_bricks.cuh then keeps every brick).
+template <bool FLAG_STEEP>
 static __global__ void fit_lines_kernel(float2* __restrict__ lines,
                                         const float* __restrict__ p, int sx,
-                                        int sz, float y_far) {
+                                        int sz, float y_far,
+                                        unsigned* __restrict__ steep) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y;
   if (x >= sx) return;
@@ -102,6 +106,7 @@ static __global__ void fit_lines_kernel(float2* __restrict__ lines,
   beta = isfinite(beta) ? clip_big(beta) : 0.0f;
   alpha = isfinite(alpha) ? clip_big(alpha) : -kBig;
   lines[(int64_t)z * sx + x] = make_float2(alpha, beta);
+  if (FLAG_STEEP && !(fabsf(beta) <= 1.0f)) *steep = 1u;
 }
 
 template <bool FAST, bool COLOR, bool WARPED>
@@ -217,8 +222,9 @@ int launch(void* tsdf, void* weight, void* color, const void* depth,
   const unsigned xb = (unsigned)((sx + threads - 1) / threads);
   if (FAST) {
     const int y_pad = ((sy + 127) / 128) * 128;
-    fit_lines_kernel<<<dim3(xb, sz), threads, 0, st>>>(
-        (float2*)lines, (const float*)params, sx, sz, (float)y_pad - 0.5f);
+    fit_lines_kernel<false><<<dim3(xb, sz), threads, 0, st>>>(
+        (float2*)lines, (const float*)params, sx, sz, (float)y_pad - 0.5f,
+        nullptr);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }

@@ -13,7 +13,9 @@ decimated line convention, ``ops.integrate.integrate_fast``) and
 ``integrate_color_cuda`` replaces ``integrate_color_pallas`` in all three
 modes; both return ``(vol, miss)`` like the JAX functions, with the miss
 count left on the device. These three are the rigid path and refuse a
-volume with a deformation field, as the JAX functions do.
+volume with a deformation field, as the JAX functions do. The colour
+kernels walk the same bricks as ``integrate_cuda``'s (``brick_cull`` with
+``fast`` is their test in the decimated convention).
 
 ``integrate_warped_cuda`` replaces ``integrate_warped_pallas``: the same
 update at the deformed centres ``vol.deform``. One thread per voxel reads
@@ -38,6 +40,7 @@ import torch
 from ..camera import Camera
 from ..ops.integrate import check_frame, check_rigid
 from ..ops.integrate import integrate as integrate_plain
+from ..ops.integrate import fit_column_lines
 from ..ops.integrate import integrate_fast as integrate_fast_plain
 from ..ops.integrate_diff import depth_image_gradients, integrate_pose_grad
 from ..utils.se3 import matmul_small, se3_exp
@@ -95,14 +98,17 @@ POSE_GRAD_SUMS = 12
 MODES = ("exact", "line", "fast")
 
 
-# csrc/integrate.cu's brick, (z, y, x) voxels: a block of 32 x 4 threads,
-# each walking 8 voxels in z
+# csrc/integrate_bricks.cuh's brick, (z, y, x) voxels: a block of 32 x 4
+# threads, each walking 8 voxels in z
 BRICK = (8, 4, 32)
-# its cull keeps every brick within this many pixels of the image
+# its cull keeps every brick within this many pixels of the image; in the
+# fast convention, whose sampled column lies up to 3.5 pixels from the
+# voxel's projection, this many on either side in x
 CULL_MARGIN_PX = 2.0
-# the words of csrc/integrate.cu's scratch before its list of live bricks:
-# the frame's largest depth and the count of live bricks
-_INTEGRATE_SCRATCH_HEAD = 2
+FAST_CULL_MARGIN_PX = 5.0
+# the words of the brick walk's scratch before its list of live bricks:
+# the frame's largest depth, the count of live bricks, the steep-column flag
+_INTEGRATE_SCRATCH_HEAD = 3
 
 
 def brick_grid(shape) -> tuple[int, int, int]:
@@ -117,8 +123,8 @@ def kernel_params(
     """The kernels' 24 f32 parameters, assembled on the volume's device:
     pose_inv rows 0-2 (12), fx, fy, cx, cy, offset (3), voxel size (3),
     truncation distance, max weight; then ``scratch`` zeroed words a
-    kernel may write into (``integrate_cuda`` sizes the scratch of
-    ``csrc/integrate.cu``)."""
+    kernel may write into (``_brick_params`` sizes the scratch of the
+    brick walk)."""
     k = camera.k
     parts = [
         camera.pose_inv[0:3, :].reshape(-1),
@@ -134,26 +140,33 @@ def kernel_params(
     return torch.cat(parts).contiguous()
 
 
-def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera):
-    """Which bricks of ``BRICK`` voxels ``csrc/integrate.cu`` skips for
-    this frame: a ``brick_grid(vol.tsdf.shape)`` bool tensor, True where no
-    voxel of the brick can pass the exact gates of
-    ``ops.integrate.integrate``.
+def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera,
+               fast: bool = False):
+    """Which bricks of ``BRICK`` voxels the brick walk of
+    ``csrc/integrate_bricks.cuh`` skips for this frame: a
+    ``brick_grid(vol.tsdf.shape)`` bool tensor, True where no voxel of the
+    brick can pass the gates of ``ops.integrate.integrate`` or, with
+    ``fast``, be updated or counted as a miss by
+    ``ops.integrate.integrate_fast``.
 
     The kernel's test, in float32 and in its order: at the 8 corners of
     the brick's box of voxel centres widened by one voxel each way, the
     camera point (X, Y, Z), u = fx X + cx Z and v = fy Y + cy Z; the brick
     is culled when all 8 corners are outside one plane -- Z <= 0,
-    u + m Z < 0, (W - 1 + m) Z - u < 0, v + m Z < 0, (H - 1 + m) Z - v < 0
-    or Z > max depth + truncation, m = ``CULL_MARGIN_PX`` -- or when the
-    frame has no depth > 0. All six are affine in the voxel index, so a
-    plane negative at the corners is negative on the box.
+    u + mu Z < 0, (W - 1 + mu) Z - u < 0, v + m Z < 0, (H - 1 + m) Z - v < 0
+    or Z > max depth + truncation, m = ``CULL_MARGIN_PX``, mu = m or, with
+    ``fast``, ``FAST_CULL_MARGIN_PX`` -- or when the frame has no depth > 0.
+    All six are affine in the voxel index, so a plane negative at the
+    corners is negative on the box. With ``fast``, a voxel column steeper
+    than |beta| = 1 (``ops.integrate.fit_column_lines``) keeps every brick:
+    its voxels count as misses wherever they lie.
     """
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     dev = vol.tsdf.device
     vs, off = vol.voxel_size, vol.offset
     m = CULL_MARGIN_PX
+    mu = FAST_CULL_MARGIN_PX if fast else m
 
     def ends(n, b, axis):
         """The low and high corner coordinate of every brick on an axis."""
@@ -180,14 +193,27 @@ def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera):
                 v = k[1, 1] * cy + k[1, 2] * cz
                 outside = torch.stack([
                     cz <= 0,
-                    u + m * cz < 0,
-                    float(w - 1 + m) * cz - u < 0,
+                    u + mu * cz < 0,
+                    float(w - 1 + mu) * cz - u < 0,
                     v + m * cz < 0,
                     float(h - 1 + m) * cz - v < 0,
                     cz > far,
                 ])
                 culled = outside if culled is None else culled & outside
-    return culled.any(0) | ~(dmax > 0)
+    culled = culled.any(0) | ~(dmax > 0)
+    if fast:
+        _alpha, beta = fit_column_lines(vol, camera)
+        culled = culled & ~(~(beta.abs() <= 1.0)).any()
+    return culled
+
+
+def _brick_params(vol: TSDFVolume, camera: Camera) -> torch.Tensor:
+    """``kernel_params`` with the brick walk's zeroed scratch after them:
+    the largest depth, the count of live bricks, the steep-column flag and
+    the list of live bricks."""
+    nb = brick_grid(vol.tsdf.shape)
+    return kernel_params(
+        vol, camera, scratch=_INTEGRATE_SCRATCH_HEAD + nb[0] * nb[1] * nb[2])
 
 
 def _check_frame(vol: TSDFVolume, depth, camera: Camera, rgb=None):
@@ -255,11 +281,7 @@ def integrate_cuda(
             vol, integrate_plain(vol, depth, camera, cap_weight=cap_weight)
         )
 
-    # the kernel's zeroed scratch after the parameters: the largest depth,
-    # the count of live bricks and their list
-    nb = brick_grid(vol.tsdf.shape)
-    params = kernel_params(
-        vol, camera, scratch=_INTEGRATE_SCRATCH_HEAD + nb[0] * nb[1] * nb[2])
+    params = _brick_params(vol, camera)
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     with torch.cuda.device(dev):
@@ -362,7 +384,7 @@ def integrate_color_cuda(
             miss = torch.zeros((), dtype=torch.int32)
         return _copy_back(vol, out), miss
 
-    params = kernel_params(vol, camera)
+    params = _brick_params(vol, camera)
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     volume = (vol.tsdf.data_ptr(), vol.weight.data_ptr(), vol.color.data_ptr())
