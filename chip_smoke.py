@@ -26,7 +26,7 @@ Phases (any failed check exits non-zero; nothing is caught):
      association's shapes on all three pyramid levels, each with the
      launch it took; the
      colour, fast and colour-fast integrate kernels over two frames:
-     tsdf, weight, colour bytes and miss counts equal, the colour ones'
+     tsdf, weight, colour bytes and miss counts equal, each one's
      culled bricks and a frame with no depth beside them; the warped
      integrate at 512^3 under a uniform warp and at 255^3 under the field
      real deformation updates leave; the row gather at the correspondence
@@ -34,7 +34,11 @@ Phases (any failed check exits non-zero; nothing is caught):
      gather and its checked wrapper on coherent and wild indices; the
      pose adjoint at 512^3 on the second frame over the volume the first
      fused, with a seeded cotangent: dd and dw bit-equal, the pose_inv
-     cotangent within 1e-6, a second launch bit-equal; the gather-roofline
+     cotangent within 1e-6 and bit-equal with the column sums of its
+     per-brick model, a second launch bit-equal, the share of bricks
+     culled, a frame with no depth (a copy of the cotangents) beside a
+     device copy of the same bytes, the registers of its two brick
+     kernels and its device time by kernel; the gather-roofline
      probe: out equal, its G elements/s and the integrate floor it implies);
   3b. pose recovery at 512^3 / 640x480: the workload of
      tools/run_config4b.py (normalised steps through integrate_pose from a
@@ -87,8 +91,12 @@ JAX.
     python3 chip_smoke.py --parent DIR
 
 runs the smoke and also builds the kernels of the checkout at DIR (the
-parent commit, unpacked there) and times its raycast and integrate entry
-points on the same inputs, in turns with this tree's.
+parent commit, unpacked there) and times its raycast, integrate and
+pose-adjoint entry points (and a frame with no depth through the fast
+integrate and the adjoint) on the same inputs, in turns with this tree's;
+the fast fuse loop and the config4b step with the parent's kernel in
+turns; and the config4b descent through the parent's adjoint, whose
+residual must stay within C4B_RESIDUAL_MM of this tree's.
 
     python3 chip_smoke.py --probe
 
@@ -220,6 +228,7 @@ def median_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
 # commit unpacked at DIR), built from its own sources: its entry points are
 # timed beside this tree's on the same inputs, in the same process.
 PARENT_LIB = None
+PARENT_DIR = None
 
 
 def load_parent(path: str):
@@ -266,6 +275,11 @@ def parent_ms(kernels, fn, reps: int) -> float | None:
         return None
     with parent_kernels(*kernels):
         return median_ms(fn, reps=reps)
+
+
+def ms_text(ms: float | None) -> str:
+    """A time for the log: four decimals, or "not run" (no ``--parent``)."""
+    return "not run" if ms is None else f"{ms:.4f}"
 
 
 def parent_in_turns(kernels, fn, reps: int, ms: float, what: str):
@@ -519,9 +533,10 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
     plain twins at 512^3: the first two frames into one volume through the
     kernel and into another through the twin, compared after the second,
     which blends into weighted (and coloured) voxels. Everything must be
-    equal: tsdf, weight, colour bytes, miss counts. For the colour kernels,
-    the share of bricks culled and a frame with no depth (timed; the
-    volume must not change)."""
+    equal: tsdf, weight, colour bytes, miss counts. For each (all three
+    walk the bricks of integrate_bricks.cuh), the share of bricks culled
+    and a frame with no depth (timed, with ``--parent`` the parent's too;
+    the volume must not change)."""
     from tsdf_tpu_torch import Camera, make_volume
     from tsdf_tpu_torch.kernels import integrate as kint
     from tsdf_tpu_torch.kernels.integrate import (
@@ -603,24 +618,27 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
 
         ms = median_ms(lambda: kernel(name, out, 1), reps=20)
         plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
-        extra = {}
-        if color:
-            # the bricks the colour kernel culls, and a frame with no depth:
-            # it must leave the volume as it is
-            extra["culled_share"] = float(
-                brick_cull(out, depths[1], cams[1], fast=fast).float().mean())
-            no_depth = torch.zeros_like(depths[1])
-            kept = [t.clone() for t in (out.tsdf, out.weight, out.color)]
-            extra["zero_depth_ms"] = median_ms(
-                lambda: kernel(name, out, 1, no_depth), reps=20)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in
-                      zip((out.tsdf, out.weight, out.color), kept)),
-                  f"{name}: a frame with no depth changed the volume")
-            del kept
-            log(f"{name}: {extra['culled_share']:.4f} of the bricks culled; a "
-                f"frame with no depth {extra['zero_depth_ms']:.4f} ms, the "
-                f"volume untouched")
+        # the bricks the kernel culls, and a frame with no depth: it must
+        # leave the volume as it is
+        extra = {"culled_share": float(
+            brick_cull(out, depths[1], cams[1], fast=fast).float().mean())}
+        no_depth = torch.zeros_like(depths[1])
+        fields = [out.tsdf, out.weight] + ([out.color] if color else [])
+        kept = [t.clone() for t in fields]
+
+        def empty_frame():
+            return kernel(name, out, 1, no_depth)
+
+        extra["zero_depth_ms"] = median_ms(empty_frame, reps=20)
+        extra["parent_zero_depth_ms"] = parent_ms([wrappers[name]],
+                                                  empty_frame, 20)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(fields, kept)),
+              f"{name}: a frame with no depth changed the volume")
+        del kept
+        log(f"{name}: {extra['culled_share']:.4f} of the bricks culled; a "
+            f"frame with no depth {extra['zero_depth_ms']:.4f} ms (parent "
+            f"{ms_text(extra['parent_zero_depth_ms'])}), the volume untouched")
         extra["parent_ms"] = parent_in_turns(
             [wrappers[name]], lambda: kernel(name, out, 1), 20, ms,
             f"{name} 512^3 one frame")
@@ -1408,6 +1426,7 @@ def phase_fast(dev, frames, rgbs, gt_poses) -> dict:
     import warnings
 
     from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels import integrate as kint
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
     from tsdf_tpu_torch.pipelines.kinfu import (
@@ -1473,6 +1492,12 @@ def phase_fast(dev, frames, rgbs, gt_poses) -> dict:
     log(f"fuse loop on the device, 512^3, ms/frame (medians of 3 runs of {n} "
         f"frames, in turns): fast {fast_ms:.4f}, exact {exact_ms:.4f}, fast "
         f"{fast_ms2:.4f}, exact {exact_ms2:.4f}")
+    parent = parent_in_turns(
+        [kint.KERNEL_FAST], lambda: fuse_frames(vol, cam, frames, fast), 3,
+        fast_ms * n, f"fuse loop fast, {n} frames")
+    if parent is not None:
+        log(f"fuse loop fast on the device, ms/frame: {fast_ms:.4f}, with the "
+            f"parent's fast kernel {parent / n:.4f}")
     del ref, vol
 
     # GT poses, depth + colour
@@ -1512,7 +1537,8 @@ def phase_fast(dev, frames, rgbs, gt_poses) -> dict:
     check(min(inliers) > 0.02 * W * H, "fast tracked loop lost a frame")
     check(med < SURFACE_MEDIAN_MM, "fast tracked: hits far from the surface")
     return dict(fuse=fuse_counts, color=color_counts, tracked=tracked_counts,
-                fast_ms_per_frame=fast_ms, exact_ms_per_frame=exact_ms)
+                fast_ms_per_frame=fast_ms, exact_ms_per_frame=exact_ms,
+                parent_fast_ms_per_frame=None if parent is None else parent / n)
 
 
 # -- non-rigid SceneFusion -----------------------------------------------------
@@ -2587,6 +2613,9 @@ POSE_GRAD_DPINV_RTOL = 1e-6
 C4B_CAMERA = ((120.0, -80.0, -500.0), (0.0, 0.0, 1500.0))
 C4B_DELTA0 = (0.004, -0.003, 0.002, 12.0, -9.0, 8.0)
 C4B_STEPS = 14
+# config4b through the parent's adjoint (``--parent``): the residual after
+# C4B_STEPS steps may differ by this much
+C4B_RESIDUAL_MM = 0.05
 # config4 (tools/run_config4.py)
 C4_SPHERES = [((-700.0, -500.0, 900.0), 250.0), ((650.0, 400.0, 1200.0), 300.0),
               ((-300.0, 700.0, 1800.0), 350.0)]
@@ -2604,14 +2633,92 @@ def default_camera(dev, at, target):
         list(target))
 
 
+def parent_pose_grad(vol, depth, camera, gbar_d, gbar_w, cap_weight=False,
+                     image_term=True):
+    """``pose_grad_cuda`` on the parent library's entry point (``--parent``),
+    called with that library's interface. The one-thread-per-voxel adjoint
+    before the brick walk (its source reads ``gx_img``) takes the depth
+    gradient images after the depth and one row of partials a 32 x 64-voxel
+    tile of a z slice; the brick walk takes neither image and one row a
+    brick. Not counted as a launch."""
+    import ctypes
+
+    from tsdf_tpu_torch.kernels import integrate as kint
+    from tsdf_tpu_torch.kernels._build import stream_handle
+    from tsdf_tpu_torch.ops.integrate_diff import depth_image_gradients
+
+    source = os.path.join(PARENT_DIR, "tsdf_tpu_torch", "csrc",
+                          "integrate_pose_grad.cu")
+    per_voxel = "gx_img" in open(source).read()
+    argtypes = list(kint.KERNEL_POSE_GRAD.argtypes)
+    fn = PARENT_LIB.tsdf_integrate_pose_grad
+    fn.argtypes = argtypes[:5] + [ctypes.c_void_p] * 2 + argtypes[5:] \
+        if per_voxel else argtypes
+    fn.restype = ctypes.c_int
+    dev = vol.tsdf.device
+    sz, sy, sx = vol.tsdf.shape
+    h, w = depth.shape
+    images = depth_image_gradients(depth) if per_voxel else ()
+    params = kint._brick_params(vol, camera)
+    dd, dw = torch.empty_like(vol.tsdf), torch.empty_like(vol.weight)
+    nb = kint.brick_grid(vol.tsdf.shape)
+    rows = (-(-sx // 32) * -(-sy // 64) * sz if per_voxel
+            else nb[0] * nb[1] * nb[2])
+    partials = torch.empty((rows, 12), dtype=torch.float64, device=dev)
+    err = fn(vol.tsdf.data_ptr(), vol.weight.data_ptr(), gbar_d.data_ptr(),
+             gbar_w.data_ptr(), depth.data_ptr(),
+             *(t.data_ptr() for t in images), dd.data_ptr(),
+             dw.data_ptr(), partials.data_ptr(), rows, params.data_ptr(), sx,
+             sy, sz, w, h, int(bool(cap_weight)), int(bool(image_term)),
+             stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"the parent's tsdf_integrate_pose_grad: error {err}")
+    sums = partials.sum(dim=0).to(torch.float32)
+    return dd, dw, torch.cat([sums.reshape(3, 4),
+                              torch.zeros((1, 4), device=dev)])
+
+
+@contextlib.contextmanager
+def parent_adjoint():
+    """``integrate_pose``'s backward on the parent's adjoint kernel."""
+    from tsdf_tpu_torch.kernels import integrate as kint
+
+    saved = kint.pose_grad_cuda
+    kint.pose_grad_cuda = parent_pose_grad
+    try:
+        yield
+    finally:
+        kint.pose_grad_cuda = saved
+
+
+def kernel_registers(names) -> dict:
+    """Registers a thread of each named kernel, from the build log of
+    ``-Xptxas=-v`` (``sass_loop``)."""
+    from tsdf_tpu_torch.kernels import _build
+
+    return {k: sass_loop(str(_build.library_path()),
+                         str(_build.BUILD_DIR / "build.log"), k)["registers"]
+            for k in names}
+
+
 def compare_pose_grad(dev, frames) -> dict:
     """The pose-adjoint kernel against its twin at 512^3 / 640x480: the
     second frame's adjoint over a volume the first frame fused (its
     updated voxels blend into weight), with a seeded cotangent. dd and dw
-    bit-equal, dpinv within POSE_GRAD_DPINV_RTOL of its largest entry, a
-    second launch bit-equal."""
+    bit-equal, dpinv within POSE_GRAD_DPINV_RTOL of its largest entry and
+    bit-equal with the plain model of its per-brick sums, a second launch
+    bit-equal. Then its time, the share of bricks culled, a frame with no
+    depth (a pure copy: dd and dw must equal the cotangents, dpinv 0) beside
+    a device copy of the same bytes, the registers of its two brick
+    kernels, its device time by kernel under the profiler, and with
+    ``--parent`` the parent's kernel in turns."""
     from tsdf_tpu_torch import Camera, make_volume
-    from tsdf_tpu_torch.kernels.integrate import integrate_cuda, pose_grad_cuda
+    from tsdf_tpu_torch.kernels.integrate import (
+        brick_cull,
+        integrate_cuda,
+        pose_grad_cuda,
+        pose_grad_partials,
+    )
     from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad, sample_frame
 
     vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
@@ -2638,19 +2745,74 @@ def compare_pose_grad(dev, frames) -> dict:
     scale = float(rp.abs().max())
     again = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in ((dd, dd2), (dw, dw2), (dp, dp2)))
+    del dd2, dw2, rd, rw
+    model = pose_grad_partials(vol, depth, cam, gd).sum(dim=0)
+    as_model = torch.equal(dp[:3].view(torch.int32),
+                           model.to(torch.float32).reshape(3, 4).view(torch.int32))
+    del model
     log(f"pose adjoint 512^3: dd and dw differ from the twin on {same} "
         f"voxels; dpinv max |diff| {err:.4g} (largest entry {scale:.6g}); "
         f"{n_upd} voxels updated, {blended} of them blending into weight; "
-        f"a second launch bit-equal: {again}")
+        f"a second launch bit-equal: {again}; dpinv bit-equal with the "
+        f"per-brick model's sums: {as_model}")
     log(f"pose adjoint dpinv rows R|t: {dp[:3].cpu().numpy().tolist()}")
     check(same == [0, 0], "the pose adjoint's dd/dw differ from the twin")
     check(err <= POSE_GRAD_DPINV_RTOL * scale, "the pose adjoint's dpinv disagrees")
     check(again, "two launches of the pose adjoint differ")
+    check(as_model, "the pose adjoint's sums differ from the per-brick model")
     check(blended > 0 and scale > 0, "the pose adjoint did no work")
-    del dd2, dw2, rd, rw
+    culled = float(brick_cull(vol, depth, cam).float().mean())
     ms = median_ms(lambda: pose_grad_cuda(vol, depth, cam, gd, gw), reps=20)
     plain_ms = median_ms(lambda: integrate_pose_grad(vol, depth, cam, gd, gw),
                          reps=3)
+    parent = None
+    if PARENT_LIB is not None:
+        pd, pw, pp = parent_pose_grad(vol, depth, cam, gd, gw)
+        torch.cuda.synchronize()
+        check(torch.equal(pd, dd) and torch.equal(pw, dw)
+              and float((pp - rp).abs().max()) <= POSE_GRAD_DPINV_RTOL * scale,
+              "the parent's pose adjoint disagrees with this tree's")
+        del pd, pw, pp
+
+        def parent_run():
+            return parent_pose_grad(vol, depth, cam, gd, gw)
+
+        parent = median_ms(parent_run, reps=20)
+        ms2 = median_ms(lambda: pose_grad_cuda(vol, depth, cam, gd, gw), reps=20)
+        parent2 = median_ms(parent_run, reps=20)
+        log(f"pose adjoint 512^3 one frame, in turns: kernel {ms:.4f}, parent "
+            f"{parent:.4f}, kernel {ms2:.4f}, parent {parent2:.4f} ms")
+    # a frame with no depth culls every brick: a copy of the cotangents
+    no_depth = torch.zeros_like(depth)
+    zd, zw, zp = pose_grad_cuda(vol, no_depth, cam, gd, gw)
+    torch.cuda.synchronize()
+    check(torch.equal(zd.view(torch.int32), gd.view(torch.int32))
+          and torch.equal(zw.view(torch.int32), gw.view(torch.int32))
+          and float(zp.abs().max()) == 0.0,
+          "the pose adjoint of a frame with no depth is not a copy")
+    del zd, zw, zp
+    zero_depth_ms = median_ms(lambda: pose_grad_cuda(vol, no_depth, cam, gd, gw),
+                              reps=20)
+    parent_zero_depth_ms = None
+    if PARENT_LIB is not None:
+        parent_zero_depth_ms = median_ms(
+            lambda: parent_pose_grad(vol, no_depth, cam, gd, gw), reps=20)
+    # what a device copy of the same bytes takes (gbar_d, gbar_w into two
+    # outputs), in the same call
+    cd, cw = torch.empty_like(gd), torch.empty_like(gw)
+
+    def copy_both():
+        cd.copy_(gd)
+        cw.copy_(gw)
+
+    copy_ms = median_ms(copy_both, reps=20)
+    del cd, cw
+    registers = kernel_registers(["pose_grad_copy_kernel", "pose_grad_walk_kernel"])
+    # device time by kernel: the copy of the culled bricks, the walk of the
+    # live ones, the pre-passes and the wrapper's small launches
+    split = {what: profile_step(lambda: pose_grad_cuda(vol, d, cam, gd, gw),
+                                f"pose adjoint 512^3, {what}")["top"]
+             for what, d in (("frame", depth), ("no depth", no_depth))}
     # bytes: gbar_d, gbar_w in and dd, dw out at every voxel, tsdf and
     # weight at an updated one, depth and its two gradient images once
     o = POSE_GRAD_OPS
@@ -2658,12 +2820,22 @@ def compare_pose_grad(dev, frames) -> dict:
         16 * vol.tsdf.numel() + 8 * n_upd + 3 * 4 * depth.numel(),
         o["voxel"] * vol.tsdf.numel() + o["in_front"] * voxels_in_front(vol, cam)
         + o["updated"] * n_upd + o["band"] * in_band)
+    zero_bound = bound(16 * vol.tsdf.numel() + 4 * depth.numel(), 0)["bound_ms"]
     log(f"pose adjoint 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
-        f"({n_upd} updated, {in_band} in the band)")
+        f"({n_upd} updated, {in_band} in the band); {culled:.4f} of the bricks "
+        f"culled; a frame with no depth {zero_depth_ms:.4f} ms (parent "
+        f"{ms_text(parent_zero_depth_ms)}; bound {zero_bound:.4f} ms by bytes; "
+        f"a device copy of gbar_d and gbar_w {copy_ms:.4f} ms); registers a "
+        f"thread {registers}")
     return dict(max_abs_err=err, dd_dw_voxels_differ=sum(same),
-                bit_equal_second_run=again, ms=ms, plain_ms=plain_ms,
-                updated=n_upd, in_band=in_band, **least, library_ms=None)
+                bit_equal_second_run=again, bit_equal_model_sums=as_model,
+                ms=ms, plain_ms=plain_ms, updated=n_upd, in_band=in_band,
+                culled_share=culled, zero_depth_ms=zero_depth_ms,
+                zero_depth_bound_ms=zero_bound, copy_ms=copy_ms,
+                registers=registers, device_ms_by_kernel=split, parent_ms=parent,
+                parent_zero_depth_ms=parent_zero_depth_ms, **least,
+                library_ms=None)
 
 
 def compare_probe(dev) -> dict:
@@ -2792,8 +2964,21 @@ def phase_config4b(dev) -> dict:
     check(float(loss_k) == float(loss_t), "config4b: kernel and twin losses differ")
     check(g_err <= 1e-5 * g_scale, "config4b: kernel and twin gradients differ")
 
-    step_ms = median_ms(
-        lambda: fusion_loss_and_grad(vol, depth, cam, target, delta0), reps=5)
+    def step():
+        return fusion_loss_and_grad(vol, depth, cam, target, delta0)
+
+    step_ms = median_ms(step, reps=5)
+    parent_step_ms = None
+    if PARENT_LIB is not None:
+        # the same step with the parent's adjoint, in turns
+        with parent_adjoint():
+            parent_step_ms = median_ms(step, reps=5)
+        step_ms2 = median_ms(step, reps=5)
+        with parent_adjoint():
+            parent_step_ms2 = median_ms(step, reps=5)
+        log(f"config4b value-and-grad step by CUDA events, in turns: kernel "
+            f"{step_ms:.4f}, parent's adjoint {parent_step_ms:.4f}, kernel "
+            f"{step_ms2:.4f}, parent's adjoint {parent_step_ms2:.4f} ms")
     prof = profile_step(
         lambda: fusion_loss_and_grad(vol, depth, cam, target, delta0),
         "config4b value-and-grad")
@@ -2823,7 +3008,20 @@ def phase_config4b(dev) -> dict:
           "config4b: unexpected launch counts")
     check(best_loss < history[0]["loss"], "config4b: the loss did not fall")
     check(resid < v0, "config4b: the translation residual did not fall")
-    return dict(counts=counts, step_ms=step_ms, host_step_ms=host_ms,
+    parent_resid = None
+    if PARENT_LIB is not None:
+        # the same descent through the parent's adjoint: the float64 sums
+        # change order, not value, so the residual stays where it was
+        with parent_adjoint():
+            parent_best, _, _ = descend_through_fusion(
+                vol, depth, cam, target, delta0, steps=C4B_STEPS)
+        parent_resid = float(torch.linalg.vector_norm(parent_best[3:]))
+        log(f"config4b: translation residual after {C4B_STEPS} steps "
+            f"{resid:.4f} mm, through the parent's adjoint {parent_resid:.4f} mm")
+        check(abs(resid - parent_resid) <= C4B_RESIDUAL_MM,
+              "config4b: the residual moved away from the parent's")
+    return dict(counts=counts, step_ms=step_ms, parent_step_ms=parent_step_ms,
+                parent_residual_mm=parent_resid, host_step_ms=host_ms,
                 seconds=seconds, best_loss=best_loss,
                 start_loss=history[0]["loss"], residual_mm=resid,
                 start_mm=v0, peak_gib=peak_gib, grad_err=g_err,
@@ -2985,8 +3183,9 @@ def main() -> int:
     parser.add_argument(
         "--parent", metavar="DIR",
         help="also build the kernels of the checkout at DIR (the parent "
-             "commit, unpacked) and time its raycast and integrate entry "
-             "points beside this tree's on the same inputs",
+             "commit, unpacked) and time its raycast, integrate and "
+             "pose-adjoint entry points beside this tree's on the same "
+             "inputs",
     )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")
@@ -3007,8 +3206,9 @@ def main() -> int:
     name, smi = phase_environment()
     phase_build()
     if args.parent:
-        global PARENT_LIB
+        global PARENT_LIB, PARENT_DIR
         PARENT_LIB = load_parent(args.parent)
+        PARENT_DIR = args.parent
     if args.config3:
         found = run_config3(dev, args.frames, args.noise,
                             0.02 if args.eps else 0.0)
@@ -3184,7 +3384,9 @@ def main() -> int:
     for entry in kernels:
         check(entry["launches"] > 0 or entry["launches_on"] in (no_path, probe),
               f"{entry['name']} was never launched")
-    log(f"config4b: {config4b['host_step_ms']:.4f} ms a value-and-grad step, "
+    log(f"config4b: {config4b['host_step_ms']:.4f} ms a value-and-grad step "
+        f"on the host, {config4b['step_ms']:.4f} by CUDA events (with the "
+        f"parent's adjoint {ms_text(config4b['parent_step_ms'])}), "
         f"translation residual {config4b['start_mm']:.4f} -> "
         f"{config4b['residual_mm']:.4f} mm; config4: "
         f"{config4['host_step_ms']:.4f} ms a Levenberg-Marquardt step, "

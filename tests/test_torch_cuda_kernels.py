@@ -16,7 +16,8 @@ raycast (hit masks equal, vertices equal where hit) must agree bit for
 bit. The
 pose adjoint's dd and dw are bit-equal; its pose_inv cotangent, float64
 sums of the same float32 terms in another order, is within 1e-6 of its
-largest entry.
+largest entry, and equals bit for bit the plain model of its reduction
+order (``kernels.integrate.pose_grad_partials``) summed on the card.
 """
 
 import dataclasses
@@ -635,12 +636,12 @@ def _assert_adjoint_equals_twin(vol, depth, cam, gd, gw, **kw):
 
 @pytest.mark.parametrize("cap_weight", [False, True])
 @pytest.mark.parametrize("image_term", [False, True])
-@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21), (45, 130, 3)])
+@pytest.mark.parametrize(
+    "size", [(64, 48, 40), (33, 50, 21), (45, 130, 3), (70, 37, 13)])
 def test_pose_grad_kernel_matches_twin(dev, size, image_term, cap_weight):
     """The adjoint kernel against its twin: dd and dw bit-equal, dpinv
     within 1e-6 of its largest entry, two launches bit-equal; sizes whose
-    x is no multiple of the warp and whose y is no multiple of the block's
-    64 rows."""
+    bricks of 32 x 4 x 8 voxels are ragged in x, y and z."""
     vol, depth, gd, gw = _adjoint_inputs(dev, size, seed=size[0])
     cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
     dd, dp = _assert_adjoint_equals_twin(vol, depth, cam, gd, gw,
@@ -650,6 +651,40 @@ def test_pose_grad_kernel_matches_twin(dev, size, image_term, cap_weight):
     assert updated.any() and float(dp.abs().max()) > 0
     if cap_weight:
         assert (updated & (vol.weight == 14.0)).any()  # the tie
+
+
+def test_pose_grad_kernel_on_a_zero_depth_frame_is_a_copy(dev):
+    """A frame with no depth > 0 culls every brick: dd and dw are gbar_d
+    and gbar_w bit for bit, and the pose_inv cotangent is exactly 0."""
+    vol, _depth, gd, gw = _adjoint_inputs(dev, (70, 37, 13), seed=3)
+    cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
+    for empty in (torch.zeros((H, W)), torch.full((H, W), float("nan"))):
+        dd, dw, dp = integrate.pose_grad_cuda(vol, empty.to(dev), cam, gd, gw)
+        torch.cuda.synchronize()
+        assert torch.equal(dd.view(torch.int32), gd.view(torch.int32))
+        assert torch.equal(dw.view(torch.int32), gw.view(torch.int32))
+        assert torch.equal(dp.view(torch.int32),
+                           torch.zeros_like(dp).view(torch.int32))
+
+
+@pytest.mark.parametrize("image_term", [False, True])
+@pytest.mark.parametrize("size", [(64, 48, 40), (70, 37, 13)])
+def test_pose_grad_kernel_sums_bricks_in_the_model_order(dev, size,
+                                                         image_term):
+    """The kernel's pose_inv cotangent equals, bit for bit, the column sums
+    of ``pose_grad_partials`` (the kernel's per-brick reduction order in
+    plain PyTorch) taken by the same ``torch.sum`` on the card: the
+    partials do not depend on the order in which blocks take bricks."""
+    vol, depth, gd, gw = _adjoint_inputs(dev, size, seed=11)
+    cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
+    _dd, _dw, dp = integrate.pose_grad_cuda(vol, depth, cam, gd, gw,
+                                            image_term=image_term)
+    partials = integrate.pose_grad_partials(vol, depth, cam, gd,
+                                            image_term=image_term)
+    sums = partials.sum(dim=0).to(torch.float32).reshape(3, 4)
+    torch.cuda.synchronize()
+    assert float(sums.abs().max()) > 0
+    assert torch.equal(dp[:3].view(torch.int32), sums.view(torch.int32))
 
 
 def test_pose_grad_kernel_gates_at_slivers(dev):
@@ -918,6 +953,80 @@ def test_brick_integrate_matches_twin(dev, size, at, target, roll, cap_weight):
     else:
         assert float(vol.weight.max()) >= 2.0
         assert not cap_weight or float(vol.weight.max()) == 2.0
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize(
+    "size,at,target,roll",
+    [
+        ((33, 50, 21), [300.0, 200.0, -700.0], [0.0, 0.0, 1000.0], 0.0),
+        ((64, 48, 40), [100.0, -50.0, 900.0], [400.0, 200.0, 2000.0], 0.0),
+        ((64, 48, 40), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 1.2),
+        ((64, 48, 40), [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0], 0.72),
+        ((45, 130, 3), [0.0, 0.0, -500.0], [0.0, 0.0, 1000.0], 0.0),
+        ((64, 48, 40), [0.0, 0.0, -500.0], [0.0, 0.0, -2000.0], 0.0),
+    ],
+    ids=["odd", "inside", "roll", "half-roll", "thin", "away"],
+)
+def test_fast_brick_integrate_matches_twin(dev, size, at, target, roll,
+                                           cap_weight):
+    """The depth-only fast kernel (the brick walk in the decimated
+    convention) against ``ops.integrate.integrate_fast`` over three frames
+    from moving poses, max_weight 2: tsdf, weight and miss counts equal,
+    one counted launch a frame. A 1.2 rad roll makes every column steeper
+    than |beta| = 1 (every in-image voxel a miss, nothing updated), 0.72
+    rad some of them."""
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      max_weight=2.0, device=dev)
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())
+    misses = []
+    for i in range(3):
+        cam = _rolled(_camera(dev, np.add(at, [30.0 * i, -20.0 * i, 15.0 * i]),
+                              target), roll)
+        depth = torch.from_numpy(_frame_depth(i)).to(dev)
+        ref, want_miss = integrate_fast_plain(ref, depth, cam,
+                                              cap_weight=cap_weight)
+        before = integrate.KERNEL_FAST.launches
+        vol, miss = integrate.integrate_fast_cuda(vol, depth, cam,
+                                                  cap_weight=cap_weight)
+        assert integrate.KERNEL_FAST.launches == before + 1
+        assert int(miss) == int(want_miss)
+        misses.append(int(miss))
+    torch.cuda.synchronize()
+    assert torch.equal(vol.weight, ref.weight)
+    assert torch.equal(vol.tsdf, ref.tsdf)
+    if roll > 1.0:
+        assert min(misses) > 0 and float(vol.weight.sum()) == 0.0
+    elif roll > 0.5:
+        assert min(misses) > 0 and float(vol.weight.sum()) > 0.0
+    elif target[2] < at[2]:
+        assert float(vol.weight.sum()) == 0.0
+    else:
+        assert misses == [0, 0, 0]
+        assert float(vol.weight.max()) >= 2.0
+        assert not cap_weight or float(vol.weight.max()) == 2.0
+
+
+@pytest.mark.parametrize("roll", [0.0, 1.2])
+def test_fast_brick_integrate_zero_depth_leaves_the_volume(dev, roll):
+    """A frame with no depth after a real one: tsdf and weight keep every
+    bit, and the miss count equals the twin's (a rolled camera's steep
+    columns are counted whatever the depth)."""
+    vol = make_volume((33, 50, 21), 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      device=dev)
+    cam = _camera(dev, [300.0, 200.0, -700.0], [0.0, 0.0, 1000.0])
+    vol, _ = integrate.integrate_fast_cuda(
+        vol, torch.from_numpy(_frame_depth(0)).to(dev), cam)
+    tsdf, weight = vol.tsdf.clone(), vol.weight.clone()
+    assert float(weight.sum()) > 0
+    cam = _rolled(cam, roll)
+    for empty in (torch.zeros((H, W)), torch.full((H, W), float("nan"))):
+        _, want_miss = integrate_fast_plain(vol, empty.to(dev), cam)
+        vol, miss = integrate.integrate_fast_cuda(vol, empty.to(dev), cam)
+        assert int(miss) == int(want_miss)
+        assert (int(miss) > 0) == (roll > 0)
+    torch.cuda.synchronize()
+    assert torch.equal(vol.tsdf, tsdf) and torch.equal(vol.weight, weight)
 
 
 def test_brick_integrate_zero_depth_leaves_the_volume(dev):

@@ -138,6 +138,64 @@ def test_raycast_matches_pallas_slab_sweep():
     assert np.median(dot) > 0.999
 
 
+def test_raycast_with_nan_voxels_matches_jax():
+    """NaN voxels on the rays' path (a wall at 1500 mm, NaN at [10, 16, 16]
+    and in the block [5:7, 10:20, 10:20]): a sample whose taps read a NaN
+    is NaN and its ray misses, as in JAX, where the port's twin used to
+    index with the NaN lower corner and raise. Hit masks equal; vertices
+    within the median gate of ``_compare``."""
+    jvol = tsdf_tpu.make_volume((32,) * 3, 2000.0,
+                                offset=(-1000.0, -1000.0, 0.0))
+    jvol = jax_fixtures.wall_tsdf(jvol, 1500.0)
+    tsdf = np.asarray(jvol.tsdf).copy()
+    tsdf[10, 16, 16] = np.nan
+    tsdf[5:7, 10:20, 10:20] = np.nan
+    jvol = jvol.replace(tsdf=jnp.asarray(tsdf))
+    jcam = _jcam([0.0, 0.0, -400.0], [0.0, 0.0, 1000.0])
+    vj, _ = jax_raycast(jvol, jcam, width=W, height=H, max_steps=300)
+    vt, _ = raycast(_to_port(jvol), _cam_to_port(jcam), W, H, max_steps=300)
+    vj, vt = np.asarray(vj), vt.numpy()
+    hit_j = np.isfinite(vj).all(-1)
+    np.testing.assert_array_equal(np.isfinite(vt).all(-1), hit_j)
+    assert 0.1 < hit_j.mean() < 0.9  # the NaN voxels stop some rays
+    _compare(vt, vj, min_agree=1.0)
+
+
+@pytest.mark.parametrize("fn", ["sample", "weights_and_indices"])
+def test_trilinear_nan_point_stays_in_the_grid(fn):
+    """A NaN point's taps are clamped from below as well as above: the
+    sample is NaN (its weights NaN) and every index lies in the grid, as in
+    JAX; the finite points are untouched by the clamp."""
+    from tsdf_tpu.ops.trilinear import (
+        trilinear_weights_and_indices as jax_weights,
+    )
+    from tsdf_tpu_torch.ops.trilinear import trilinear_weights_and_indices
+
+    rng = np.random.default_rng(2)
+    values = rng.normal(size=(7, 9, 11)).astype(np.float32)
+    vs = np.array([10.0, 12.0, 9.0], np.float32)
+    pts = rng.uniform(-20.0, 130.0, (64, 3)).astype(np.float32)
+    pts[::5, rng.integers(0, 3)] = np.nan
+    nan = np.isnan(pts).any(-1)
+    if fn == "sample":
+        got = trilinear_sample(torch.from_numpy(values), torch.from_numpy(pts),
+                               torch.from_numpy(vs)).numpy()
+        want = np.asarray(jax_trilinear(jnp.asarray(values), jnp.asarray(pts),
+                                        jnp.asarray(vs)))
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        np.testing.assert_allclose(got[~nan], want[~nan], rtol=0, atol=1e-4)
+        return
+    lin, wts = trilinear_weights_and_indices(
+        values.shape, torch.from_numpy(pts), torch.from_numpy(vs))
+    jlin, jwts = jax_weights(values.shape, jnp.asarray(pts), jnp.asarray(vs))
+    lin, wts = lin.numpy(), wts.numpy()
+    assert lin.min() >= 0 and lin.max() < values.size
+    np.testing.assert_array_equal(np.isnan(wts).all(-1), nan)
+    np.testing.assert_array_equal(lin[~nan], np.asarray(jlin)[~nan])
+    np.testing.assert_allclose(wts[~nan], np.asarray(jwts)[~nan], rtol=0,
+                               atol=1e-6)
+
+
 def test_render_to_depth_image_matches_jax():
     from tsdf_tpu.ops.raycast import render_to_depth_image as jax_render
 

@@ -1,7 +1,10 @@
 // The brick walk of the rigid TSDF integrations for Hopper (sm_90a), one
 // kernel template over (fast, colour), instantiated by integrate.cu (depth,
-// each voxel's own pixel) and integrate_color.cu (depth + colour: each
-// voxel's own pixel, and the decimated line convention, "fast").
+// each voxel's own pixel), integrate_fast.cu (depth, the decimated line
+// convention, "fast") and integrate_color.cu (depth + colour, both
+// conventions); its pre-passes and its cull also serve the pose adjoint of
+// integrate_pose_grad.cu, whose gated voxels are the exact integrate's
+// updated ones.
 //
 // What bounds these kernels on this card. Bytes set the floor: tsdf and
 // weight are 8 B of reads and 8 B of writes per updated voxel (0.13 ms a
@@ -174,7 +177,8 @@ __device__ __forceinline__ bool brick_culled(const float* __restrict__ p,
 // Pre-pass 2: one thread a brick, b = (bz * nby + by) * nbx + bx; the live
 // ones are appended to the list, one atomicAdd a warp. The order of the
 // list varies from run to run; the bricks are independent, so the volume
-// does not. In fast mode a steep column keeps every brick.
+// does not (the pose adjoint keeps its sums by brick id for the same
+// reason). In fast mode a steep column keeps every brick.
 template <bool FAST>
 __global__ void __launch_bounds__(kMaxThreads)
 brick_cull_kernel(float* __restrict__ params, int nbx, int nby, int nbz,
@@ -360,10 +364,10 @@ int launch(float* tsdf, float* weight, const Frame& f, void* lines,
     if (sz > 65535) return (int)cudaErrorInvalidConfiguration;
     const int threads = sx >= kMaxThreads ? kMaxThreads : ((sx + 31) / 32) * 32;
     const int y_pad = ((sy + 127) / 128) * 128;
-    tsdf_variants::fit_lines_kernel<true>
-        <<<dim3((sx + threads - 1) / threads, sz), threads, 0, st>>>(
-            (float2*)lines, scratch, sx, sz, (float)y_pad - 0.5f,
-            (unsigned*)scratch + kSteep);
+    const dim3 grid((sx + threads - 1) / threads, sz);
+    tsdf_variants::fit_lines_kernel<<<grid, threads, 0, st>>>(
+        (float2*)lines, scratch, sx, sz, (float)y_pad - 0.5f,
+        (unsigned*)scratch + kSteep);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }

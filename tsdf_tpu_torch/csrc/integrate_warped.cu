@@ -16,8 +16,8 @@
 // What bounds it on this card: bytes set the floor (12 B of centre per
 // voxel, 8 B of tsdf and weight read and 8 B written per updated voxel; the
 // 1.2 MB depth image stays in L2), and as for the rigid variants the
-// projection every thread does costs more than the bytes. The design is
-// the shared template's (integrate_variants.cuh): x-fastest threads on a
+// projection every thread does costs more than the bytes. The kernel and
+// its design are in integrate_variants.cuh: x-fastest threads on a
 // 3-D launch grid, so a warp's centres are one 384-byte run and its
 // tsdf/weight accesses 128-byte runs; voxels that fail a gate touch no
 // volume memory; the volume is updated in place.
@@ -34,9 +34,9 @@ extern "C" int tsdf_integrate_warped(void* tsdf, void* weight,
                                      const void* params, int sx, int sy,
                                      int sz, int width, int height,
                                      int cap_weight, void* stream) {
-  return tsdf_variants::launch<false, false, true>(
-      tsdf, weight, nullptr, depth, nullptr, nullptr, nullptr, params, sx, sy,
-      sz, width, height, cap_weight, stream, deform);
+  return tsdf_variants::launch_warped<false>(
+      tsdf, weight, nullptr, deform, depth, nullptr, params, sx, sy, sz,
+      width, height, cap_weight, stream);
 }
 
 // color: (sz, sy, sx, 3) u8, updated in place; rgb: (H, W, 3) u8.
@@ -46,7 +46,7 @@ extern "C" int tsdf_integrate_warped_color(void* tsdf, void* weight,
                                            const void* params, int sx, int sy,
                                            int sz, int width, int height,
                                            int cap_weight, void* stream) {
-  return tsdf_variants::launch<false, true, true>(
-      tsdf, weight, color, depth, rgb, nullptr, nullptr, params, sx, sy, sz,
-      width, height, cap_weight, stream, deform);
+  return tsdf_variants::launch_warped<true>(
+      tsdf, weight, color, deform, depth, rgb, params, sx, sy, sz, width,
+      height, cap_weight, stream);
 }

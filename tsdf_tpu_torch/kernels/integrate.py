@@ -13,9 +13,9 @@ decimated line convention, ``ops.integrate.integrate_fast``) and
 ``integrate_color_cuda`` replaces ``integrate_color_pallas`` in all three
 modes; both return ``(vol, miss)`` like the JAX functions, with the miss
 count left on the device. These three are the rigid path and refuse a
-volume with a deformation field, as the JAX functions do. The colour
-kernels walk the same bricks as ``integrate_cuda``'s (``brick_cull`` with
-``fast`` is their test in the decimated convention).
+volume with a deformation field, as the JAX functions do. The fast and
+the colour kernels walk the same bricks as ``integrate_cuda``'s
+(``brick_cull`` with ``fast`` is the test in the decimated convention).
 
 ``integrate_warped_cuda`` replaces ``integrate_warped_pallas``: the same
 update at the deformed centres ``vol.deform``. One thread per voxel reads
@@ -24,7 +24,10 @@ count and no miss mask to return, and nothing to top up.
 
 ``pose_grad_cuda`` (``csrc/integrate_pose_grad.cu``) replaces
 ``_pose_grad_pallas``: the adjoint of the exact rigid integrate, the
-volume cotangents and the pose_inv cotangent. ``integrate_pose`` is the
+volume cotangents and the pose_inv cotangent. Its kernel walks the same
+bricks: a culled brick is a copy of the cotangents, and each live brick
+sums its pose terms into its own row of partials (``pose_grad_partials``
+is that order in plain PyTorch). ``integrate_pose`` is the
 differentiable fusion built on it, a ``torch.autograd.Function`` whose
 forward is ``integrate_cuda`` (or ``integrate_fast_cuda``) and whose
 backward is one ``pose_grad_cuda`` launch.
@@ -42,7 +45,7 @@ from ..ops.integrate import check_frame, check_rigid
 from ..ops.integrate import integrate as integrate_plain
 from ..ops.integrate import fit_column_lines
 from ..ops.integrate import integrate_fast as integrate_fast_plain
-from ..ops.integrate_diff import depth_image_gradients, integrate_pose_grad
+from ..ops.integrate_diff import integrate_pose_grad, pose_grad_terms
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
 from ._build import Kernel, check_same_device, check_tensor, stream_handle
@@ -86,13 +89,12 @@ KERNEL_WARPED_COLOR = Kernel(
 
 KERNEL_POSE_GRAD = Kernel(
     "tsdf_integrate_pose_grad",
-    # tsdf, weight, gbar_d, gbar_w, depth, gx, gy, dd, dw, partials,
-    # n_blocks, params, sx, sy, sz, width, height, cap, image_term, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+    # tsdf, weight, gbar_d, gbar_w, depth, dd, dw, partials, n_bricks,
+    # params, sx, sy, sz, width, height, cap, image_term, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
 )
-# the pose-adjoint kernel's block tile (x, y) and its number of sums
-POSE_GRAD_TILE = (32, 64)
+# the pose adjoint's sums a brick: the rows R_wc | t_wc of dL/dpose_inv
 POSE_GRAD_SUMS = 12
 
 MODES = ("exact", "line", "fast")
@@ -207,6 +209,51 @@ def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera,
     return culled
 
 
+def pose_grad_partials(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    gbar_d: torch.Tensor,
+    image_term: bool = True,
+) -> torch.Tensor:
+    """The pose-adjoint kernel's partial sums in plain PyTorch: a (bricks,
+    12) float64 tensor whose row b holds brick b's sums of the 12 terms of
+    ``ops.integrate_diff.pose_grad_terms`` (bricks of ``BRICK`` voxels,
+    b = (bz * nby + by) * nbx + bx), and whose column sums are the rows
+    R_wc | t_wc of the pose_inv cotangent.
+
+    Each row is added up in the kernel's order, so that it does not depend
+    on the order in which the kernel's blocks take the bricks: a thread's
+    strip of 8 voxels in z from 0.0, the 32 strips along x by the warp's
+    tree (lane i adds lane i + 16, then i + 8, ...), the 4 warps
+    along y from 0.0. A term outside the volume or off the gates is 0 and
+    changes no sum, so a brick the cull skips (its row written as zero by
+    the kernel) holds zero here too.
+    """
+    sz, sy, sx = vol.tsdf.shape
+    nb = brick_grid(vol.tsdf.shape)
+    bz, by, bx = BRICK
+    cols = []
+    for term in pose_grad_terms(vol, depth, camera, gbar_d, image_term):
+        t = torch.zeros((nb[0] * bz, nb[1] * by, nb[2] * bx),
+                        dtype=torch.float64, device=vol.tsdf.device)
+        t[:sz, :sy, :sx] = term.to(torch.float64)
+        t = t.reshape(nb[0], bz, nb[1], by, nb[2], bx)
+        acc = torch.zeros_like(t[:, 0])
+        for k in range(bz):  # each thread's strip
+            acc = acc + t[:, k]
+        h = bx // 2
+        while h:  # the tree over the warp's x
+            acc = acc[..., :h] + acc[..., h:2 * h]
+            h //= 2
+        acc = acc[..., 0]
+        row = torch.zeros_like(acc[:, :, 0])
+        for r in range(by):  # the block's warps
+            row = row + acc[:, :, r]
+        cols.append(row.reshape(-1))
+    return torch.stack(cols, dim=1)
+
+
 def _brick_params(vol: TSDFVolume, camera: Camera) -> torch.Tensor:
     """``kernel_params`` with the brick walk's zeroed scratch after them:
     the largest depth, the count of live bricks, the steep-column flag and
@@ -319,6 +366,10 @@ def integrate_fast_cuda(
 
     On CUDA tensors this launches the kernel; on CPU tensors it runs the
     plain twin. Arguments as ``integrate_cuda``.
+
+    The kernel walks the bricks ``brick_cull(..., fast=True)`` keeps (all
+    of them when a column is steeper than |beta| = 1), as the colour-fast
+    kernel does.
     """
     check_rigid(vol, "integrate_fast_cuda")
     dev = _check_frame(vol, depth, camera)
@@ -328,7 +379,7 @@ def integrate_fast_cuda(
         )
         return _copy_back(vol, out), miss
 
-    params = kernel_params(vol, camera)
+    params = _brick_params(vol, camera)
     lines, miss = _fast_scratch(vol)
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
@@ -481,10 +532,12 @@ def pose_grad_cuda(
     cotangents of tsdf_in and weight_in and the (4, 4) cotangent of
     ``camera.pose_inv`` (rows R_wc | t_wc, bottom row zero).
 
-    On CUDA tensors this launches the kernel (the depth gradient images
-    are plain torch on the card, as they are plain XLA in the JAX
-    package) and sums its (blocks, 12) float64 partials in one fixed-order
-    ``torch.sum``; on CPU tensors it runs the plain twin
+    On CUDA tensors this launches the kernel (which takes the depth
+    gradients of ``ops.integrate_diff.depth_image_gradients`` at the pixels
+    it needs, where the JAX package computes the images in plain XLA) and
+    sums its (bricks, 12) float64 partials, one row a brick
+    (``pose_grad_partials``), in one fixed-order ``torch.sum``; on CPU
+    tensors it runs the plain twin
     ``ops.integrate_diff.integrate_pose_grad``. Arguments as the twin's;
     ``vol`` is the volume the frame was fused into.
     """
@@ -500,23 +553,21 @@ def pose_grad_cuda(
             image_term=image_term,
         )
 
-    gx, gy = depth_image_gradients(depth)
-    params = kernel_params(vol, camera)
+    params = _brick_params(vol, camera)
     sz, sy, sx = shape
     h, w = depth.shape
-    tx, ty = POSE_GRAD_TILE
-    n_blocks = -(-sx // tx) * -(-sy // ty) * sz
+    nb = brick_grid(shape)
+    n_bricks = nb[0] * nb[1] * nb[2]
     partials = torch.empty(
-        (n_blocks, POSE_GRAD_SUMS), dtype=torch.float64, device=dev
+        (n_bricks, POSE_GRAD_SUMS), dtype=torch.float64, device=dev
     )
     dd = torch.empty_like(vol.tsdf)
     dw = torch.empty_like(vol.weight)
     with torch.cuda.device(dev):
         KERNEL_POSE_GRAD(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), gbar_d.data_ptr(),
-            gbar_w.data_ptr(), depth.data_ptr(), gx.data_ptr(),
-            gy.data_ptr(), dd.data_ptr(), dw.data_ptr(), partials.data_ptr(),
-            n_blocks, params.data_ptr(), sx, sy, sz, w, h,
+            gbar_w.data_ptr(), depth.data_ptr(), dd.data_ptr(), dw.data_ptr(),
+            partials.data_ptr(), n_bricks, params.data_ptr(), sx, sy, sz, w, h,
             int(bool(cap_weight)), int(bool(image_term)), stream_handle(dev),
         )
     sums = partials.sum(dim=0).to(torch.float32)

@@ -129,6 +129,56 @@ def pose_gradient_lax(
     return torch.stack(grads)
 
 
+def _camera_point_cotangent(vol, camera, frame, gbar_d, image_term):
+    """dL/dx_c per voxel, (dxc, dyc, dzc): zero where the voxel is not
+    updated or the clamp min(sdf, trunc) is flat."""
+    _centre, (xc, yc, zc), gxv, gyv, sdf, update = frame
+    new_w = vol.weight + 1.0
+    gate = update & (sdf < vol.truncation_distance)
+    coef = torch.where(gate, gbar_d / new_w, 0.0)
+    if not image_term:
+        return torch.zeros_like(coef), torch.zeros_like(coef), -coef
+    k = camera.k
+    fx, fy = k[0, 0], k[1, 1]
+    zs = torch.where(zc > 0, zc, 1.0)
+    zc2 = torch.where(zc > 0, zc * zc, 1.0)
+    dxc = torch.where(gate, coef * gxv * fx / zs, 0.0)
+    dyc = torch.where(gate, coef * gyv * fy / zs, 0.0)
+    dzc = torch.where(
+        gate,
+        coef * (-gxv * fx * xc / zc2 - gyv * fy * yc / zc2 - 1.0),
+        0.0,
+    )
+    return dxc, dyc, dzc
+
+
+def _terms(dxc, dyc, dzc, centre):
+    """dL/dR_wc[i, j] = sum dL/dx_c[i] * x_w[j], dL/dt_wc[i] = sum
+    dL/dx_c[i]: the 12 float32 terms per voxel, in the row order of the
+    pose_inv cotangent's R_wc | t_wc, one at a time."""
+    for dci in (dxc, dyc, dzc):
+        for c in (*centre, None):
+            yield dci if c is None else dci * c
+
+
+def pose_grad_terms(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    gbar_d: torch.Tensor,
+    image_term: bool = True,
+):
+    """The 12 float32 terms per voxel whose float64 sums are the rows R_wc |
+    t_wc of ``integrate_pose_grad``'s pose_inv cotangent, one (Z, Y, X) or
+    broadcastable tensor at a time, in row order (the pose-adjoint kernel
+    adds the same float32 products)."""
+    frame = sample_frame(depth, vol, camera)
+    yield from _terms(
+        *_camera_point_cotangent(vol, camera, frame, gbar_d, image_term),
+        frame[0],
+    )
+
+
 def integrate_pose_grad(
     vol: TSDFVolume,
     depth: torch.Tensor,
@@ -156,39 +206,15 @@ def integrate_pose_grad(
     is zero). Its 12 sums are taken in float64 over float32 terms.
     """
     check_rigid(vol, "integrate_pose_grad")
-    (wx, wy, wz), (xc, yc, zc), gxv, gyv, sdf, update = sample_frame(
-        depth, vol, camera
-    )
+    frame = sample_frame(depth, vol, camera)
+    centre, _cam, _gxv, _gyv, sdf, update = frame
     trunc = vol.truncation_distance
     d, w = vol.tsdf, vol.weight
     new_w = w + 1.0
 
-    # dL/dx_c per voxel; zero where the voxel is not updated or the clamp
-    # min(sdf, trunc) is flat
-    gate = update & (sdf < trunc)
-    coef = torch.where(gate, gbar_d / new_w, 0.0)
-    if image_term:
-        k = camera.k
-        fx, fy = k[0, 0], k[1, 1]
-        zs = torch.where(zc > 0, zc, 1.0)
-        zc2 = torch.where(zc > 0, zc * zc, 1.0)
-        dxc = torch.where(gate, coef * gxv * fx / zs, 0.0)
-        dyc = torch.where(gate, coef * gyv * fy / zs, 0.0)
-        dzc = torch.where(
-            gate,
-            coef * (-gxv * fx * xc / zc2 - gyv * fy * yc / zc2 - 1.0),
-            0.0,
-        )
-    else:
-        dxc = torch.zeros_like(coef)
-        dyc = torch.zeros_like(coef)
-        dzc = -coef
-    # dL/dR_wc[i, j] = sum dL/dx_c[i] * x_w[j], dL/dt_wc[i] = sum dL/dx_c[i]
-    sums = [
-        (dci if c is None else dci * c).to(torch.float64).sum()
-        for dci in (dxc, dyc, dzc)
-        for c in (wx, wy, wz, None)
-    ]
+    cotangent = _camera_point_cotangent(vol, camera, frame, gbar_d,
+                                        image_term)
+    sums = [t.to(torch.float64).sum() for t in _terms(*cotangent, centre)]
     dpinv = torch.cat([
         torch.stack(sums).to(_F32).reshape(3, 4),
         torch.zeros((1, 4), dtype=_F32, device=d.device),

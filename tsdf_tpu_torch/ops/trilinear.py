@@ -7,7 +7,8 @@ reference's, exactly:
   * negative coords clamp to 0;
   * the lower cell index clamps to 0 while u, v, w are computed against
     the *clamped* lower centre, so border samples extrapolate linearly;
-  * out-of-range taps clamp to the border voxel.
+  * out-of-range taps clamp to the border voxel (from below too: a NaN
+    point's taps stay in the grid, and it samples NaN as in JAX).
 
 The raycast kernel (``csrc/raycast.cu``) evaluates the same expressions
 in the same order.
@@ -48,9 +49,11 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     uvw = g - lower
     u, v, w = uvw[..., 0], uvw[..., 1], uvw[..., 2]
     lx, ly, lz = lower.to(torch.int64).unbind(-1)
-    ixs = [torch.clamp(lx + d, max=sx - 1) for d in (0, 1)]
-    iys = [torch.clamp(ly + d, max=sy - 1) for d in (0, 1)]
-    izs = [torch.clamp(lz + d, max=sz - 1) for d in (0, 1)]
+    # a NaN point's lower corner casts to a huge negative index: clamped
+    # from below too, its taps stay in the grid and its sample is NaN
+    ixs = [torch.clamp(lx + d, 0, sx - 1) for d in (0, 1)]
+    iys = [torch.clamp(ly + d, 0, sy - 1) for d in (0, 1)]
+    izs = [torch.clamp(lz + d, 0, sz - 1) for d in (0, 1)]
 
     flat = values.reshape(-1)
 
@@ -108,11 +111,11 @@ def trilinear_weights_and_indices(values_shape, points, voxel_size):
 
     lins, wts = [], []
     for dx in (0, 1):
-        ix = torch.clamp(lx + dx, max=sx - 1)
+        ix = torch.clamp(lx + dx, 0, sx - 1)
         for dy in (0, 1):
-            iy = torch.clamp(ly + dy, max=sy - 1)
+            iy = torch.clamp(ly + dy, 0, sy - 1)
             for dz in (0, 1):
-                iz = torch.clamp(lz + dz, max=sz - 1)
+                iz = torch.clamp(lz + dz, 0, sz - 1)
                 lins.append((iz * sy + iy) * sx + ix)
                 wts.append(
                     (u if dx else 1 - u)
