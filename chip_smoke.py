@@ -21,7 +21,11 @@ Phases (any failed check exits non-zero; nothing is caught):
      analytic scene and on the volume the 20-frame fuse leaves, hit masks
      and vertices bit-equal, with the share of samples in uniform bricks
      and a render of no step; the bilateral filter on a noisy frame with
-     holes, float32 and uint16; the lane gather on the recorded calls of
+     holes, float32 and uint16 at radius 5, float32 at radius 3 and at
+     radius 60 (the runtime-radius instance, above 48 KB of shared
+     memory) and on a frame with NaN, +inf, -inf and negative depths, with
+     each instance's registers and launch plan and the issue-rate floor
+     beside the bound; the lane gather on the recorded calls of
      a dense 512^3 and of a masked 255^3 extraction and at the ICP
      association's shapes on all three pyramid levels, each with the
      launch it took; the
@@ -148,6 +152,7 @@ ICP_VERB_MOTION = ((12.0, -8.0, 10.0), 0.01)
 ICP_VERB_TRANS_MM = PHYSICAL / SIZE  # one voxel
 ICP_VERB_ROT_RAD = 3e-3
 BILATERAL_OTHER_SIGMAS = (35.0, 1.7)  # radius 3; the default pair gives 5
+BILATERAL_WIDE_SIGMA_SPACE = 40.0  # radius 60: above 48 KB of shared memory
 # colour: the render from the first pose against the analytic colour, in
 # levels of 255 over the pixels the render hit (mean, and a cap on the
 # share of pixels further off than 16 levels: silhouettes, where voxels
@@ -268,13 +273,13 @@ def parent_kernels(*kernels):
             k._fn = fn
 
 
-def parent_ms(kernels, fn, reps: int) -> float | None:
+def parent_ms(kernels, fn, reps: int, inner: int = 1) -> float | None:
     """``median_ms(fn)`` with ``kernels`` on the parent's entry points, or
     None without ``--parent``."""
     if PARENT_LIB is None:
         return None
     with parent_kernels(*kernels):
-        return median_ms(fn, reps=reps)
+        return median_ms(fn, reps=reps, inner=inner)
 
 
 def ms_text(ms: float | None) -> str:
@@ -282,14 +287,16 @@ def ms_text(ms: float | None) -> str:
     return "not run" if ms is None else f"{ms:.4f}"
 
 
-def parent_in_turns(kernels, fn, reps: int, ms: float, what: str):
+def parent_in_turns(kernels, fn, reps: int, ms: float, what: str,
+                    inner: int = 1):
     """With ``--parent``: the parent's time of ``fn``, then this tree's and
-    the parent's again, logged beside ``ms`` (this tree's, just taken);
-    returns the parent's first time, or None without ``--parent``."""
-    parent = parent_ms(kernels, fn, reps)
+    the parent's again, logged beside ``ms`` (this tree's, just taken with
+    the same ``reps`` and ``inner``); returns the parent's first time, or
+    None without ``--parent``."""
+    parent = parent_ms(kernels, fn, reps, inner)
     if parent is not None:
-        ms2 = median_ms(fn, reps=reps)
-        parent2 = parent_ms(kernels, fn, reps)
+        ms2 = median_ms(fn, reps=reps, inner=inner)
+        parent2 = parent_ms(kernels, fn, reps, inner)
         log(f"{what}, in turns: kernel {ms:.4f}, parent {parent:.4f}, kernel "
             f"{ms2:.4f}, parent {parent2:.4f} ms")
     return parent
@@ -917,11 +924,37 @@ def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
     return out
 
 
+def loaded_sm_clock_mhz(fn, seconds: float = 1.5) -> float:
+    """The median SM clock nvidia-smi reads while ``fn`` runs back to back
+    on the card for ``seconds``."""
+    poll = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(500):
+            fn()
+        torch.cuda.synchronize()
+    poll.terminate()
+    readings = [float(v) for v in poll.communicate(timeout=30)[0].split()]
+    # the first readings may predate the load
+    return float(np.median(readings[len(readings) // 3:]))
+
+
 def compare_bilateral(dev, depth: torch.Tensor) -> dict:
     """The bilateral kernel against its twin on a noisy frame with holes:
-    float32 and uint16 at the default sigmas, float32 at another pair.
-    Every comparison must be exact."""
-    from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
+    float32 and uint16 at the default sigmas (radius 5), float32 at
+    another pair (radius 3), both compiled instances; float32 at
+    sigma_space 40 (radius 60: the runtime-radius instance, a block above
+    48 KB of shared memory); the float32 frame with NaN, +inf, -inf and
+    negative depths. Every comparison must be exact. With ``--parent``, the
+    parent's kernel in turns on the radius-5 and radius-3 cases. Logs each
+    instance's registers and launch plan, and beside the bound by the
+    published peak the issue-rate floor: the instructions a tap of the
+    radius-5 body (SASS) over the card's rate of issuing them."""
+    from tsdf_tpu_torch.kernels import _build
+    from tsdf_tpu_torch.kernels.bilateral import (
+        KERNEL, bilateral_filter_cuda, launch_plan)
     from tsdf_tpu_torch.ops.bilateral import bilateral_filter, filter_radius
     from tsdf_tpu_torch.utils.fixtures import kinect_noise
 
@@ -930,11 +963,17 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
     holes = float((noisy == 0).float().mean())
     check(0.001 < holes < 0.5, f"noisy frame has {holes:.4f} holes")
     as_u16 = torch.round(noisy).to(torch.uint16)
+    special = noisy.clone()
+    for v in (float("nan"), float("inf"), -float("inf"), -250.0):
+        special[torch.rand(noisy.shape, generator=gen, device=dev) < 0.001] = v
+    other = "f32, sigmas %g/%g" % BILATERAL_OTHER_SIGMAS
+    wide = "f32, sigma_space %g" % BILATERAL_WIDE_SIGMA_SPACE
     cases = {
         "f32": (noisy, ()),
         "u16": (as_u16, ()),
-        "f32, sigmas %g/%g" % BILATERAL_OTHER_SIGMAS:
-            (noisy, BILATERAL_OTHER_SIGMAS),
+        other: (noisy, BILATERAL_OTHER_SIGMAS),
+        wide: (noisy, (20.0, BILATERAL_WIDE_SIGMA_SPACE)),
+        "f32, NaN/inf/negative depths": (special, ()),
     }
     out = {}
     for name, (d, sigmas) in cases.items():
@@ -942,18 +981,35 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
         want = bilateral_filter(d, *sigmas)
         torch.cuda.synchronize()
         check(got.dtype == d.dtype, "bilateral dtype")
+        if d.dtype == torch.uint16:
+            equal = torch.equal(got.to(torch.int32), want.to(torch.int32))
+        else:  # NaN too: one bit pattern for every NaN result on the card
+            equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
         diff = (got.double() - want.double()).abs()
-        err = float(diff.max())
+        err = float(diff.nan_to_num(0.0).max())
+        nans = int(torch.isnan(want.float()).sum())
         ms = median_ms(
             lambda: bilateral_filter_cuda(d, *sigmas), reps=10, inner=10)
-        plain_ms = median_ms(lambda: bilateral_filter(d, *sigmas), reps=3)
-        log(f"bilateral {W}x{H} {name}: max |diff| {err:.3g} "
-            f"({int((diff > 0).sum())} pixels differ), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        check(err == 0.0, f"bilateral kernel differs from its twin ({name})")
+        plain_ms = median_ms(lambda: bilateral_filter(d, *sigmas),
+                             reps=1 if name == wide else 3)
+        plan = launch_plan(filter_radius(sigmas[1] if sigmas else 3.0),
+                           *d.shape)
+        log(f"bilateral {W}x{H} {name}: bit-equal {equal} (max |diff| "
+            f"{err:.3g}, {nans} NaN in the twin), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; instance {plan.instance or 'runtime radius'},"
+            f" {plan.block[0]}x{plan.block[1]} threads x {plan.rows} rows, "
+            f"grid {plan.grid[0]}x{plan.grid[1]}, {plan.shared_bytes} B of "
+            f"shared memory")
+        check(equal, f"bilateral kernel differs from its twin ({name})")
         check(not bool(((d == 0) & (got.to(torch.float32) != 0)).any()),
               "bilateral filled a hole")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        parent = None
+        if name in ("f32", "u16", other):
+            parent = parent_in_turns(
+                [KERNEL], lambda: bilateral_filter_cuda(d, *sigmas), 10, ms,
+                f"bilateral {name}", inner=10)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         parent_ms=parent)
     # the work the float32 default case needs: a tap counts where the
     # centre and the tap both hold data; the image is read and written once
     side = 2 * filter_radius(3.0) + 1
@@ -963,11 +1019,37 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
     pairs = int((valid * taps).sum())
     least = bound(2 * noisy.numel() * 4 + side * side * 4,
                   BILATERAL_OPS_PER_TAP * pairs)
+    # the issue-rate floor: every tap of every pixel runs the unrolled body
+    # (a tap with no data too), a warp issues one instruction for its 32
+    # threads, an SM issues 4 a clock
+    registers = kernel_registers(
+        [f"bilateral_stripI{t}Li{r}E" for r in (5, 3, 0) for t in "ft"])
+    body = sass_loop(str(_build.library_path()),
+                     str(_build.BUILD_DIR / "build.log"), "bilateral_stripIfLi5E")
+    per_tap = body["instructions_per_expf"]
+    mhz = loaded_sm_clock_mhz(lambda: bilateral_filter_cuda(noisy))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    issue_floor = (per_tap * noisy.numel() * side * side / 32
+                   / (4 * sms * mhz * 1e6) * 1e3)
     log(f"bilateral {W}x{H} f32: {pairs} valid taps of "
         f"{noisy.numel() * side * side}, bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']}; {holes:.4f} of the frame is holes")
+    log(f"bilateral instances' registers: {registers}; the radius-5 float32 "
+        f"body: {body['instructions']} SASS instructions, {body['expf']} expf")
+    log(f"bilateral issue-rate floor: {per_tap:.3f} instructions a tap x "
+        f"{noisy.numel() * side * side} taps / 32 / (4 x {sms} SMs x "
+        f"{mhz:.0f} MHz, the SM clock nvidia-smi reads under the kernel) = "
+        f"{issue_floor:.4f} ms; kernel {out['f32']['ms']:.4f} ms, "
+        f"{issue_floor / out['f32']['ms']:.3f} of the floor's rate")
     return dict(**out["f32"], **least, library_ms=None,
-                u16_ms=out["u16"]["ms"], u16_plain_ms=out["u16"]["plain_ms"])
+                issue_floor_ms=issue_floor, instructions_per_tap=per_tap,
+                sm_clock_mhz=mhz,
+                registers=registers,
+                u16_ms=out["u16"]["ms"], u16_plain_ms=out["u16"]["plain_ms"],
+                u16_parent_ms=out["u16"]["parent_ms"],
+                r3_ms=out[other]["ms"], r3_parent_ms=out[other]["parent_ms"],
+                r60_ms=out[wide]["ms"],
+                nan_inf_ms=out["f32, NaN/inf/negative depths"]["ms"])
 
 
 def fuse_argv(dev, tum: str, out_dir: str, extra=(), mesh=True, tsdf=True,
@@ -2387,7 +2469,10 @@ def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
     """The registers of ``kernel`` (from the build log of ``-Xptxas=-v``)
     and the instructions of its longest innermost loop (the longest span of
     a backward branch in ``cuobjdump -sass`` of the library that holds no
-    other such span), with the global loads among them."""
+    other such span), with the global loads among them; for a body that
+    unrolls a loop with one expf an iteration, its instructions an expf
+    (the span from the first MUFU.EX2 to the last over the expf between
+    them)."""
     import re
 
     text = open(build_log).read()
@@ -2414,8 +2499,11 @@ def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
              if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
     lo, hi = max(inner, key=lambda a: a[1] - a[0], default=(0, -1))
     span = [t for a, t in insts if lo <= a <= hi]
+    ex2 = [i for i, (_, t) in enumerate(insts) if "MUFU.EX2" in t]
+    per_expf = (ex2[-1] - ex2[0]) / (len(ex2) - 1) if len(ex2) > 2 else None
     return dict(registers=regs, instructions=len(insts), loop_instructions=len(span),
-                loop_loads=sum("LDG" in t for t in span))
+                loop_loads=sum("LDG" in t for t in span), expf=len(ex2),
+                instructions_per_expf=per_expf)
 
 
 def probe_raycast(dev, frames) -> dict:
@@ -3183,9 +3271,9 @@ def main() -> int:
     parser.add_argument(
         "--parent", metavar="DIR",
         help="also build the kernels of the checkout at DIR (the parent "
-             "commit, unpacked) and time its raycast, integrate and "
-             "pose-adjoint entry points beside this tree's on the same "
-             "inputs",
+             "commit, unpacked) and time its raycast, integrate, "
+             "pose-adjoint and bilateral entry points beside this tree's on "
+             "the same inputs",
     )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")

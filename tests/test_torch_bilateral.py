@@ -113,10 +113,12 @@ def test_host_weights_and_shared_memory_budget():
     w = spatial_weights(3.0)
     assert len(w) == 121 and w[60] == 1.0
     assert w[0] == pytest.approx(np.exp(-50.0 / 9.0), rel=1e-15)
-    # tile 32x8 with a halo of 5, then 121 weights, float32
-    assert kb.shared_bytes(5) == 4 * (42 * 18 + 121)
+    # a tile of 32x16 pixels with a halo of 5, then 121 weights, float32
+    assert kb.shared_bytes(5) == 4 * (42 * 26 + 121)
     assert kb.shared_bytes(filter_radius(3.0)) <= kb.MAX_SHARED_BYTES
-    assert kb.shared_bytes(filter_radius(40.0)) > kb.MAX_SHARED_BYTES
+    # a block opts in to 227 KB: sigma_space 40 (r = 60) fits, 80 does not
+    assert kb.shared_bytes(filter_radius(40.0)) <= kb.MAX_SHARED_BYTES
+    assert kb.shared_bytes(filter_radius(80.0)) > kb.MAX_SHARED_BYTES
 
 
 def test_wrapper_refuses_bad_input():
@@ -124,3 +126,95 @@ def test_wrapper_refuses_bad_input():
         kb.bilateral_filter_cuda(np.zeros((4, 4), np.float32))
     with pytest.raises(ValueError):
         kb.bilateral_filter_cuda(torch.zeros((4, 4), device="meta"))
+
+
+def _special(shape, seed):
+    """The noisy scene with NaN, +inf, -inf and negative depths scattered
+    over it, each on 0.3% of the pixels."""
+    d = _depth(shape, seed)
+    rng = np.random.default_rng(seed + 100)
+    for v in (np.nan, np.inf, -np.inf, -250.0):
+        d[rng.uniform(size=shape) < 0.003] = v
+    return d
+
+
+@pytest.mark.parametrize("reference", ["ops", "pallas_interpret"])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_nan_inf_and_negative_depths_match_jax(reference, seed):
+    """A NaN or infinite tap makes its window's sum NaN (tap * 0), a
+    negative one adds nothing; the port leaves NaN where JAX does."""
+    d = _special((48, 80), seed)
+    if reference == "ops":
+        want = np.asarray(jax_bilateral(jnp.asarray(d)))
+    else:
+        want = np.asarray(
+            bilateral_filter_pallas(jnp.asarray(d), interpret=True))
+    got = kb.bilateral_filter_cuda(torch.from_numpy(d)).numpy()
+    assert np.isnan(want).any() and np.isnan(want).mean() < 0.9
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(
+        got, want, rtol=0, atol=F32_ATOL_MM, equal_nan=True)
+
+
+@pytest.mark.parametrize("sigma_space", [6.0, 12.0])
+def test_radii_outside_the_compiled_set(sigma_space):
+    """r = 9 and r = 18 run the kernel's runtime-radius instance."""
+    radius = filter_radius(sigma_space)
+    assert kb.launch_plan(radius, 48, 64).instance == 0
+    d = _depth((48, 64), seed=radius)
+    want = np.asarray(jax_bilateral(jnp.asarray(d), 20.0, sigma_space))
+    got = kb.bilateral_filter_cuda(torch.from_numpy(d), 20.0, sigma_space)
+    _check(got.numpy(), want, np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 700), (481, 641), (3, 3)])
+def test_ragged_shapes(shape):
+    d = _depth(shape, seed=shape[1])
+    want = np.asarray(jax_bilateral(jnp.asarray(d)))
+    got = kb.bilateral_filter_cuda(torch.from_numpy(d)).numpy()
+    _check(got, want, np.float32)
+
+
+@pytest.mark.parametrize(
+    "radius,h,w",
+    [(5, 480, 640), (3, 480, 640), (5, 481, 641), (9, 1, 700), (60, 3, 3),
+     (2, 17, 33)],
+)
+def test_launch_plan_covers_the_image(radius, h, w):
+    plan = kb.launch_plan(radius, h, w)
+    assert plan.instance == (radius if radius in kb.COMPILED_RADII else 0)
+    # a range constant of 0 (sigma_colour infinite) runs the runtime radius
+    assert kb.launch_plan(radius, h, w, range_c=0.0).instance == 0
+    assert plan.block == (kb.TILE_W, kb.TILE_H) and plan.rows == kb.ROWS
+    gx, gy = plan.grid
+    tall = kb.TILE_H * kb.ROWS
+    assert gx * kb.TILE_W >= w > (gx - 1) * kb.TILE_W
+    assert gy * tall >= h > (gy - 1) * tall
+    assert plan.shared_bytes == kb.shared_bytes(radius) <= kb.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("sigma_space", [3.0, 1.7, 0.5])
+def test_weight_block_is_the_spatial_weights_dy_outer(sigma_space):
+    radius = filter_radius(sigma_space)
+    side = 2 * radius + 1
+    block = kb.weight_block(sigma_space, torch.device("cpu")).numpy()
+    assert block.dtype == np.float32
+    np.testing.assert_array_equal(
+        block, np.asarray(spatial_weights(sigma_space), np.float32))
+    dy, dx = np.divmod(np.arange(side * side), side)
+    direct = np.exp(-((dx - radius) ** 2 + (dy - radius) ** 2)
+                    / sigma_space ** 2)
+    np.testing.assert_allclose(block, direct.astype(np.float32), rtol=1e-6)
+
+
+def test_shared_memory_limit_is_where_the_plan_refuses():
+    """Every radius up to the largest that fits plans; the next raises."""
+    largest = max(r for r in range(1, 200)
+                  if kb.shared_bytes(r) <= kb.MAX_SHARED_BYTES)
+    assert filter_radius(40.0) <= largest < filter_radius(80.0)
+    for r in range(1, largest + 1):
+        assert kb.launch_plan(r, 480, 640).shared_bytes <= kb.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        kb.launch_plan(largest + 1, 480, 640)
+    with pytest.raises(ValueError, match="shared memory"):
+        kb.launch_plan(filter_radius(80.0), 480, 640)

@@ -29,6 +29,7 @@ import torch
 from tsdf_tpu_torch import Camera, make_volume
 from tsdf_tpu_torch.kernels import bilateral, gather, integrate, raycast
 from tsdf_tpu_torch.ops.bilateral import bilateral_filter as bilateral_plain
+from tsdf_tpu_torch.ops.bilateral import filter_radius
 from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
 from tsdf_tpu_torch.ops.integrate import integrate_fast as integrate_fast_plain
 from tsdf_tpu_torch.ops.raycast import raycast as raycast_plain
@@ -356,8 +357,9 @@ def test_bilateral_kernel_non_default_sigmas(dev, sigmas):
 
 def test_bilateral_kernel_refuses_what_it_does_not_take(dev):
     d = torch.zeros((16, 16), device=dev)
+    # sigma_space 40 (r = 60) fits once a block opts in to 227 KB; 80 does not
     with pytest.raises(ValueError, match="shared memory"):
-        bilateral.bilateral_filter_cuda(d, sigma_space=40.0)
+        bilateral.bilateral_filter_cuda(d, sigma_space=80.0)
     with pytest.raises(TypeError):
         bilateral.bilateral_filter_cuda(d.to(torch.float64))
     with pytest.raises(ValueError):
@@ -365,6 +367,59 @@ def test_bilateral_kernel_refuses_what_it_does_not_take(dev):
     before = bilateral.KERNEL.launches
     assert bilateral.bilateral_filter_cuda(d[:0]).shape == (0, 16)
     assert bilateral.KERNEL.launches == before
+
+def _bilateral_equal(got, want):
+    if got.dtype == torch.uint16:  # few CUDA ops: compare as int32
+        return torch.equal(got.to(torch.int32), want.to(torch.int32))
+    # NaN included: the card writes one NaN pattern for every NaN result
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# sigma_space 3.0 and 1.7 run the compiled radii 5 and 3; 1.0 (r = 2), 6.0
+# (r = 9) and 40.0 (r = 60, above 48 KB of shared memory) the runtime radius
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint16])
+@pytest.mark.parametrize("sigma_space", [3.0, 1.7, 1.0, 6.0, 40.0])
+def test_bilateral_kernel_every_instance(dev, sigma_space, dtype):
+    d = torch.from_numpy(_noisy_depth((120, 160), seed=9)).to(dev).to(dtype)
+    radius = filter_radius(sigma_space)
+    plan = bilateral.launch_plan(radius, *d.shape)
+    assert plan.instance == (radius if radius in bilateral.COMPILED_RADII else 0)
+    before = bilateral.KERNEL.launches
+    got = bilateral.bilateral_filter_cuda(d, 20.0, sigma_space)
+    assert bilateral.KERNEL.launches == before + 1
+    want = bilateral_plain(d, 20.0, sigma_space)
+    assert got.dtype == dtype and _bilateral_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "sigmas", [(20.0, 3.0), (20.0, 1.7), (20.0, 6.0), (float("inf"), 3.0)]
+)
+def test_bilateral_kernel_nan_inf_and_negative_depths(dev, sigmas):
+    """NaN, +inf, -inf and negative taps: NaN where the twin has NaN. An
+    infinite sigma_colour (range constant 0) runs the runtime radius."""
+    d = _noisy_depth((96, 128), seed=11)
+    rng = np.random.default_rng(12)
+    for v in (np.nan, np.inf, -np.inf, -250.0):
+        d[rng.uniform(size=d.shape) < 0.003] = v
+    d = torch.from_numpy(d).to(dev)
+    got = bilateral.bilateral_filter_cuda(d, *sigmas)
+    want = bilateral_plain(d, *sigmas)
+    assert bool(torch.isnan(want).any())
+    assert _bilateral_equal(got, want)
+
+
+@pytest.mark.parametrize("sigma_space", [3.0, 1.7, 6.0])
+@pytest.mark.parametrize(
+    "shape", [(17, 33), (15, 40), (1, 700), (481, 641), (3, 3)]
+)
+def test_bilateral_kernel_ragged_strips(dev, shape, sigma_space):
+    """Heights where a thread's strip of rows runs past the last row, and
+    widths that end inside a tile."""
+    d = torch.from_numpy(_noisy_depth(shape, seed=shape[1])).to(dev)
+    before = bilateral.KERNEL.launches
+    got = bilateral.bilateral_filter_cuda(d, 20.0, sigma_space)
+    assert bilateral.KERNEL.launches == before + 1
+    assert _bilateral_equal(got, bilateral_plain(d, 20.0, sigma_space))
 
 
 @pytest.mark.parametrize("h,w", [(120, 160), (240, 320), (37, 91)])
