@@ -35,7 +35,10 @@ Phases (any failed check exits non-zero; nothing is caught):
      integrate at 512^3 under a uniform warp and at 255^3 under the field
      real deformation updates leave; the row gather at the correspondence
      and the deform_points shapes of a real frame; the windowed lane
-     gather and its checked wrapper on coherent and wild indices; the
+     gather and its checked wrapper on coherent and wild indices (also at
+     tiles of 128 rows and a window of 8 blocks), the checked wrapper's
+     guarded fallback alone with its miss word 0 and 1, the plans and
+     registers; the
      pose adjoint at 512^3 on the second frame over the volume the first
      fused, with a seeded cotangent: dd and dw bit-equal, the pose_inv
      cotangent within 1e-6 and bit-equal with the column sums of its
@@ -43,7 +46,9 @@ Phases (any failed check exits non-zero; nothing is caught):
      culled, a frame with no depth (a copy of the cotangents) beside a
      device copy of the same bytes, the registers of its two brick
      kernels and its device time by kernel; the gather-roofline
-     probe: out equal, its G elements/s and the integrate floor it implies);
+     probe: out equal, its G elements/s, and beside its operation bound
+     the shared-memory wavefront floor of its indices and the issue-rate
+     floor of its gather loop, with the wavefronts a clock it reaches);
   3b. pose recovery at 512^3 / 640x480: the workload of
      tools/run_config4b.py (normalised steps through integrate_pose from a
      17 mm / 5.4 mrad twist, 14 steps, the best iterate kept: the gradient
@@ -95,9 +100,11 @@ JAX.
     python3 chip_smoke.py --parent DIR
 
 runs the smoke and also builds the kernels of the checkout at DIR (the
-parent commit, unpacked there) and times its raycast, integrate and
-pose-adjoint entry points (and a frame with no depth through the fast
-integrate and the adjoint) on the same inputs, in turns with this tree's;
+parent commit, unpacked there) and times its raycast, integrate,
+pose-adjoint, bilateral, windowed-gather (alone and with the checked
+wrapper's fallback, and the fallback alone) and probe entry points (and a
+frame with no depth through the fast integrate and the adjoint) on the
+same inputs, in turns with this tree's;
 the fast fuse loop and the config4b step with the parent's kernel in
 turns; and the config4b descent through the parent's adjoint, whose
 residual must stay within C4B_RESIDUAL_MM of this tree's.
@@ -2002,13 +2009,33 @@ def compare_gather_masked(dev, sf_depth, sf_flows) -> dict:
     return {f"masked_{k}": v for k, v in out.items()}
 
 
+def guarded_fallback(table, idx, only_if, out):
+    """One launch of ``lane_gather_checked``'s guarded fallback, with
+    ``only_if`` as the miss word it reads."""
+    from tsdf_tpu_torch.kernels import gather as kg
+    from tsdf_tpu_torch.kernels._build import stream_handle
+
+    s, w = table.shape
+    kg.KERNEL_IF_MISSED(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                        only_if.data_ptr(), s, idx.shape[1], w, w,
+                        stream_handle(table.device),
+                        kg.lane_gather_launch(idx.shape[1], w, w)[1])
+
+
 def compare_windowed(dev) -> dict:
     """``lane_gather_windowed_op`` against its twin (out equal, miss
-    equal) and ``lane_gather_checked`` against the full lane gather (equal,
-    with no host sync inside), on a coherent index set (miss 0) and a wild
+    equal) and ``lane_gather_checked``, the guarded fallback alone with its
+    miss word set, and ``lane_gather_op`` against the plain full gather
+    ``take_or_zero`` (equal, the checked wrapper with no host sync inside), on a coherent index set (miss 0) and a wild
     one (miss > 0), at a wide table (4096, 2048) and at the ICP/raycast
-    width (480, 640). No path of either package calls these functions."""
+    width (480, 640); at (4096, 2048) also with tiles of 128 rows and a
+    window of 8 blocks (more than a block could stage in shared memory). The
+    guarded fallback alone is timed with its miss word 0 and 1. With ``--parent``,
+    the parent's windowed kernel, checked pair and fallback in turns on the
+    same inputs. No path of either package calls these functions."""
     from tsdf_tpu_torch.kernels.gather import (
+        KERNEL_IF_MISSED,
+        KERNEL_WINDOWED,
         lane_gather_checked,
         lane_gather_op,
         lane_gather_windowed_op,
@@ -2032,8 +2059,14 @@ def compare_windowed(dev) -> dict:
         for what, idx in (("coherent", coherent), ("wild", wild)):
             got, miss = lane_gather_windowed_op(table, idx)
             want, want_miss = take_windowed(table, idx)
+            # the plain full gather: what the checked wrapper, its fallback
+            # and lane_gather_op must all give
+            want_full = take_or_zero(table, idx)
             full = lane_gather_op(table, idx)
             torch.cuda.synchronize()
+            check(torch.equal(full.view(torch.int32),
+                              want_full.view(torch.int32)),
+                  f"lane_gather_op differs from take_or_zero ({s}x{w}, {what})")
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"windowed gather differs from its twin ({s}x{w}, {what})")
             check(int(miss) == int(want_miss),
@@ -2042,7 +2075,8 @@ def compare_windowed(dev) -> dict:
             check((int(miss) == 0) == (what == "coherent"),
                   f"windowed miss {int(miss)} on the {what} indices")
             if what == "coherent":
-                check(torch.equal(got.view(torch.int32), full.view(torch.int32)),
+                check(torch.equal(got.view(torch.int32),
+                                  want_full.view(torch.int32)),
                       "windowed gather with miss 0 differs from the full gather")
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2050,9 +2084,22 @@ def compare_windowed(dev) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
-            check(torch.equal(checked.view(torch.int32), full.view(torch.int32)),
-                  f"lane_gather_checked differs from lane_gather_op ({what})")
-            checked_err = float((checked.double() - full.double()).abs().max())
+            check(torch.equal(checked.view(torch.int32),
+                              want_full.view(torch.int32)),
+                  f"lane_gather_checked differs from take_or_zero ({what})")
+            checked_err = float((checked.double() - want_full.double())
+                                .abs().max())
+            # the fallback alone, its miss word set: it rewrites every output
+            word = torch.ones(1, dtype=torch.int32, device=dev)
+            alone = torch.zeros_like(want_full)
+            guarded_fallback(table, idx, word, alone)
+            torch.cuda.synchronize()
+            check(torch.equal(alone.view(torch.int32),
+                              want_full.view(torch.int32)),
+                  f"the guarded fallback with its word set differs from "
+                  f"take_or_zero ({s}x{w}, {what})")
+            checked_err = max(checked_err, float(
+                (alone.double() - want_full.double()).abs().max()))
             times = dict(
                 ms=median_ms(lambda: lane_gather_windowed_op(table, idx),
                              reps=10, inner=4),
@@ -2062,6 +2109,13 @@ def compare_windowed(dev) -> dict:
                                   reps=10, inner=4),
                 plain_ms=median_ms(lambda: take_windowed(table, idx), reps=5),
             )
+            times["parent_ms"] = parent_in_turns(
+                [KERNEL_WINDOWED], lambda: lane_gather_windowed_op(table, idx),
+                10, times["ms"], f"windowed ({s}, {w}) {what}", inner=4)
+            times["checked_parent_ms"] = parent_in_turns(
+                [KERNEL_WINDOWED, KERNEL_IF_MISSED],
+                lambda: lane_gather_checked(table, idx), 10,
+                times["checked_ms"], f"checked ({s}, {w}) {what}", inner=4)
             in_range = (idx >= 0) & (idx < w)
             idx64 = idx.clamp(0, w - 1).to(torch.int64)
             times["library_ms"] = median_ms(
@@ -2074,29 +2128,80 @@ def compare_windowed(dev) -> dict:
             log(f"windowed lane gather ({s}, {w}) -> ({s}, {c}), {what}: out and "
                 f"miss ({int(miss)}) equal the twin's (max |diff| {err:.3g}), "
                 f"checked equals the full gather (max |diff| {checked_err:.3g}) "
-                f"with no host sync; windowed {times['ms']:.4f} ms, "
-                f"checked {times['checked_ms']:.4f} ms, lane_gather_op "
+                f"with no host sync; windowed {times['ms']:.4f} ms (parent "
+                f"{ms_text(times['parent_ms'])}), checked "
+                f"{times['checked_ms']:.4f} ms (parent "
+                f"{ms_text(times['checked_parent_ms'])}), lane_gather_op "
                 f"{times['full_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
                 f"torch.gather {times['library_ms']:.4f} ms, bound "
                 f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
             out[(w, what)] = dict(max_abs_err=err, checked_err=checked_err,
                                   miss=int(miss), **times, **least)
+            if w == 2048 and what == "coherent":
+                # the guarded fallback alone: its miss word 0 (one wave of
+                # blocks that read it) and 1 (the whole output rewritten)
+                dst = torch.empty_like(full)
+                for flag in (0, 1):
+                    word = torch.full((1,), flag, dtype=torch.int32, device=dev)
+                    fn = lambda: guarded_fallback(table, idx, word, dst)  # noqa: E731
+                    ms = median_ms(fn, reps=10, inner=4)
+                    parent = parent_in_turns([KERNEL_IF_MISSED], fn, 10, ms,
+                                             f"guarded fallback, word {flag}",
+                                             inner=4)
+                    out[("guarded", flag)] = dict(ms=ms, parent_ms=parent)
+                # tiles of 128 rows, a window of 8 blocks: 512 KB a tile,
+                # which the staging kernel refused
+                tall = dict(window_blocks=8, block_rows=128)
+                got, miss = lane_gather_windowed_op(table, idx, **tall)
+                want, want_miss = take_windowed(table, idx, **tall)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+                      and int(miss) == int(want_miss),
+                      "windowed gather at block_rows 128, window_blocks 8 "
+                      "differs from its twin")
+                ms = median_ms(lambda: lane_gather_windowed_op(table, idx, **tall),
+                               reps=10, inner=4)
+                log(f"windowed lane gather ({s}, {w}), coherent, block_rows 128, "
+                    f"window_blocks 8: out and miss ({int(miss)}) equal the "
+                    f"twin's, {ms:.4f} ms")
+                out[("tall", 0)] = dict(ms=ms, miss=int(miss))
+    registers = kernel_registers(["lane_gather_windowed_kernel",
+                                  "lane_gather_if_missed_kernel"])
+    guarded = out[("guarded", 0)], out[("guarded", 1)]
+    log(f"windowed gather and guarded fallback: registers {registers}; the "
+        f"fallback alone at (4096, 2048): word 0 "
+        f"{guarded[0]['ms']:.4f} ms (parent {ms_text(guarded[0]['parent_ms'])}), "
+        f"word 1 {guarded[1]['ms']:.4f} ms (parent "
+        f"{ms_text(guarded[1]['parent_ms'])})")
     wide, wide_wild = out[(2048, "coherent")], out[(2048, "wild")]
     icp, icp_wild = out[(W, "coherent")], out[(W, "wild")]
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     windowed = {k: wide[k] for k in keys}
-    windowed["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    windowed["max_abs_err"] = max(o["max_abs_err"] for k, o in out.items()
+                                  if "max_abs_err" in o)
     windowed.update(lane_gather_op_ms=wide["full_ms"], wild_ms=wide_wild["ms"],
                     wild_miss=wide_wild["miss"], w640_ms=icp["ms"],
                     w640_lane_gather_op_ms=icp["full_ms"],
                     w640_library_ms=icp["library_ms"],
-                    w640_bound_ms=icp["bound_ms"], w640_wild_ms=icp_wild["ms"])
+                    w640_bound_ms=icp["bound_ms"], w640_wild_ms=icp_wild["ms"],
+                    parent_ms=wide["parent_ms"],
+                    wild_parent_ms=wide_wild["parent_ms"],
+                    bs128_wb8_ms=out[("tall", 0)]["ms"],
+                    registers=registers)
     # the checked wrapper where it has to fall back: both launches
     checked = {k: wide_wild[k] for k in keys}
-    checked.update(max_abs_err=max(o["checked_err"] for o in out.values()),
+    checked.update(max_abs_err=max(o["checked_err"] for k, o in out.items()
+                                   if "checked_err" in o),
                    ms=wide_wild["checked_ms"], plain_ms=wide_wild["plain_ms"],
-                   no_miss_ms=wide["checked_ms"], w640_ms=icp_wild["checked_ms"],
-                   w640_no_miss_ms=icp["checked_ms"])
+                   parent_ms=wide_wild["checked_parent_ms"],
+                   no_miss_ms=wide["checked_ms"],
+                   no_miss_parent_ms=wide["checked_parent_ms"],
+                   w640_ms=icp_wild["checked_ms"],
+                   w640_no_miss_ms=icp["checked_ms"],
+                   fallback_word0_ms=guarded[0]["ms"],
+                   fallback_word0_parent_ms=guarded[0]["parent_ms"],
+                   fallback_word1_ms=guarded[1]["ms"],
+                   fallback_word1_parent_ms=guarded[1]["parent_ms"])
     return {"lane_gather_windowed": windowed, "lane_gather_checked": checked}
 
 
@@ -2472,7 +2577,7 @@ def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
     other such span), with the global loads among them; for a body that
     unrolls a loop with one expf an iteration, its instructions an expf
     (the span from the first MUFU.EX2 to the last over the expf between
-    them)."""
+    them); the shared-memory loads (LDS) of that loop."""
     import re
 
     text = open(build_log).read()
@@ -2502,8 +2607,10 @@ def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
     ex2 = [i for i, (_, t) in enumerate(insts) if "MUFU.EX2" in t]
     per_expf = (ex2[-1] - ex2[0]) / (len(ex2) - 1) if len(ex2) > 2 else None
     return dict(registers=regs, instructions=len(insts), loop_instructions=len(span),
-                loop_loads=sum("LDG" in t for t in span), expf=len(ex2),
-                instructions_per_expf=per_expf)
+                loop_loads=sum("LDG" in t for t in span),
+                loop_shared_loads=sum(re.search(r"(^|\s)LDS(\.|\s)", t) is not None
+                                      for t in span),
+                expf=len(ex2), instructions_per_expf=per_expf)
 
 
 def probe_raycast(dev, frames) -> dict:
@@ -2929,12 +3036,18 @@ def compare_pose_grad(dev, frames) -> dict:
 def compare_probe(dev) -> dict:
     """The gather-roofline probe at tools/probe_gather_roofline.py's shape
     ((64 x 512, 128) table, 64 chained gathers) against its twin (out
-    equal), the card's in-row gather rate it reaches, and the floor that
-    rate implies for csrc/integrate.cu at 512^3 (one direct tap a voxel)."""
+    equal), the card's in-row gather rate it reaches, and beside the
+    operation bound its two floors: the shared-memory wavefronts these
+    indices take (``probe_wavefronts``) at one an SM a clock, and the
+    instructions of its gather loop (SASS) at 4 warp instructions an SM a
+    clock. With ``--parent``, the parent's kernel in turns."""
+    from tsdf_tpu_torch.kernels import _build
     from tsdf_tpu_torch.kernels.gather import (
+        KERNEL_PROBE,
         PROBE_GATHERS,
         gather_probe_cuda,
         gather_probe_plain,
+        probe_wavefronts,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2947,19 +3060,39 @@ def compare_probe(dev) -> dict:
     differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     check(differ == 0, "the gather probe disagrees with its twin")
     ms = median_ms(lambda: gather_probe_cuda(tab, idx), reps=20)
+    parent = parent_in_turns([KERNEL_PROBE], lambda: gather_probe_cuda(tab, idx),
+                             20, ms, "gather probe")
     plain_ms = median_ms(lambda: gather_probe_plain(tab, idx), reps=3)
     n = tab.numel() * PROBE_GATHERS
     rate = n / (ms / 1e3)
-    floor_ms = SIZE**3 / rate * 1e3
     least = bound(3 * 4 * tab.numel(), PROBE_OPS_PER_GATHER * n)
-    log(f"gather probe: {ms:.4f} ms for {n} gathered elements = "
-        f"{rate / 1e9:.1f} G elements/s (plain {plain_ms:.4f} ms, bound "
-        f"{least['bound_ms']:.4f} ms by {least['bound_by']}); at one direct "
-        f"tap a voxel that ceiling puts csrc/integrate.cu's floor at "
-        f"{floor_ms:.4f} ms for 512^3")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = loaded_sm_clock_mhz(lambda: gather_probe_cuda(tab, idx))
+    wavefronts = probe_wavefronts(idx)
+    wave_floor = wavefronts / (sms * mhz * 1e6) * 1e3
+    loop = sass_loop(str(_build.library_path()),
+                     str(_build.BUILD_DIR / "build.log"), "probe_gather_kernel")
+    per_gather = loop["loop_instructions"] / loop["loop_shared_loads"]
+    issue_floor = per_gather * n / 32 / (4 * sms * mhz * 1e6) * 1e3
+    reached = wavefronts / (ms / 1e3) / (sms * mhz * 1e6)
+    log(f"gather probe: {ms:.4f} ms (parent {ms_text(parent)}) for {n} gathered "
+        f"elements = {rate / 1e9:.1f} G elements/s (plain {plain_ms:.4f} ms, "
+        f"bound {least['bound_ms']:.4f} ms by {least['bound_by']}); "
+        f"{loop['registers']} registers")
+    log(f"gather probe floors at {mhz:.0f} MHz (the SM clock nvidia-smi reads "
+        f"under the kernel) x {sms} SMs: shared-memory wavefronts "
+        f"{wavefronts} ({wavefronts / (n / 32):.4f} a warp-load) at one an SM "
+        f"a clock = {wave_floor:.4f} ms; issue rate {per_gather:.4f} SASS "
+        f"instructions a gather ({loop['loop_instructions']} in the loop, "
+        f"{loop['loop_shared_loads']} shared loads) / 32 / 4 a clock = "
+        f"{issue_floor:.4f} ms; reached {reached:.3f} wavefronts an SM a clock")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms, g_elements_per_s=rate / 1e9,
-                integrate_floor_ms=floor_ms, **least, library_ms=None)
+                plain_ms=plain_ms, parent_ms=parent,
+                g_elements_per_s=rate / 1e9, **least, library_ms=None,
+                wavefronts=wavefronts, wavefront_floor_ms=wave_floor,
+                wavefronts_per_clock=reached, issue_floor_ms=issue_floor,
+                instructions_per_gather=per_gather, sm_clock_mhz=mhz,
+                registers=loop["registers"])
 
 
 def profile_step(fn, what: str, n: int = 3) -> dict:
@@ -3272,8 +3405,8 @@ def main() -> int:
         "--parent", metavar="DIR",
         help="also build the kernels of the checkout at DIR (the parent "
              "commit, unpacked) and time its raycast, integrate, "
-             "pose-adjoint and bilateral entry points beside this tree's on "
-             "the same inputs",
+             "pose-adjoint, bilateral, windowed-gather, guarded-fallback "
+             "and probe entry points beside this tree's on the same inputs",
     )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")

@@ -580,6 +580,13 @@ def _narrow_idx(s, c, w):
         (40, 64, 1024, {"block_rows": 48}),
         (7, 1, 128, {}),
         (300, 257, 2048, {"window_blocks": 3}),
+        # tilings the staging kernel refused or never ran: tiles of 128
+        # and 256 rows, whose indices the kernel reads again
+        (512, 200, 1024, {"window_blocks": 8, "block_rows": 128}),
+        (256, 130, 512, {"block_rows": 256}),
+        # more tiles (1200, a row each) than the blocks the card holds at
+        # once, the guarded fallback's grid: its blocks stride over the rest
+        (1200, 2048, 256, {}),
     ],
 )
 @pytest.mark.parametrize("case", ["narrow", "wild", "out_of_range"])
@@ -606,7 +613,11 @@ def test_windowed_gather_kernel_matches_twin(dev, s, c, w, kw, case):
     assert miss.dtype == torch.int32 and miss.dim() == 0
     assert int(miss) == int(want_miss)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    if case != "wild":
+    # narrow indices stay in one 256-wide window per 64 rows, so a tile of
+    # at most 64 rows never misses
+    bs, _ = gather.window_tiling(s, w, kw.get("window_blocks", 2),
+                                 kw.get("block_rows", 64))
+    if case == "out_of_range" or (case == "narrow" and bs <= 64):
         assert int(miss) == 0
     full = gather.take_or_zero(tab, idx)
     counts = (gather.KERNEL_WINDOWED.launches, gather.KERNEL_IF_MISSED.launches)
@@ -640,11 +651,18 @@ def test_windowed_gather_kernel_int32_empty_and_refusals(dev):
         gather.lane_gather_windowed_op(tab[:, :130].contiguous(), idx)
     with pytest.raises(ValueError, match="contiguous"):
         gather.lane_gather_windowed_op(tab[:1].expand(8, 256), idx)
-    wide = torch.zeros((512, 1024), device=dev)
-    wide_idx = torch.zeros((512, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="a block can stage"):
-        gather.lane_gather_windowed_op(wide, wide_idx, window_blocks=8,
-                                       block_rows=128)
+    # a window of 128 rows by 1024 words: more than a block could stage
+    # before the kernel read the covered words in place; now it runs
+    wide = torch.from_numpy(
+        rng.standard_normal((512, 1024)).astype(np.float32)).to(dev)
+    wide_idx = torch.from_numpy(
+        rng.integers(-5, 1030, (512, 8)).astype(np.int32)).to(dev)
+    got, miss = gather.lane_gather_windowed_op(wide, wide_idx, window_blocks=8,
+                                               block_rows=128)
+    want, want_miss = gather.take_windowed(wide, wide_idx, window_blocks=8,
+                                           block_rows=128)
+    assert int(miss) == int(want_miss)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # -- the pose adjoint (csrc/integrate_pose_grad.cu) ------------------------
@@ -868,7 +886,7 @@ def test_raycast_diff_on_the_card_matches_the_cpu(dev):
 
 def test_gather_probe_kernel_matches_twin(dev):
     """The gather-roofline probe: out equal to its twin, rows no multiple
-    of the 512-row tile, indices past both ends of the row."""
+    of the 64-row chunk, indices past both ends of the row."""
     rng = np.random.default_rng(9)
     tab = torch.from_numpy(rng.normal(size=(1100, 128)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(-10, 140, (1100, 128))
@@ -877,6 +895,19 @@ def test_gather_probe_kernel_matches_twin(dev):
     got = gather.gather_probe_cuda(tab.to(dev), idx.to(dev)).cpu()
     assert gather.KERNEL_PROBE.launches == before + 1
     want = gather.gather_probe_plain(tab, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,g", [(7, 3), (64, 1), (130, 0), (32768, 64)])
+def test_gather_probe_kernel_chunks(dev, rows, g):
+    """The probe on fewer rows than one chunk, exactly one, a ragged last
+    chunk with no gather at all, and the smoke's 32768 rows: bit-equal."""
+    rng = np.random.default_rng(rows)
+    tab = torch.from_numpy(rng.normal(size=(rows, 128)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-10, 140, (rows, 128))
+                           .astype(np.int32))
+    got = gather.gather_probe_cuda(tab.to(dev), idx.to(dev), g).cpu()
+    want = gather.gather_probe_plain(tab, idx, g)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

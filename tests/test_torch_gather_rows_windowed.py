@@ -216,3 +216,97 @@ def test_gather_probe_twin(rows, g):
     with pytest.raises(ValueError, match="columns"):
         tgather.gather_probe_cuda(t[:, :64].contiguous(),
                                   ix[:, :64].contiguous(), g)
+
+
+# -- the direct-form windowed kernel's tilings; the probe's wavefronts ---------
+
+
+@pytest.mark.parametrize("case", ["narrow", "wild", "out_of_range"])
+@pytest.mark.parametrize(
+    "s,c,w,kw",
+    [
+        # a window of 128 rows by 1024 words: more than a block could stage
+        (256, 130, 1024, {"window_blocks": 8, "block_rows": 128}),
+        # tiles of 256 rows, whose indices the kernel reads twice
+        (256, 257, 512, {"block_rows": 256}),
+    ],
+    ids=["bs128-wb8-c130", "bs256-c257"],
+)
+def test_windowed_twin_matches_pallas_tall_tiles(s, c, w, kw, case):
+    """Tilings the staging kernel refused or never ran, at column counts
+    no multiple of 4 or of 128: out and the miss count equal the JAX
+    kernel's."""
+    rng = np.random.default_rng(s + c + w)
+    tab = rng.standard_normal((s, w)).astype(np.float32)
+    if case == "narrow":
+        idx = _narrow(s, c, w)
+    elif case == "wild":
+        idx = rng.integers(-10, w + 10, (s, c)).astype(np.int32)
+    else:
+        idx = np.where(rng.uniform(size=(s, c)) < 0.5, -3, w + 4).astype(np.int32)
+    out_j, miss_j, out_t, miss_t = _windowed_both(tab, idx, **kw)
+    assert miss_t == miss_j
+    if case == "out_of_range":
+        assert miss_t == 0 and not out_t.any()  # no index reads the table
+    elif kw.get("window_blocks") == 8:
+        assert miss_t == 0  # the window is the whole table
+    else:
+        # a 256-row tile of either index set spans more than 256 columns
+        assert miss_t > 0
+    np.testing.assert_array_equal(out_t, out_j)
+
+
+@pytest.mark.parametrize("case", ["narrow", "wild"])
+@pytest.mark.parametrize(
+    "kw", [{"window_blocks": 8, "block_rows": 128}, {"block_rows": 256}],
+    ids=["bs128-wb8", "bs256"],
+)
+def test_checked_equals_the_full_gather_at_tall_tiles(kw, case):
+    """``lane_gather_checked`` at the tilings the staging kernel refused or
+    never ran equals ``take_or_zero`` and the JAX ``lane_gather_checked``,
+    whether the windows miss or not."""
+    rng = np.random.default_rng(17)
+    s, w, c = 256, 1024, 130
+    tab = rng.standard_normal((s, w)).astype(np.float32)
+    if case == "narrow":
+        idx = _narrow(s, c, w)
+    else:
+        idx = rng.integers(-10, w + 10, (s, c)).astype(np.int32)
+    t, i = torch.from_numpy(tab), torch.from_numpy(idx)
+    got = tgather.lane_gather_checked(t, i, **kw)
+    np.testing.assert_array_equal(got.numpy(),
+                                  tgather.take_or_zero(t, i).numpy())
+    jax_out = jgather.lane_gather_checked(
+        jnp.asarray(tab), jnp.asarray(idx), interpret=True, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
+
+
+def test_probe_wavefronts_on_constructed_warps():
+    """At g = 1: all lanes of a warp on one word is one wavefront (a
+    broadcast); lanes on columns 0, 32, 64 and 96 (four words of bank 0)
+    take four; indices that clip to column 127 share its word."""
+    one_word = torch.full((1, 128), 5, dtype=torch.int32)
+    assert tgather.probe_wavefronts(one_word, 1) == 4  # four warps, one each
+    bank0 = torch.tensor([[0, 32, 64, 96] * 32], dtype=torch.int32)
+    assert tgather.probe_wavefronts(bank0, 1) == 16
+    clipped = torch.tensor([[127, 200, 1000, 2**30] * 32], dtype=torch.int32)
+    assert tgather.probe_wavefronts(clipped, 1) == 4
+    distinct = torch.arange(128, dtype=torch.int32)[None]  # 32 banks, a word each
+    assert tgather.probe_wavefronts(distinct, 1) == 4
+    assert tgather.probe_wavefronts(distinct, 0) == 0
+
+
+@pytest.mark.parametrize("g", [1, 5, 64])
+def test_probe_wavefronts_match_a_brute_force_count(g):
+    rng = np.random.default_rng(64 + g)
+    idx = rng.integers(-10, 140, (64, 128)).astype(np.int32)
+    want = 0
+    for r in range(64):
+        for w0 in range(0, 128, 32):
+            for i in range(g):
+                cols = np.clip(idx[r, w0:w0 + 32] + i, 0, 127)
+                banks = {}
+                for col in set(cols.tolist()):
+                    banks[col % 32] = banks.get(col % 32, 0) + 1
+                want += max(banks.values())
+    assert tgather.probe_wavefronts(torch.from_numpy(idx), g) == want

@@ -37,13 +37,15 @@
 //     table is read in place through the read-only path; a table that
 //     small stays in the 50 MB L2.
 //
-// tsdf_lane_gather_if_missed is the plain one-thread-per-element loop
-// behind a guard: every thread first reads one int32 on the device and
-// returns when it is 0. It is the exact fallback of the windowed gather
-// (gather_windowed.cu, kernels/gather.py:lane_gather_checked): launched
-// unconditionally after it, it rewrites the output only when the windowed
-// kernel counted a miss, so the decision is taken on the device and the
-// host reads nothing (the lax.cond of the JAX lane_gather_checked).
+// tsdf_lane_gather_if_missed is the exact fallback of the windowed gather
+// (gather_windowed.cu, kernels/gather.py:lane_gather_checked): the kDirect
+// body behind a guard. Launched unconditionally after the windowed kernel,
+// every block first reads the windowed kernel's miss word and exits when it
+// is 0; else the launch rewrites the whole output at the rate of kDirect.
+// So the decision is taken on the device and the host reads nothing (the
+// lax.cond of the JAX lane_gather_checked). Its grid is capped at the
+// blocks the card holds at once, each walking tiles with a grid stride, so
+// the launch that finds no miss costs one wave of blocks that read one word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,16 +133,15 @@ gather_broadcast_kernel(const uint32_t* __restrict__ table,
     out[i] = pick<true>(tab, idx[i], width);
 }
 
-// kRows (STAGE) and kDirect: block b owns rows [b * tile_rows, ...) and
-// their outputs, tile_rows * cols < 2^31 (the wrapper checks).
+// kRows (STAGE) and kDirect: the tile of rows [tile * tile_rows, ...) and
+// their outputs, tile_rows * cols < 2^31 (the wrapper checks). STAGE
+// copies the tile's table rows into the dynamic shared memory smem.
 template <bool STAGE>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const uint32_t* __restrict__ table,
-                   const int32_t* __restrict__ idx,
-                   uint32_t* __restrict__ out, int64_t rows, int cols,
-                   int width, int64_t row_stride, int tile_rows) {
-  extern __shared__ uint4 smem[];
-  const int64_t s0 = (int64_t)blockIdx.x * tile_rows;
+__device__ __forceinline__ void gather_rows_tile(
+    const uint32_t* __restrict__ table, const int32_t* __restrict__ idx,
+    uint32_t* __restrict__ out, int64_t rows, int cols, int width,
+    int64_t row_stride, int tile_rows, int64_t tile, uint4* smem) {
+  const int64_t s0 = tile * tile_rows;
   const int nr = (int)min((int64_t)tile_rows, rows - s0);
   const uint32_t n = (uint32_t)nr * (uint32_t)cols;
   const uint32_t* src = table + s0 * row_stride;
@@ -190,32 +191,51 @@ gather_rows_kernel(const uint32_t* __restrict__ table,
     tout[e] = pick<STAGE>(row(e / (uint32_t)cols), tidx[e], width);
 }
 
-// The guarded fallback of the windowed gather: one thread per element.
-__global__ void lane_gather_if_missed_kernel(
-    const uint32_t* __restrict__ table, const int32_t* __restrict__ idx,
-    uint32_t* __restrict__ out, int64_t n, int64_t cols, int64_t width,
-    int64_t row_stride, const int32_t* __restrict__ only_if) {
+// kRows (STAGE) and kDirect: block b owns tile b.
+template <bool STAGE>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const uint32_t* __restrict__ table,
+                   const int32_t* __restrict__ idx,
+                   uint32_t* __restrict__ out, int64_t rows, int cols,
+                   int width, int64_t row_stride, int tile_rows) {
+  extern __shared__ uint4 smem[];
+  gather_rows_tile<STAGE>(table, idx, out, rows, cols, width, row_stride,
+                          tile_rows, blockIdx.x, smem);
+}
+
+// The guarded fallback of the windowed gather: kDirect over tiles
+// blockIdx.x, + gridDim.x, ..., only where *only_if is not 0.
+__global__ void __launch_bounds__(kThreads)
+lane_gather_if_missed_kernel(const uint32_t* __restrict__ table,
+                             const int32_t* __restrict__ idx,
+                             uint32_t* __restrict__ out, int64_t rows,
+                             int cols, int width, int64_t row_stride,
+                             int tile_rows, int64_t tiles,
+                             const int32_t* __restrict__ only_if) {
   if (*only_if == 0) return;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t s = i / cols;
-    const int32_t j = idx[i];
-    out[i] = (j >= 0 && j < width) ? table[s * row_stride + j] : 0u;
-  }
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    gather_rows_tile<false>(table, idx, out, rows, cols, width, row_stride,
+                            tile_rows, tile, nullptr);
+}
+
+// The blocks of `kernel` (kThreads each, `shared` dynamic bytes) that the
+// current device holds at once.
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel, size_t shared) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                shared);
+  return (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
 }
 
 int launch_broadcast(const void* table, const void* idx, void* out,
                      int64_t n, int width, cudaStream_t st) {
   const size_t shared = (size_t)width * 4;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gather_broadcast_kernel, kThreads, shared);
   const int64_t per_block = (int64_t)kThreads * kUnroll * 4;
   int64_t blocks = (n + per_block - 1) / per_block;
-  const int64_t resident = (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const int64_t resident = resident_blocks(gather_broadcast_kernel, shared);
   if (blocks > resident) blocks = resident;
   gather_broadcast_kernel<<<(unsigned)blocks, kThreads, shared, st>>>(
       (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, n, width);
@@ -252,19 +272,25 @@ extern "C" int tsdf_lane_gather(const void* table, const void* idx, void* out,
 }
 
 // only_if: one int32 on the device; the launch writes nothing when it is 0.
+// After the stream: tile_rows, the rows of a kDirect tile
+// (kernels/gather.py:lane_gather_launch). The grid is the tiles, at most
+// the blocks the card holds at once.
 extern "C" int tsdf_lane_gather_if_missed(const void* table, const void* idx,
                                           void* out, const void* only_if,
                                           long long rows, long long cols,
                                           long long width,
-                                          long long row_stride, void* stream) {
-  const int64_t n = (int64_t)rows * cols;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
-  lane_gather_if_missed_kernel<<<(unsigned)blocks, threads, 0,
+                                          long long row_stride, void* stream,
+                                          int tile_rows) {
+  if (rows <= 0 || cols <= 0) return (int)cudaSuccess;
+  if (tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (rows + tile_rows - 1) / tile_rows;
+  int64_t blocks = resident_blocks(lane_gather_if_missed_kernel, 0);
+  if (blocks > tiles) blocks = tiles;
+  lane_gather_if_missed_kernel<<<(unsigned)blocks, kThreads, 0,
                                  (cudaStream_t)stream>>>(
-      (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, n, cols,
-      width, row_stride, (const int32_t*)only_if);
+      (const uint32_t*)table, (const int32_t*)idx, (uint32_t*)out, rows,
+      (int)cols, (int)width, row_stride, tile_rows, tiles,
+      (const int32_t*)only_if);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,13 @@ the device; ``lane_gather_fast`` is the backend dispatch. No path of
 either package calls the windowed gather: it is a public function of the
 module and is held against its twin like the others.
 
+``gather_probe_cuda`` replaces ``tools/probe_gather_roofline.py``'s
+kernel: a probe of the card's in-row gather rate, which no path calls.
+
+The lane gather's launch plan (``lane_gather_launch``) and the windowed
+gather's tiling (``window_tiling``) are plain functions of the shapes, so
+the CPU tests hold them.
+
 Each wrapper launches its kernel on CUDA tensors and runs its plain twin
 only on CPU tensors.
 """
@@ -39,8 +46,9 @@ KERNEL = Kernel(
 )
 KERNEL_IF_MISSED = Kernel(
     "tsdf_lane_gather_if_missed",
-    # table, idx, out, only_if, rows, cols, width, row_stride, stream
-    [_P, _P, _P, _P, _L, _L, _L, _L, _P],
+    # table, idx, out, only_if, rows, cols, width, row_stride, stream,
+    # tile_rows
+    [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I],
 )
 KERNEL_ROWS = Kernel(
     "tsdf_row_gather",
@@ -54,8 +62,6 @@ KERNEL_WINDOWED = Kernel(
 )
 
 LANE = 128
-# the most dynamic shared memory a block can have on sm_90
-MAX_SHARED_BYTES = 232448
 
 _WORD_TYPES = (torch.float32, torch.int32)
 
@@ -303,21 +309,14 @@ def lane_gather_windowed_op(
     ``out`` equals ``lane_gather_op(table, idx)`` exactly iff it is 0.
     Out-of-range indices give 0 and never count. It is not read here.
 
-    CUDA tensors go through the kernel (a block stages its tile's window
-    in shared memory), CPU tensors through ``take_windowed``.
+    CUDA tensors go through the kernel (covered words read in place, a
+    block a tile), CPU tensors through ``take_windowed``.
     """
     dev = _check_lane_gather(table, idx, broadcast_ok=False)
     s, w = table.shape
     bs, wb = window_tiling(s, w, window_blocks, block_rows)
     if dev.type == "cpu":
         return take_windowed(table, idx, window_blocks, block_rows)
-    shared = bs * wb * LANE * 4
-    if shared > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"a window of {bs} rows by {wb * LANE} words is {shared} bytes, "
-            f"over the {MAX_SHARED_BYTES} a block can stage; lower "
-            "block_rows or window_blocks"
-        )
     c = idx.shape[1]
     out = torch.empty((s, c), dtype=table.dtype, device=dev)
     miss = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -342,11 +341,13 @@ def lane_gather_checked(
     read.
 
     On CUDA tensors the windowed kernel is followed by a second launch of
-    the full lane gather behind a guard: each of its threads reads the
-    windowed kernel's miss word and returns at once when it is 0, else the
-    launch rewrites the output in full. Both launches are always queued;
-    the host never sees the count. On CPU tensors the twin's count selects
-    between the twins' results with ``torch.where``.
+    the full lane gather behind a guard (the "direct" tiles of
+    ``lane_gather_launch``, on at most the blocks the card holds at once):
+    each of its blocks reads the windowed kernel's miss word and returns
+    at once when it is 0, else the launch rewrites the output in full. Both
+    launches are always queued; the host never sees the count. On CPU
+    tensors the twin's count selects between the twins' results with
+    ``torch.where``.
     """
     out, miss = lane_gather_windowed_op(table, idx, window_blocks, block_rows)
     dev = table.device
@@ -355,10 +356,13 @@ def lane_gather_checked(
     if out.numel() == 0:
         return out
     s, w = table.shape
+    # contiguous rows of at least 128 words: always the "direct" launch
+    _, tile_rows = lane_gather_launch(idx.shape[1], w, w)
     with torch.cuda.device(dev):
         KERNEL_IF_MISSED(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), miss.data_ptr(),
             s, idx.shape[1], w, table.stride(0), stream_handle(dev),
+            tile_rows,
         )
     return out
 
@@ -382,6 +386,29 @@ KERNEL_PROBE = Kernel(
     [_P, _P, _P, _L, _I, _P],
 )
 PROBE_GATHERS = 64
+# a warp's lanes: 32 consecutive columns of one row; shared-memory banks
+_WARP = 32
+
+
+def probe_wavefronts(idx: torch.Tensor, g: int = PROBE_GATHERS) -> int:
+    """Shared-memory wavefronts the probe's gathers take: for each warp
+    (32 consecutive columns of a row) and each i < g, the most distinct
+    words among its 32 columns ``clip(idx + i, 0, 127)`` that fall in one
+    of the 32 banks (one row is 128 words, so column c is bank c % 32).
+    Lanes on one word are served at once (a broadcast). The card serves one
+    wavefront an SM a clock: the probe's floor."""
+    rows = idx.shape[0]
+    lanes = idx.reshape(rows, LANE // _WARP, _WARP).to(torch.int64)
+    total = torch.zeros((), dtype=torch.int64, device=idx.device)
+    for i in range(g):
+        cols = torch.clamp(lanes + i, 0, LANE - 1)
+        words = torch.zeros((rows, LANE // _WARP, LANE), dtype=torch.bool,
+                            device=idx.device)
+        words.scatter_(2, cols, True)
+        # word c = 32 k + b lies in bank b: a bank's words are k = 0..3
+        per_bank = words.reshape(rows, LANE // _WARP, LANE // _WARP, _WARP)
+        total += per_bank.sum(dim=2).amax(dim=2).sum()
+    return int(total)
 
 
 def gather_probe_plain(
@@ -401,9 +428,9 @@ def gather_probe_cuda(
 ) -> torch.Tensor:
     """The gather-roofline probe (``csrc/probe_gather.cu``), which replaces
     ``tools/probe_gather_roofline.py:bench_kernel``: ``g`` chained in-row
-    gathers of each element from its (512, 128) table tile, summed. No
-    path calls it; ``chip_smoke.py`` measures the card's gather rate with
-    it.
+    gathers of each element from its table row, summed, a block a chunk of
+    64 rows staged in shared memory. No path calls it; ``chip_smoke.py``
+    measures the card's gather rate with it.
 
     Args:
       table: (R, 128) float32, contiguous.
