@@ -34,7 +34,10 @@ Phases (any failed check exits non-zero; nothing is caught):
      culled bricks and a frame with no depth beside them; the warped
      integrate at 512^3 under a uniform warp and at 255^3 under the field
      real deformation updates leave; the row gather at the correspondence
-     and the deform_points shapes of a real frame; the windowed lane
+     and the deform_points shapes of a real frame (the instance picked,
+     its SASS instructions a row) and on its edge inputs (group tails,
+     extreme indices, unaligned views, other dtypes, a 4 GiB output); the
+     windowed lane
      gather and its checked wrapper on coherent and wild indices (also at
      tiles of 128 rows and a window of 8 blocks), the checked wrapper's
      guarded fallback alone with its miss word 0 and 1, the plans and
@@ -101,8 +104,9 @@ JAX.
 
 runs the smoke and also builds the kernels of the checkout at DIR (the
 parent commit, unpacked there) and times its raycast, integrate,
-pose-adjoint, bilateral, windowed-gather (alone and with the checked
-wrapper's fallback, and the fallback alone) and probe entry points (and a
+pose-adjoint, bilateral, row-gather (at both SceneFusion shapes),
+windowed-gather (alone and with the checked wrapper's fallback, and the
+fallback alone) and probe entry points (and a
 frame with no depth through the fast integrate and the adjoint) on the
 same inputs, in turns with this tree's;
 the fast fuse loop and the config4b step with the parent's kernel in
@@ -1926,8 +1930,17 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
     the SceneFusion path gives it: the correspondence lookup of a real
     255^3 frame (a (307200, 4) table, one index per mesh slot) and the 8
     taps of ``deform_points`` on that frame's mesh (the (255^3, 3) field).
-    The arguments are recorded from the real calls."""
-    from tsdf_tpu_torch.kernels.gather import row_gather_op, take_rows
+    The arguments are recorded from the real calls. Each shape logs the
+    instance the library picks and the share of the bound; with
+    ``--parent``, the parent's kernel in turns on the same inputs. Then
+    the edge inputs (``row_gather_edges``)."""
+    from tsdf_tpu_torch.kernels import _build
+    from tsdf_tpu_torch.kernels.gather import (
+        KERNEL_ROWS,
+        row_gather_instance,
+        row_gather_op,
+        take_rows,
+    )
     from tsdf_tpu_torch.ops import deform
     from tsdf_tpu_torch.ops.marching_cubes import extract_surface, soup_to_numpy
     from tsdf_tpu_torch.pipelines import scenefusion as sf
@@ -1952,7 +1965,11 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
               f"row gather differs at table {tuple(table.shape)}")
         err = float((got.double() - want.double()).abs().max())
-        ms = median_ms(lambda: row_gather_op(table, idx), reps=10, inner=10)
+        instance = row_gather_instance(table, idx)
+        fn = lambda: row_gather_op(table, idx)  # noqa: E731
+        ms = median_ms(fn, reps=10, inner=10)
+        parent = parent_in_turns([KERNEL_ROWS], fn, 10, ms,
+                                 f"row gather ({what})", inner=10)
         plain_ms = median_ms(lambda: take_rows(table, idx), reps=10, inner=4)
         idx64 = idx.clamp(0, table.shape[0] - 1).to(torch.int64)
         library_ms = median_ms(lambda: torch.index_select(table, 0, idx64),
@@ -1963,19 +1980,112 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
         distinct = int(torch.unique(idx64).numel())
         least = bound(idx.numel() * (4 + row_bytes) + distinct * row_bytes, 0)
         log(f"row gather {tuple(table.shape)} -> {tuple(idx.shape)} ({what}): "
-            f"equal bytes, max |diff| {err:.3g}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, "
+            f"equal bytes, max |diff| {err:.3g}; instance {instance}; kernel "
+            f"{ms:.4f} ms (parent {ms_text(parent)}), plain {plain_ms:.4f} ms, "
             f"torch.index_select {library_ms:.4f} ms, bound "
-            f"{least['bound_ms']:.4f} ms by bytes ({distinct} distinct rows)")
-        out[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, **least)
+            f"{least['bound_ms']:.4f} ms by bytes ({distinct} distinct rows): "
+            f"{least['bound_ms'] / ms:.3f} of the bound")
+        out[what] = dict(max_abs_err=err, ms=ms, parent_ms=parent,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         instance=instance, **least)
+    edge_cases = row_gather_edges(dev)
+    lib, build_log = str(_build.library_path()), str(_build.BUILD_DIR / "build.log")
+    # the loop of each compiled instance: 4 rows a lane (16 B), a pair (12 B)
+    sass = {name: sass_loop(lib, build_log, kernel) for name, kernel in
+            (("rows16", "rows16_kernel"), ("rows12", "rows12_kernelILb1E"))}
+    per_row = {"rows16": sass["rows16"]["loop_instructions"] / 4,
+               "rows12": sass["rows12"]["loop_instructions"] / 2}
+    log("row gather SASS: " + "; ".join(
+        f"{k} {sass[k]['loop_instructions']} instructions a loop "
+        f"({per_row[k]:.2f} a row, {sass[k]['loop_loads']} global loads), "
+        f"{sass[k]['registers']} registers" for k in sass))
     d = out["deform"]
     out["corr"]["max_abs_err"] = max(out["corr"]["max_abs_err"], d["max_abs_err"])
     return dict(**out["corr"], deform_points_ms=d["ms"],
+                deform_points_parent_ms=d["parent_ms"],
                 deform_points_plain_ms=d["plain_ms"],
                 deform_points_library_ms=d["library_ms"],
                 deform_points_bound_ms=d["bound_ms"],
-                deform_points_rows=int(calls[2][1].numel()))
+                deform_points_instance=d["instance"],
+                deform_points_rows=int(calls[2][1].numel()),
+                sass_instructions_a_row=per_row,
+                registers={k: v["registers"] for k, v in sass.items()},
+                edge_inputs=edge_cases)
+
+
+def row_gather_edges(dev) -> int:
+    """``row_gather_op`` bit-equal with ``take_rows`` on the inputs the
+    kernel's instances must get right: J around its groups at 12- and
+    16-byte rows; indices at INT32_MIN, -1, N-1, N and INT32_MAX; an idx
+    view one element into its allocation (no vector index load); a
+    table view at +4 B; u8, i16 and f64 rows; and once an output past 2^32
+    bytes (J = 2^28 + 3 rows of 16 B). Each case checks the instance the
+    library picks for it. Returns the number of cases."""
+    from tsdf_tpu_torch.kernels.gather import (
+        row_gather_instance,
+        row_gather_op,
+        take_rows,
+    )
+
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rng = np.random.default_rng(12)
+
+    def held(what, table, idx, instance):
+        picked = row_gather_instance(table, idx)
+        check(picked == instance,
+              f"row gather edge {what}: instance {picked}, expected {instance}")
+        got = row_gather_op(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.uint8),
+                          take_rows(table, idx).view(torch.uint8)),
+              f"row gather edge {what} differs from take_rows")
+
+    def f32_rows(n, w):
+        t = torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32))
+        t[0, 0] = -0.0
+        t[1, -1] = float("nan")
+        return t.to(dev)
+
+    def ints(values):
+        return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
+
+    cases = 0
+    for w, name in ((3, "rows12"), (4, "rows16")):
+        table = f32_rows(61, w)
+        for j in (1, 2, 3, 4, 5, 7, 8, 9, 4097):
+            held(f"w{w} J={j}", table, ints(rng.integers(-3, 64, j)), name)
+            cases += 1
+        held(f"w{w} extreme indices", table,
+             ints([lo, -1, 60, 61, hi, 0, lo + 1, hi - 1, 5]), name)
+        idx = ints(np.concatenate([[0], rng.integers(-3, 64, 4097)]))[1:]
+        check(idx.data_ptr() % 16 == 4, "the idx view is 16-byte aligned")
+        held(f"w{w} idx view at +4 B", table, idx,
+             name + (", scalar indices" if w == 3 else ""))
+        cases += 2
+    base = torch.arange(4 * 50 + 1, dtype=torch.float32, device=dev)
+    held("table view at +4 B", base[1:].view(50, 4),
+         ints([49, 0, 7, 7, 60, -1]), "generic 4 B")
+    cases += 1
+    for dtype, w, name in ((torch.uint8, 3, "generic 1 B"),
+                           (torch.uint8, 12, "rows12"),
+                           (torch.int16, 5, "generic 2 B"),
+                           (torch.int16, 8, "rows16"),
+                           (torch.float64, 3, "generic 8 B"),
+                           (torch.float64, 65, "generic 8 B")):
+        table = torch.from_numpy(rng.integers(0, 255, (300, w))).to(dtype).to(dev)
+        held(f"{dtype} x {w}", table, ints(rng.integers(-5, 305, 1001)), name)
+        cases += 1
+    n, j = 1000, (1 << 28) + 3
+    table = torch.arange(4 * n, dtype=torch.int32, device=dev).view(n, 4)
+    idx = (torch.arange(j, dtype=torch.int64, device=dev) * 7919 % (n + 10)
+           - 5).to(torch.int32)
+    held("J = 2^28 + 3 rows of 16 B (4 GiB out)", table, idx, "rows16")
+    cases += 1
+    del idx
+    torch.cuda.empty_cache()
+    log(f"row gather edge inputs: {cases} cases, each bit-equal with take_rows "
+        f"through the instance expected")
+    return cases
 
 
 def compare_gather_masked(dev, sf_depth, sf_flows) -> dict:
@@ -3405,8 +3515,9 @@ def main() -> int:
         "--parent", metavar="DIR",
         help="also build the kernels of the checkout at DIR (the parent "
              "commit, unpacked) and time its raycast, integrate, "
-             "pose-adjoint, bilateral, windowed-gather, guarded-fallback "
-             "and probe entry points beside this tree's on the same inputs",
+             "pose-adjoint, bilateral, row-gather, windowed-gather, "
+             "guarded-fallback and probe entry points beside this tree's on "
+             "the same inputs",
     )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")

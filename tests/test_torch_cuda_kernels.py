@@ -553,6 +553,7 @@ def test_row_gather_kernel_unaligned_view_and_empty(dev):
     table = base[1:].view(50, 4)
     assert table.data_ptr() % 16 == 4 and table.is_contiguous()
     idx = torch.tensor([49, 0, 7, 7, 60, -1], dtype=torch.int32, device=dev)
+    assert gather.row_gather_instance(table, idx) == "generic 4 B"
     got = gather.row_gather_op(table, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, gather.take_rows(table, idx))
@@ -563,6 +564,105 @@ def test_row_gather_kernel_unaligned_view_and_empty(dev):
         gather.row_gather_op(table.t(), idx)
     with pytest.raises(ValueError, match="idx is on"):
         gather.row_gather_op(table, idx.cpu())
+
+
+def _f32_rows(dev, rng, n, w):
+    """Random float32 rows with a -0.0 and a NaN: bytes that arithmetic
+    would not keep."""
+    table = torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32))
+    table[0, 0] = -0.0
+    table[1, -1] = float("nan")
+    return table.to(dev)
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("w,instance", [(3, "rows12"), (4, "rows16")],
+                         ids=["rows12", "rows16"])
+@pytest.mark.parametrize("j", [1, 2, 3, 4, 5, 7, 8, 9, 4097])
+def test_row_gather_kernel_group_tails(dev, w, instance, j):
+    """J around the kernel's groups at its two compiled widths: a pair of
+    12-byte rows a thread (an odd J leaves one row to the tail) and 128
+    16-byte rows a warp (a ragged last group is masked)."""
+    rng = np.random.default_rng(10 * j + w)
+    n = 61
+    table = _f32_rows(dev, rng, n, w)
+    idx = torch.from_numpy(rng.integers(-3, n + 3, j).astype(np.int32)).to(dev)
+    assert gather.row_gather_instance(table, idx) == instance
+    before = gather.KERNEL_ROWS.launches
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert gather.KERNEL_ROWS.launches == before + 1
+    assert _same_bytes(got, gather.take_rows(table, idx))
+
+
+@pytest.mark.parametrize("w,instance", [(3, "rows12"), (4, "rows16")],
+                         ids=["rows12", "rows16"])
+def test_row_gather_kernel_unaligned_index_view(dev, w, instance):
+    """An idx view that starts one element into its allocation: no 8-byte
+    index load is possible, so the 12-byte instance loads its indices one
+    at a time (the 16-byte one loads them 4 bytes a lane anyway). Indices
+    at INT32_MIN, -1, N-1, N and INT32_MAX clamp."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rng = np.random.default_rng(w)
+    n = 50
+    table = _f32_rows(dev, rng, n, w)
+    wild = rng.integers(-3, n + 3, 4097).astype(np.int32)
+    wild[:9] = [lo, -1, n - 1, n, hi, 0, lo + 1, hi - 1, 5]
+    base = torch.from_numpy(np.concatenate([[0], wild]).astype(np.int32)).to(dev)
+    idx = base[1:]
+    assert idx.data_ptr() % 16 == 4 and idx.is_contiguous()
+    scalar = ", scalar indices" if w == 3 else ""
+    assert gather.row_gather_instance(table, idx) == instance + scalar
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert _same_bytes(got, gather.take_rows(table, idx))
+    assert _same_bytes(got[:5], table[[0, 0, n - 1, n - 1, n - 1]])
+
+
+@pytest.mark.parametrize("dtype,w,instance", [
+    (torch.uint8, 3, "generic 1 B"), (torch.uint8, 33, "generic 1 B"),
+    (torch.uint8, 12, "rows12"), (torch.int16, 5, "generic 2 B"),
+    (torch.int16, 8, "rows16"), (torch.float64, 3, "generic 8 B"),
+    (torch.float64, 65, "generic 8 B"), (torch.float64, 2, "rows16"),
+], ids=["u8x3", "u8x33", "u8x12", "i16x5", "i16x8", "f64x3", "f64x65", "f64x2"])
+def test_row_gather_kernel_other_dtypes(dev, dtype, w, instance):
+    """Rows of other types: widths that are neither 12 nor 16 bytes run the
+    generic instance (a row of 65 words is wider than a block's 32 lanes);
+    12- and 16-byte rows of any type run the compiled ones."""
+    rng = np.random.default_rng(w)
+    n, j = 300, 1001
+    if dtype.is_floating_point:
+        table = torch.from_numpy(rng.standard_normal((n, w))).to(dtype)
+    else:
+        hi = 255 if dtype == torch.uint8 else 30000
+        table = torch.from_numpy(rng.integers(0, hi, (n, w))).to(dtype)
+    table = table.to(dev)
+    idx = torch.from_numpy(rng.integers(-5, n + 5, j).astype(np.int32)).to(dev)
+    assert gather.row_gather_instance(table, idx) == instance
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (j, w)
+    assert _same_bytes(got, gather.take_rows(table, idx))
+
+
+def test_row_gather_kernel_output_past_4_gib(dev):
+    """J = 2^28 + 3 rows of 16 bytes: the output passes 2^32 bytes, so no
+    offset may wrap at 32 bits; the last three rows are the tail."""
+    j, n = (1 << 28) + 3, 1000
+    table = torch.arange(4 * n, dtype=torch.int32, device=dev).view(n, 4)
+    idx = (torch.arange(j, dtype=torch.int64, device=dev) * 7919 % (n + 10)
+           - 5).to(torch.int32)
+    got = gather.row_gather_op(table, idx)
+    torch.cuda.synchronize()
+    assert got.numel() * 4 > 1 << 32
+    assert torch.equal(got, gather.take_rows(table, idx))
+    tail = idx[-3:].clamp(0, n - 1).long()
+    assert torch.equal(got[-3:], table[tail])
+    del got, idx
+    torch.cuda.empty_cache()
 
 
 def _narrow_idx(s, c, w):

@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from tsdf_tpu.kernels import gather as jgather
-from tsdf_tpu_torch import kernels
+from tsdf_tpu_torch import Camera, kernels, make_volume
 from tsdf_tpu_torch.kernels import gather as tgather
+from tsdf_tpu_torch.ops import deform
+from tsdf_tpu_torch.ops.marching_cubes import extract_surface, soup_to_numpy
+from tsdf_tpu_torch.pipelines import scenefusion as tsf
+from tsdf_tpu_torch.utils import fixtures
 
 CPU = torch.device("cpu")
 
@@ -78,6 +82,114 @@ def test_row_gather_empty_and_bad_inputs():
         tgather.row_gather_op(table[:0], idx)
     with pytest.raises(ValueError, match="idx is on"):
         tgather.row_gather_op(table, idx.to("meta"))
+
+
+def _rows_both(table, idx):
+    """The JAX kernel (interpret mode) and the port's wrapper on the same
+    rows; both as int32 words, so equal means equal bytes."""
+    want = np.asarray(jgather.row_gather_op(
+        jnp.asarray(table), jnp.asarray(idx), interpret=True))
+    got = tgather.row_gather_op(torch.as_tensor(table), torch.as_tensor(idx))
+    return got.numpy().view(np.int32), want.view(np.int32)
+
+
+def _f32_rows(rng, n, w):
+    """Random float32 rows with a -0.0 and a NaN, whose bytes a gather
+    that went through arithmetic would not keep."""
+    table = rng.standard_normal((n, w)).astype(np.float32)
+    table[0, 0] = -0.0
+    table[1, -1] = np.nan
+    return table
+
+
+@pytest.mark.parametrize("w", [3, 4], ids=["w3", "w4"])
+@pytest.mark.parametrize("j", [1, 2, 3, 4, 5, 7, 8, 9, 4097])
+def test_row_gather_twin_matches_pallas_at_group_tails(w, j):
+    """J around the CUDA kernel's groups at its two compiled widths: pairs
+    of 12-byte rows (an odd J leaves a row to its tail) and 128 16-byte
+    rows a warp (a ragged last group is masked)."""
+    rng = np.random.default_rng(10 * j + w)
+    n = 61
+    table = _f32_rows(rng, n, w)
+    idx = rng.integers(-3, n + 3, j).astype(np.int32)
+    got, want = _rows_both(table, idx)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, table[np.clip(idx, 0, n - 1)].view(np.int32))
+
+
+@pytest.mark.parametrize("w", [3, 4], ids=["w3", "w4"])
+def test_row_gather_twin_matches_pallas_at_extreme_indices(w):
+    """Indices at INT32_MIN, -1, N-1, N and INT32_MAX clamp to the first
+    and the last row (no overflow in the clamp)."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    n = 17
+    table = _f32_rows(np.random.default_rng(w), n, w)
+    idx = np.array([lo, -1, n - 1, n, hi, 0, lo + 1, hi - 1, 5], np.int32)
+    got, want = _rows_both(table, idx)
+    np.testing.assert_array_equal(got, want)
+    rows = [0, 0, n - 1, n - 1, n - 1, 0, 0, n - 1, 5]
+    np.testing.assert_array_equal(got, table[rows].view(np.int32))
+
+
+def _small_sphere(radius, with_field=False):
+    """32^3 over 1500 mm with a sphere at z = 750 mm."""
+    vol = make_volume((32, 32, 32), 1500.0, offset=(-750.0, -750.0, 0.0),
+                      with_deformation=True, device=CPU)
+    vol = fixtures.sphere_tsdf(vol, radius, centre=(0.0, 0.0, 750.0))
+    if with_field:
+        rng = np.random.default_rng(5)
+        field = vol.deform + torch.from_numpy(rng.uniform(
+            -20.0, 20.0, tuple(vol.deform.shape)).astype(np.float32))
+        vol = vol.replace(deform=field)
+    return vol
+
+
+def test_row_gather_twin_matches_pallas_on_the_correspondence_lookup(
+        monkeypatch):
+    """The call ``_slot_correspondence`` makes in a SceneFusion frame
+    (32^3, 64x48), recorded: a (H*W, 4) [depth, flow] table and one index
+    per slot of the masked layout, every dead slot reading pixel 0."""
+    h, w, max_cubes = 48, 64, 2048
+    cam = (Camera.from_intrinsics(59.11, 59.01, 33.1, 23.46, device=CPU)
+           .move_to([0.0, 0.0, -200.0]).look_at([0.0, 0.0, 750.0]))
+    depth = torch.from_numpy(
+        fixtures.sphere_depth_map(w, h, 20.0, 800.0, 1200.0).astype(np.float32))
+    flow = torch.from_numpy(np.random.default_rng(3).uniform(
+        -5.0, 5.0, (h, w, 3)).astype(np.float32))
+    calls = []
+    real = tsf.row_gather_op
+    monkeypatch.setattr(tsf, "row_gather_op",
+                        lambda t, i: calls.append((t, i)) or real(t, i))
+    _, _, overflowed = tsf.scenefusion_step(
+        _small_sphere(300.0), depth, flow, cam, max_cubes=max_cubes)
+    assert not bool(overflowed) and len(calls) == 1
+    table, idx = calls[0]
+    assert table.shape == (h * w, 4) and idx.shape == (max_cubes * 24,)
+    live = int((idx > 0).sum())
+    assert live > 100 and int((idx == 0).sum()) > idx.numel() // 2
+    got, want = _rows_both(table.numpy(), idx.numpy())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_row_gather_twin_matches_pallas_on_the_deform_points_taps(
+        monkeypatch):
+    """The 8 taps of ``deform_points`` on the mesh of a small volume,
+    recorded: the (N^3, 3) deformation field and 8 indices a vertex."""
+    vol = _small_sphere(200.0, with_field=True)
+    verts, _ = soup_to_numpy(extract_surface(vol, max_cubes=1 << 12,
+                                             max_vertices=1 << 16))
+    assert len(verts) > 1000
+    calls = []
+    real = deform.row_gather_op
+    monkeypatch.setattr(deform, "row_gather_op",
+                        lambda t, i: calls.append((t, i)) or real(t, i))
+    deform.deform_points(vol, verts)
+    assert len(calls) == 1
+    table, idx = calls[0]
+    assert table.shape == (32**3, 3) and idx.shape == (8 * len(verts),)
+    got, want = _rows_both(table.numpy(), idx.numpy())
+    np.testing.assert_array_equal(got, want)
 
 
 # -- windowed lane gather -----------------------------------------------------

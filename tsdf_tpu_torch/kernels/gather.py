@@ -35,7 +35,13 @@ import ctypes
 
 import torch
 
-from ._build import Kernel, check_same_device, check_tensor, stream_handle
+from ._build import (
+    Kernel,
+    check_same_device,
+    check_tensor,
+    library,
+    stream_handle,
+)
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel(
@@ -226,6 +232,29 @@ def row_gather_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             j, n, w * table.element_size(), stream_handle(dev),
         )
     return out
+
+
+# The row gather's instances by the code ``tsdf_row_gather_instance``
+# returns (csrc/gather_rows.cu); 8 is added where the 12-byte instance loads
+# its indices one at a time.
+_ROW_GATHER_INSTANCES = ("generic 1 B", "generic 2 B", "generic 4 B",
+                         "generic 8 B", "generic 16 B", "rows12", "rows16")
+
+
+def row_gather_instance(table: torch.Tensor, idx: torch.Tensor) -> str:
+    """The instance ``row_gather_op`` launches for these tensors, as the
+    library picks it from the row width and the pointers (the output is a
+    fresh allocation, which PyTorch aligns to 512 bytes): "rows16",
+    "rows12" or "generic N B" (N the bytes of its word); "rows12, scalar
+    indices" where ``idx`` is not 8-byte aligned. Needs the kernels
+    library, so a card."""
+    fn = library().tsdf_row_gather_instance
+    fn.argtypes = [_P, _P, _P, _L]
+    fn.restype = ctypes.c_int
+    code = fn(table.data_ptr(), idx.data_ptr(), 0,
+              table.shape[1] * table.element_size())
+    name = _ROW_GATHER_INSTANCES[code & 7]
+    return name + ", scalar indices" if code & 8 else name
 
 
 # -- windowed lane gather -----------------------------------------------------
