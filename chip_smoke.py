@@ -12,7 +12,8 @@ Phases (any failed check exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card, its power limit;
   2. build: compile csrc/*.cu with nvcc into the package's build dir;
   3. each kernel against its plain PyTorch twin on the card, at the
-     shapes the main paths give it, with CUDA-event median times, the
+     shapes the main paths give it, with CUDA-event median times
+     (``tsdf_tpu_torch.utils.profiling.median_ms``), the
      least time the card could take for the same work (its bound) and,
      where one PyTorch call computes the same function, that call's time
      (integrate over two frames, so the second blends into voxels that
@@ -69,7 +70,18 @@ Phases (any failed check exits non-zero; nothing is caught):
      output checks and the raycast hits' distance from the analytic
      surface; then the ``icp`` verb on the saved volume and a depth
      frame from a nearby pose, with launch counts and the recovered
-     motion;
+     motion; then the package-level API (``api``): the root ``integrate``
+     (depth, and with colour) against ``integrate_cuda`` /
+     ``integrate_color_cuda`` over two 512^3 frames, the stacked
+     ``icp_step_banded`` against the planar form at level 0 of the first
+     tracked frame, the root ``raycast`` and ``render_to_depth_image``
+     against their wrappers, all bit-equal with their launches counted; a
+     checkpoint resume at 512^3 (2 frames, ``save_sharded``,
+     ``load_sharded``, 2 more) bit-equal with 4 frames fused straight,
+     with the save and load seconds; the ``view`` verb on the saved .tsdf
+     (seconds; the tiles on the card byte-equal with the CPU's); the
+     ``convert`` verb on a 640x480 freenect PGM and a 256^3 float volume;
+     a ``Timer`` span and a ``profile_to`` trace around a fused frame;
   5. the per-frame fuse time of the device loop alone;
   6. the tracked path: the same directory through
      ``cli.main(["fuse", "--track", "--filter", ...])`` (its poses serve
@@ -133,6 +145,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -140,6 +153,8 @@ import time
 
 import numpy as np
 import torch
+
+from tsdf_tpu_torch.utils.profiling import median_ms, profile_step
 
 SIZE = 512
 PHYSICAL = 3000.0
@@ -212,32 +227,6 @@ def bound(bytes_moved: float, operations: float) -> dict:
     by_ops = operations / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
-
-
-# Clock cycles the card spins before each timed run (about 20 ms): the
-# launches under test queue up behind it, so a kernel of a few
-# microseconds is timed back to back with its neighbours and not by the
-# time the host takes to launch it.
-BLOCKER_CYCLES = 40_000_000
-
-
-def median_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
-    """Median CUDA-event time of one ``fn()`` over ``reps`` runs of
-    ``inner`` calls each, queued behind a blocker on the stream."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(BLOCKER_CYCLES)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
 
 
 # The kernels library of another checkout (``--parent DIR``, the parent
@@ -1193,6 +1182,336 @@ def phase_icp_verb(dev, tsdf_path: str, out_dir: str) -> dict:
     check(rot_err < ICP_VERB_ROT_RAD, "icp verb rotation")
     check(inliers > 0.02 * W * H, "icp verb inliers")
     return counts
+
+
+def equal_volumes(a, b) -> bool:
+    """Every field of two volumes equal bit for bit (None where None)."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            return False
+    return True
+
+
+def api_integrate(dev, frames, rgbs, smi: str) -> None:
+    """The root ``integrate`` against the wrapper its route names: two
+    frames into a 512^3 volume each way, bit-equal, two launches each;
+    then the same with colour frames against ``integrate_color_cuda``."""
+    from tsdf_tpu_torch import Camera, integrate, make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import (
+        integrate_color_cuda,
+        integrate_cuda,
+    )
+
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames[:2]]
+    for what, kernel, color in (("integrate", "integrate", False),
+                                ("integrate(rgb=)", "integrate_color", True)):
+        vols = []
+        for route in ("root", "wrapper"):
+            vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev,
+                              with_color=color)
+            reset_launch_counts()
+            for (depth, _), rgb, cam in zip(frames, rgbs, cams):
+                if route == "root":
+                    vol = integrate(vol, depth, cam, rgb=rgb if color else None)
+                elif color:
+                    vol, _miss = integrate_color_cuda(vol, depth, rgb, cam,
+                                                      mode="exact")
+                else:
+                    vol = integrate_cuda(vol, depth, cam)
+            torch.cuda.synchronize()
+            check_counts(launch_counts(), f"api: {what}, {route}",
+                         **{kernel: 2})
+            vols.append(vol)
+        same = equal_volumes(*vols)
+        log(f"api: root {what} against {kernel}_cuda at 512^3, two frames: "
+            f"bit-equal {same}, {kernel} launched 2 and 2 times ({smi})")
+        check(same, f"api: root {what} differs from {kernel}_cuda")
+        del vols, vol
+        torch.cuda.empty_cache()
+
+
+def api_raycast_icp(dev, frames, smi: str) -> None:
+    """The stacked ``icp_step_banded`` against the planar form at level 0
+    of the tracked loop's first frame (the filtered second frame against
+    the model depth of the volume the first one fused), one lane-gather
+    launch each; then the root ``raycast`` and ``render_to_depth_image``
+    against their wrappers on the volume the two frames leave, one
+    raycast launch each, and ``raycast(mode="fixed")`` refused."""
+    from tsdf_tpu_torch import Camera, make_volume, raycast, render_to_depth_image
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
+    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
+    from tsdf_tpu_torch.kernels.raycast import (
+        raycast_cuda,
+        raycast_vertices_cuda,
+        render_to_depth_image_cuda,
+    )
+    from tsdf_tpu_torch.ops.raycast import vertices_to_camera_depth
+    from tsdf_tpu_torch.tracking.icp import (
+        icp_step_banded,
+        icp_step_banded_planes,
+        normal_map,
+        normal_map_planes,
+        vertex_map,
+        vertex_map_planes,
+    )
+
+    vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames[:2]]
+    cam = cams[0]
+    integrate_cuda(vol, frames[0][0], cam)
+
+    cfg = tracked_config()
+    model = vertices_to_camera_depth(raycast_vertices_cuda(vol, cam, W, H),
+                                     cam.pose_inv)
+    current = bilateral_filter_cuda(frames[1][0], cfg.sigma_colour,
+                                    cfg.sigma_space)
+    rot = torch.eye(3, dtype=torch.float32, device=dev)
+    trans = torch.zeros(3, dtype=torch.float32, device=dev)
+    intr = (FX, FY, CX, CY)
+    vc = vertex_map_planes(current, *intr)
+    planar, stacked = None, None
+    for what in ("planar", "stacked"):
+        reset_launch_counts()
+        if what == "planar":
+            planar = icp_step_banded_planes(
+                rot, trans, vc, normal_map_planes(*vc), model, *intr,
+                band=cfg.icp_band)
+        else:
+            vmap = vertex_map(current, *intr)
+            stacked = icp_step_banded(rot, trans, vmap, normal_map(vmap),
+                                      model, *intr, band=cfg.icp_band)
+        torch.cuda.synchronize()
+        check_counts(launch_counts(), f"api: icp_step_banded, {what}",
+                     lane_gather=1)
+    same = all(torch.equal(a, b) for a, b in zip(planar, stacked))
+    inliers = int(planar[3])
+    log(f"api: stacked icp_step_banded against the planar form at level 0 of "
+        f"the first tracked frame: A, b, residual and inliers bit-equal {same} "
+        f"({inliers} inliers), one lane-gather launch each ({smi})")
+    check(inliers > 0.02 * W * H, "api: too few ICP inliers")
+    check(same, "api: stacked icp_step_banded differs from the planar form")
+
+    integrate_cuda(vol, frames[1][0], cams[1])
+    runs = {}
+    for what, fn in (
+        ("root raycast", lambda: raycast(vol, cam, W, H)),
+        ("raycast_cuda", lambda: raycast_cuda(vol, cam, W, H)),
+        ("root render_to_depth_image",
+         lambda: render_to_depth_image(vol, cam, W, H)),
+        ("render_to_depth_image_cuda",
+         lambda: render_to_depth_image_cuda(vol, cam, W, H)),
+    ):
+        reset_launch_counts()
+        runs[what] = fn()
+        torch.cuda.synchronize()
+        check_counts(launch_counts(), f"api: {what}", raycast=1)
+    (v0, n0), (v1, n1) = runs["root raycast"], runs["raycast_cuda"]
+    hits = int(torch.isfinite(v0).all(-1).sum())
+    same = (torch.equal(v0.nan_to_num(7.0), v1.nan_to_num(7.0))
+            and torch.equal(torch.isnan(v0), torch.isnan(v1))
+            and torch.equal(n0, n1))
+    depth_same = torch.equal(runs["root render_to_depth_image"],
+                             runs["render_to_depth_image_cuda"])
+    log(f"api: root raycast against raycast_cuda at 512^3, {W}x{H}: vertices "
+        f"and normals bit-equal {same} ({hits} hits); root "
+        f"render_to_depth_image against render_to_depth_image_cuda: bit-equal "
+        f"{depth_same}; one raycast launch each ({smi})")
+    check(hits > 0.5 * W * H, "api: the raycast hit too few pixels")
+    check(same, "api: root raycast differs from raycast_cuda")
+    check(depth_same, "api: root render_to_depth_image differs")
+    try:
+        raycast(vol, cam, W, H, mode="fixed")
+        refused = False
+    except ValueError as e:
+        refused = "fixed-step raycast kernel" in str(e)
+    check(refused, "api: raycast(mode='fixed') on CUDA tensors did not raise")
+
+
+def api_checkpoint(dev, frames, tmp: str, smi: str) -> None:
+    """Fuse two frames, ``save_sharded``, ``load_sharded`` onto a fresh
+    volume, fuse two more: bit-equal with four frames fused straight."""
+    from tsdf_tpu_torch import Camera, integrate, make_volume
+    from tsdf_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames[:4]]
+    straight = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    for (depth, _), cam in zip(frames, cams):
+        integrate(straight, depth, cam)
+    vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    for (depth, _), cam in zip(frames[:2], cams[:2]):
+        integrate(vol, depth, cam)
+    path = os.path.join(tmp, "checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_sharded(vol, path)
+    save_s = time.perf_counter() - t0
+    del vol
+    like = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    t0 = time.perf_counter()
+    vol = load_sharded(path, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del like
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    for (depth, _), cam in zip(frames[2:4], cams[2:4]):
+        integrate(vol, depth, cam)
+    torch.cuda.synchronize()
+    same = equal_volumes(vol, straight)
+    log(f"api: checkpoint at 512^3: save_sharded {save_s:.3f} s, load_sharded "
+        f"{load_s:.3f} s, {size} bytes; 2 frames + resume + 2 frames bit-equal "
+        f"with 4 straight: {same} ({smi})")
+    check(same, "api: the resumed fusion differs from the straight one")
+    shutil.rmtree(path)
+
+
+def api_view(dev, tsdf_path: str, out_dir: str, smi: str) -> None:
+    """``cli.main(["view", ...])`` on the GT-pose path's 512^3 .tsdf; the
+    three tiles computed on the card against the same computed on the
+    CPU, byte for byte, and each PNG the verb wrote against its tile."""
+    from tsdf_tpu_torch import cli
+    from tsdf_tpu_torch.io.png import load_png
+    from tsdf_tpu_torch.io.tsdf_file import load_tsdf
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    view_dir = os.path.join(out_dir, "view")
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["view", "-f", tsdf_path, "-o", view_dir,
+                       "--device", dev.type])
+    seconds = time.perf_counter() - t0
+    log(out.getvalue().rstrip())
+    check(rc == 0, f"view returned {rc}")
+    check_counts(launch_counts(), "api: view")
+    vol = load_tsdf(tsdf_path, device=dev)
+    card = [(n, t.cpu()) for n, t in cli.view_tiles(vol)]
+    del vol
+    torch.cuda.empty_cache()
+    host = cli.view_tiles(load_tsdf(tsdf_path, device=torch.device("cpu")))
+    shapes = []
+    for (name, a), (_, b) in zip(card, host):
+        png = load_png(os.path.join(view_dir, f"{name}.png"))
+        shapes.append(f"{name} {tuple(a.shape)}")
+        check(torch.equal(a, b), f"api: view tile {name}: card != CPU")
+        check(np.array_equal(png, a.numpy()), f"api: view {name}.png != tile")
+    log(f"api: view of the 512^3 .tsdf in {seconds:.2f} s ({', '.join(shapes)}"
+        f"): tiles on the card byte-equal with the CPU's, PNGs equal to them "
+        f"({smi})")
+    shutil.rmtree(view_dir)
+
+
+def api_convert(tmp: str, smi: str) -> None:
+    """``cli.main(["convert", ...])``, host code: a 640x480 freenect PGM to
+    PNG (and as a plain PGM), and a 256^3 float volume to bytes."""
+    from tsdf_tpu_torch import cli
+    from tsdf_tpu_torch.io.convert import freenect_raw11_to_mm
+    from tsdf_tpu_torch.io.pgm import load_pgm, save_pgm
+    from tsdf_tpu_torch.io.png import load_png
+
+    rng = np.random.default_rng(13)
+    raw = rng.integers(300, 1100, size=(H, W)).astype(np.uint16)
+    raw[rng.random((H, W)) < 0.05] = 2047
+    pgm = os.path.join(tmp, "freenect.pgm")
+    save_pgm(pgm, raw.byteswap())  # freenect writes the low byte first
+    fl = os.path.join(tmp, "volume.fl")
+    vol = rng.uniform(-4.0, 9.0, size=256**3).astype(np.float32)
+    with open(fl, "wb") as f:
+        np.array([256, 256, 256], np.uint32).tofile(f)
+        np.array([2550.0] * 3, np.float32).tofile(f)
+        vol.tofile(f)
+    times = {}
+    for kind, src, dst in (("freenect2png", pgm, "depth.png"),
+                           ("pgm2png", pgm, "raw.png"),
+                           ("fl2uchar", fl, "volume.u8")):
+        dst = os.path.join(tmp, dst)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["convert", kind, src, dst])
+        times[kind] = time.perf_counter() - t0
+        check(rc == 0 and os.path.getsize(dst) > 0, f"api: convert {kind}")
+        log(out.getvalue().rstrip())
+    check(np.array_equal(load_png(os.path.join(tmp, "depth.png")),
+                         freenect_raw11_to_mm(raw)), "api: freenect2png")
+    check(np.array_equal(load_png(os.path.join(tmp, "raw.png")), load_pgm(pgm)),
+          "api: pgm2png")
+    u8 = np.fromfile(os.path.join(tmp, "volume.u8"), np.uint8)
+    lo, hi = float(vol.min()), float(vol.max())
+    check(np.array_equal(u8, np.clip((vol - lo) * (255.0 / (hi - lo)), 0, 255)
+                         .astype(np.uint8)), "api: fl2uchar")
+    log("api: convert (host code): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+        + f" (640x480 PGM; 256^3 floats) ({smi})")
+    for f in (pgm, fl, "depth.png", "raw.png", "volume.u8"):
+        os.remove(os.path.join(tmp, f))
+
+
+def api_profiling(dev, frames, tmp: str, smi: str) -> None:
+    """One ``Timer`` span and one ``profile_to`` trace around a fused
+    frame: the span logs one JSON line with a positive ``ms``, the trace
+    is a file."""
+    import logging
+
+    from tsdf_tpu_torch import Camera, integrate, make_volume
+    from tsdf_tpu_torch.utils import profiling
+
+    depth, pose = frames[0]
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(pose)
+    vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    integrate(vol, depth, cam)  # warm
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    profiling.log.addHandler(handler)
+    level = profiling.log.level
+    profiling.log.setLevel(logging.INFO)
+    trace_dir = os.path.join(tmp, "trace")
+    try:
+        with profiling.profile_to(trace_dir):
+            with profiling.Timer("integrate", voxels=SIZE**3) as t:
+                with profiling.trace("api integrate"):
+                    t.result = integrate(vol, depth, cam)
+    finally:
+        profiling.log.removeHandler(handler)
+        profiling.log.setLevel(level)
+    span = json.loads(records[0].getMessage())
+    files = [f for f in os.listdir(trace_dir)
+             if os.path.isfile(os.path.join(trace_dir, f))]
+    size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files)
+    log(f"api: Timer span {span} ; profile_to wrote {files} ({size} bytes) "
+        f"({smi})")
+    check(len(records) == 1 and span["span"] == "integrate" and span["ms"] > 0,
+          "api: the Timer span")
+    check(size > 0, "api: profile_to wrote no trace file")
+    shutil.rmtree(trace_dir)
+
+
+def phase_api(dev, frames, rgbs, tsdf_path: str, tmp: str, smi: str) -> None:
+    """The package-level API and the verbs and utilities ported with it:
+    the root integrate / raycast / render_to_depth_image against the
+    wrappers their routes name, the stacked ICP step against the planar
+    one, a checkpoint resume at 512^3, the ``view`` and ``convert`` verbs,
+    and the profiling helpers. Any mismatch fails the run."""
+    api_integrate(dev, frames, rgbs, smi)
+    torch.cuda.empty_cache()
+    api_raycast_icp(dev, frames, smi)
+    torch.cuda.empty_cache()
+    api_checkpoint(dev, frames, tmp, smi)
+    torch.cuda.empty_cache()
+    api_view(dev, tsdf_path, os.path.dirname(tsdf_path), smi)
+    torch.cuda.empty_cache()
+    api_convert(tmp, smi)
+    api_profiling(dev, frames, tmp, smi)
+    torch.cuda.empty_cache()
 
 
 def phase_tracked_path(dev, tum: str, out_dir: str) -> dict:
@@ -3115,8 +3434,9 @@ def compare_pose_grad(dev, frames) -> dict:
     registers = kernel_registers(["pose_grad_copy_kernel", "pose_grad_walk_kernel"])
     # device time by kernel: the copy of the culled bricks, the walk of the
     # live ones, the pre-passes and the wrapper's small launches
-    split = {what: profile_step(lambda: pose_grad_cuda(vol, d, cam, gd, gw),
-                                f"pose adjoint 512^3, {what}")["top"]
+    split = {what: profile_and_log(
+                 lambda: pose_grad_cuda(vol, d, cam, gd, gw),
+                 f"pose adjoint 512^3, {what}")["top"]
              for what, d in (("frame", depth), ("no depth", no_depth))}
     # bytes: gbar_d, gbar_w in and dd, dw out at every voxel, tsdf and
     # weight at an updated one, depth and its two gradient images once
@@ -3205,37 +3525,19 @@ def compare_probe(dev) -> dict:
                 registers=loop["registers"])
 
 
-def profile_step(fn, what: str, n: int = 3) -> dict:
-    """``n`` calls of ``fn`` under torch.profiler: the card's busy time and
-    kernel launches per call, the busy time by kernel (the top five), the
-    host time by operator (the top four), the host syncs per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    launches = sum(e.count for e in kernels) / n
-    syncs = sum(e.count for e in events
-                if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
-                             "cudaDeviceSynchronize")) / n
-    top = [(e.key[:60], e.count // n, e.self_device_time_total / 1e3 / n)
-           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]]
-    for name, count, ms in top:
+def profile_and_log(fn, what: str, n: int = 3) -> dict:
+    """``profile_step(fn, n)``, its top kernels and host operators and its
+    totals logged; returns what it returned."""
+    prof = profile_step(fn, n)
+    for name, count, ms in prof["top"]:
         log(f"{what} step, kernel {name}: {count} a step, {ms:.4f} ms a step")
-    cpu = [e for e in events if not str(e.device_type).endswith("CUDA")]
-    for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:4]:
-        log(f"{what} step, host op {e.key[:40]}: {e.count // n} a step, "
-            f"{e.self_cpu_time_total / 1e3 / n:.4f} ms of host time a step, "
-            f"{e.self_cpu_time_total / max(e.count, 1):.1f} us a call")
-    log(f"{what} step under the profiler: device busy {busy_ms:.4f} ms, "
-        f"{launches:.0f} kernel launches, {syncs:.0f} host syncs a step")
-    return dict(busy_ms=busy_ms, launches=launches, syncs=syncs,
-                top=[list(t) for t in top])
+    for name, count, ms, us in prof["host"]:
+        log(f"{what} step, host op {name}: {count} a step, {ms:.4f} ms of "
+            f"host time a step, {us:.1f} us a call")
+    log(f"{what} step under the profiler: device busy {prof['busy_ms']:.4f} "
+        f"ms, {prof['launches']:.0f} kernel launches, {prof['syncs']:.0f} "
+        "host syncs a step")
+    return prof
 
 
 def phase_config4b(dev) -> dict:
@@ -3310,7 +3612,7 @@ def phase_config4b(dev) -> dict:
         log(f"config4b value-and-grad step by CUDA events, in turns: kernel "
             f"{step_ms:.4f}, parent's adjoint {parent_step_ms:.4f}, kernel "
             f"{step_ms2:.4f}, parent's adjoint {parent_step_ms2:.4f} ms")
-    prof = profile_step(
+    prof = profile_and_log(
         lambda: fusion_loss_and_grad(vol, depth, cam, target, delta0),
         "config4b value-and-grad")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3397,8 +3699,8 @@ def phase_config4(dev) -> dict:
     log(f"config4: target hits {int(hit.sum())} of {W * H} pixels; initial "
         f"pose offset {terr0:.4f} mm")
     step_ms = median_ms(lambda: lm_step(scene, cam0, target, zero, 1e-2), reps=5)
-    prof = profile_step(lambda: lm_step(scene, cam0, target, zero, 1e-2),
-                        "config4 LM")
+    prof = profile_and_log(lambda: lm_step(scene, cam0, target, zero, 1e-2),
+                           "config4 LM")
     errors = []
 
     def stop(xi):
@@ -3530,8 +3832,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on an NVIDIA card", file=sys.stderr)
         return 1
-    import tsdf_tpu_torch  # noqa: F401  (fails outside a checkout)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3608,6 +3908,7 @@ def main() -> int:
         gt_path = phase_gt_path(dev, tum, out_dir)
         phase_surface(dev, gt_path["outs"], first_pose)
         icp_counts = phase_icp_verb(dev, gt_path["outs"]["tsdf"], out_dir)
+        phase_api(dev, frames, rgbs, gt_path["outs"]["tsdf"], tmp, smi)
         for f in gt_path["outs"].values():
             os.remove(f)
         phase_fuse_time(dev, frames)

@@ -1231,3 +1231,125 @@ def test_brick_integrate_zero_depth_leaves_the_volume(dev):
         assert bool(integrate.brick_cull(vol, empty.to(dev), cam).all())
     torch.cuda.synchronize()
     assert torch.equal(vol.tsdf, tsdf) and torch.equal(vol.weight, weight)
+
+
+# -- the package-level API on the card ----------------------------------------
+
+
+def _api_frames(dev, n=2):
+    rng = np.random.default_rng(13)
+    out = []
+    for i in range(n):
+        d = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0).astype(np.float32)
+        d = d + (d > 0) * rng.uniform(-4.0, 4.0, d.shape).astype(np.float32)
+        rgb = np.roll(fixtures.gradient_rgb(W, H, diagonal=True), 17 * i, axis=1)
+        out.append((torch.from_numpy(d).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(rgb)).to(dev),
+                    _camera(dev, [40.0 * i - 60.0, 25.0 * i, -500.0],
+                            [0.0, 0.0, 1000.0])))
+    return out
+
+
+def _volumes_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (x is None) == (y is None), f.name
+        if x is not None:
+            assert torch.equal(x, y), f.name
+
+
+@pytest.mark.parametrize("kind", ["depth", "rgb", "deformed"])
+def test_root_integrate_is_its_kernel(dev, kind):
+    """The root ``integrate`` launches the kernel its route names, once a
+    frame, and equals that wrapper's result bit for bit."""
+    import tsdf_tpu_torch
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    def fresh():
+        vol = make_volume((48, 40, 36), 2000.0, offset=(-1000.0, -800.0, 0.0),
+                          with_color=kind == "rgb",
+                          with_deformation=kind == "deformed", device=dev)
+        if kind == "deformed":
+            vol = vol.replace(deform=vol.deform + torch.tensor(
+                [18.0, -9.0, 6.0], device=dev))
+        return vol
+
+    frames = _api_frames(dev)
+    name = {"depth": "integrate", "rgb": "integrate_color",
+            "deformed": "integrate_warped"}[kind]
+    root, direct = fresh(), fresh()
+    reset_launch_counts()
+    for depth, rgb, cam in frames:
+        assert tsdf_tpu_torch.integrate(
+            root, depth, cam, rgb=rgb if kind == "rgb" else None) is root
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts[name] == len(frames)
+    assert sum(counts.values()) == len(frames)
+    for depth, rgb, cam in frames:
+        if kind == "rgb":
+            integrate.integrate_color_cuda(direct, depth, rgb, cam, mode="exact")
+        elif kind == "deformed":
+            integrate.integrate_warped_cuda(direct, depth, cam)
+        else:
+            integrate.integrate_cuda(direct, depth, cam)
+    _volumes_equal(root, direct)
+
+
+def test_root_raycast_is_its_kernel(dev):
+    import tsdf_tpu_torch
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    vol = make_volume((64, 64, 64), 2000.0, offset=(-1000.0, -1000.0, 0.0),
+                      device=dev)
+    vol = fixtures.sphere_tsdf(vol, 400.0)
+    cam = _camera(dev, [150.0, -100.0, -600.0], [0.0, 0.0, 1000.0])
+    reset_launch_counts()
+    v, n = tsdf_tpu_torch.raycast(vol, cam, W, H)
+    d = tsdf_tpu_torch.render_to_depth_image(vol, cam, W, H)
+    torch.cuda.synchronize()
+    assert launch_counts()["raycast"] == 2
+    wv, wn = raycast.raycast_cuda(vol, cam, W, H)
+    assert torch.equal(torch.isnan(v), torch.isnan(wv))
+    assert torch.equal(v.nan_to_num(7.0), wv.nan_to_num(7.0))
+    assert torch.equal(n, wn)
+    assert torch.equal(d, raycast.render_to_depth_image_cuda(vol, cam, W, H))
+    assert int(torch.isfinite(v).all(-1).sum()) > 1000
+    for keywords in (dict(mode="fixed"), dict(step_scale=0.5)):
+        with pytest.raises(ValueError, match="fixed-step raycast kernel"):
+            tsdf_tpu_torch.raycast(vol, cam, W, H, **keywords)
+
+
+def test_checkpoint_and_view_on_the_card(dev, tmp_path):
+    """A checkpoint of a card's volume restores onto the card bit-equal;
+    the view tiles computed on the card equal the CPU's byte for byte."""
+    from tsdf_tpu_torch import cli
+    from tsdf_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    vol = make_volume((40, 36, 32), 2000.0, offset=(-1000.0, -900.0, 0.0),
+                      with_color=True, device=dev)
+    for depth, rgb, cam in _api_frames(dev):
+        integrate.integrate_color_cuda(vol, depth, rgb, cam)
+    save_sharded(vol, str(tmp_path / "c"))
+    like = make_volume((40, 36, 32), 2000.0, with_color=True, device=dev)
+    out = load_sharded(str(tmp_path / "c"), like)
+    assert out.device == dev
+    _volumes_equal(out, vol)
+    host = vol.replace(**{f.name: getattr(vol, f.name).cpu()
+                          for f in dataclasses.fields(vol)
+                          if getattr(vol, f.name) is not None})
+    for (name, a), (_, b) in zip(cli.view_tiles(vol), cli.view_tiles(host)):
+        assert a.is_cuda and torch.equal(a.cpu(), b), name
+
+
+def test_timing_helpers_on_the_card(dev):
+    from tsdf_tpu_torch.utils.profiling import median_ms, profile_step, sync
+
+    x = torch.ones(1 << 20, device=dev)
+    ms = median_ms(lambda: x.mul_(1.0), reps=5)
+    assert 0.0 < ms < 10.0
+    prof = profile_step(lambda: x.mul_(1.0), n=3)
+    assert prof["launches"] == 1 and prof["busy_ms"] > 0
+    assert prof["top"] and len(prof["top"][0]) == 3
+    assert prof["host"] and len(prof["host"][0]) == 4
+    assert sync(x) == float(1 << 20)

@@ -19,6 +19,7 @@ wall, and a volume whose sides are no multiple of the brick.
 """
 
 import dataclasses
+import importlib
 import itertools
 
 import jax.numpy as jnp
@@ -35,8 +36,11 @@ from tsdf_tpu_torch.kernels.raycast import (
     brick_table_shape,
     uniform_bricks,
 )
-from tsdf_tpu_torch.ops import raycast as raycast_ops
 from tsdf_tpu_torch.utils import fixtures
+
+# the module, not the ``raycast`` function that ``tsdf_tpu_torch.ops``
+# exports under the same name
+raycast_ops = importlib.import_module("tsdf_tpu_torch.ops.raycast")
 
 CPU = torch.device("cpu")
 W, H = 160, 120

@@ -31,6 +31,11 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
 
 
+def _homogeneous(xy: torch.Tensor) -> torch.Tensor:
+    """(..., 2) -> (..., 3) with a trailing 1."""
+    return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+
+
 def _inv(m: torch.Tensor) -> torch.Tensor:
     """The same LU inverse as ``torch.linalg.inv``, without its host sync:
     ``inv`` copies the LU status to the host to check for a singular
@@ -158,10 +163,83 @@ class Camera:
         """Camera->world rotation block."""
         return self.pose[0:3, 0:3]
 
+    # -- transforms (all broadcast over leading dims) ----------------------
+
+    def _points(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=_F32, device=self.device)
+
+    def pixel_to_image_plane(self, pixels) -> torch.Tensor:
+        """(..., 2) pixels -> (..., 2) normalised image-plane coords."""
+        pixels = self._points(pixels)
+        cam = _homogeneous(pixels) @ self.k_inv.T
+        return cam[..., 0:2] / cam[..., 2:3]
+
+    def image_plane_to_pixel(self, coords) -> torch.Tensor:
+        """(..., 2) image-plane coords -> (..., 2) rounded pixels."""
+        coords = self._points(coords)
+        img = _homogeneous(coords) @ self.k.T
+        return torch.round(img[..., 0:2])
+
+    def camera_to_world(self, points) -> torch.Tensor:
+        """(..., 3) camera space -> world."""
+        points = self._points(points)
+        p = self.pose
+        r = points @ p[0:3, 0:3].T + p[0:3, 3]
+        w = points @ p[3, 0:3] + p[3, 3]
+        return r / w[..., None]
+
     def world_to_camera(self, points) -> torch.Tensor:
         """(..., 3) world -> camera space."""
-        points = torch.as_tensor(points, dtype=_F32, device=self.device)
+        points = self._points(points)
         pi = self.pose_inv
         r = points @ pi[0:3, 0:3].T + pi[0:3, 3]
         w = points @ pi[3, 0:3] + pi[3, 3]
         return r / w[..., None]
+
+    def world_to_camera_normal(self, normals) -> torch.Tensor:
+        """Rotate (..., 3) world normals into the camera frame."""
+        return self._points(normals) @ self.pose_inv[0:3, 0:3].T
+
+    def world_to_pixel(self, points) -> torch.Tensor:
+        """(..., 3) world -> (..., 2) rounded pixels: K (pose_inv p),
+        perspective divide, round, as the integrate kernels project."""
+        img = self.world_to_camera(points) @ self.k.T
+        return torch.round(img[..., 0:2] / img[..., 2:3])
+
+    def camera_to_pixel(self, points) -> torch.Tensor:
+        """(..., 3) camera space -> (..., 2) rounded pixels:
+        K (x/z, y/z, 1). (The reference's device version reuses the
+        updated x when computing y; the intended maths is kept.)"""
+        points = self._points(points)
+        img = points[..., 0:2] / points[..., 2:3]
+        return torch.round((_homogeneous(img) @ self.k.T)[..., 0:2])
+
+    def pixel_to_camera(self, pixels, depth) -> torch.Tensor:
+        """(..., 2) pixels + (...,) depth -> (..., 3) camera-space points,
+        depth * K^-1 (x, y, 1). K^-1's last row is (0, 0, 1), so z is
+        the depth exactly."""
+        pixels = self._points(pixels)
+        depth = self._points(depth)
+        plane = _homogeneous(pixels) @ self.k_inv.T
+        return plane * depth[..., None]
+
+    def pixel_to_world(self, pixels, depth) -> torch.Tensor:
+        """(..., 2) pixels + (...,) depth -> (..., 3) world points."""
+        return self.camera_to_world(self.pixel_to_camera(pixels, depth))
+
+    # -- depth-map geometry ------------------------------------------------
+
+    def depth_map_to_vertices(self, depth) -> tuple[torch.Tensor, torch.Tensor]:
+        """(H, W) depth in mm -> ((H, W, 3) camera-space vertices, mask).
+        A zero depth is invalid: its mask is False and its vertex 0."""
+        depth = self._points(depth)
+        h, w = depth.shape
+        ys, xs = torch.meshgrid(
+            torch.arange(h, device=self.device),
+            torch.arange(w, device=self.device),
+            indexing="ij",
+        )
+        pixels = torch.stack([xs, ys], dim=-1).to(_F32)
+        verts = self.pixel_to_camera(pixels, depth)
+        mask = depth > 0
+        return torch.where(mask[..., None], verts, torch.zeros_like(verts)), mask

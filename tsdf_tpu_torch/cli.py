@@ -10,23 +10,28 @@ Verbs:
            and, with -o, a .tsdf file
   render   load a .tsdf, raycast it to scene/normals (and --color) PNGs
   mesh     marching cubes a .tsdf to PLY (--color: per-vertex RGB)
+  view     per-slice heat-maps of a .tsdf's distance field, tiled into
+           top.png, right.png and front.png
   icp      raycast a .tsdf to depth, ICP against a depth PNG, print the
            incremental pose + lastError/lastInliers
   sfusion  non-rigid fusion (SceneFusion) from an RGBD dir
            (depth_NNNNN.png / colour_NNNNN.png) and a scene-flow dir
            (PD-Flow text or SRSF XML), write mesh.ply
+  convert  format converters: freenect2png, pgm2png, fl2uchar (host
+           code, no device)
 
-Every verb takes ``--device`` (default ``cuda``). On a CUDA device every
-integration (depth, or depth + colour with --fuse-color), raycast,
-bilateral filter and lane gather a verb makes is the CUDA kernel (``icp``
-launches the raycast kernel alone: its exact association makes no lane
-gather; ``sfusion`` launches, per frame after the first, the lane gather
-four times in the masked surface extraction, the row gather once for the
-correspondences and the warped integrate once, and the lane gather four
-more times for the final mesh); the colour render and the per-vertex colours are plain PyTorch
-on the volume's device, as they are plain XLA in the JAX package;
-``--device cpu`` runs the kernels' plain PyTorch twins. ``--device cuda``
-without a card raises.
+Every verb but ``convert`` takes ``--device`` (default ``cuda``). On a
+CUDA device every integration (depth, or depth + colour with
+--fuse-color), raycast, bilateral filter and lane gather a verb makes is
+the CUDA kernel (``icp`` launches the raycast kernel alone: its exact
+association makes no lane gather; ``sfusion`` launches, per frame after
+the first, the lane gather four times in the masked surface extraction,
+the row gather once for the correspondences and the warped integrate
+once, and the lane gather four more times for the final mesh); the
+colour render, the per-vertex colours and ``view``'s heat maps are plain
+PyTorch on the volume's device, as they are plain XLA or numpy in the
+JAX package; ``--device cpu`` runs the kernels' plain PyTorch twins.
+``--device cuda`` without a card raises.
 
 Run as ``python -m tsdf_tpu_torch <verb> ...``.
 """
@@ -35,6 +40,8 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import math
+import os
 import sys
 import time
 
@@ -362,6 +369,78 @@ def cmd_sfusion(args):
     return 0
 
 
+def heat_map(tsdf: torch.Tensor, trunc: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 heat map of distances: blue (negative) -> white (zero)
+    -> red (positive), in float32 throughout. ``trunc`` is a 0-d float32
+    tensor: dividing by a tensor keeps the division IEEE on the card,
+    where a Python scalar divisor becomes a multiplication by its
+    reciprocal."""
+    t = torch.clamp(tsdf / trunc, -1.0, 1.0)
+    chans = (
+        (1 + torch.clamp(t, max=0.0)) * 255,
+        (1 - t.abs()) * 255,
+        (1 - torch.clamp(t, min=0.0)) * 255,
+    )
+    return torch.stack(
+        [torch.clamp(c, 0, 255).to(torch.uint8) for c in chans], dim=-1
+    )
+
+
+def view_tiles(vol) -> list[tuple[str, torch.Tensor]]:
+    """The ``view`` verb's three tiles on the volume's device: the heat
+    maps of the slices along y ("top"), x ("right") and z ("front"), laid
+    out row by row in a grid of ceil(sqrt(n)) columns, unused cells
+    black."""
+    heat = heat_map(vol.tsdf, vol.truncation_distance.to(torch.float32))
+    tiles = []
+    for name, axis in (("top", 1), ("right", 2), ("front", 0)):
+        slices = heat.movedim(axis, 0)  # (n, h, w, 3)
+        n, h, w, _ = slices.shape
+        cols = int(math.ceil(math.sqrt(n)))
+        rows = int(math.ceil(n / cols))
+        grid = torch.zeros(
+            (rows * cols, h, w, 3), dtype=torch.uint8, device=heat.device
+        )
+        grid[:n] = slices
+        tiles.append((
+            name,
+            grid.reshape(rows, cols, h, w, 3).permute(0, 2, 1, 3, 4)
+            .reshape(rows * h, cols * w, 3),
+        ))
+        del grid
+    return tiles
+
+
+def cmd_view(args):
+    """Heat-map tiles of a .tsdf's distance field, computed on the device;
+    each tile is copied to the host once and written as a PNG."""
+    from .io.png import save_png
+    from .io.tsdf_file import load_tsdf
+
+    device = resolve_device(args.device)
+    vol = load_tsdf(args.file, device=device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    for name, tile in view_tiles(vol):
+        path = os.path.join(args.out_dir, f"{name}.png")
+        save_png(path, tile.cpu().numpy())
+        print(f"wrote {path}")
+    return 0
+
+
+def cmd_convert(args):
+    from .io.convert import fl_2_uchar, freenect2png, pgm2png
+
+    if args.kind == "freenect2png":
+        freenect2png(args.input, args.output)
+    elif args.kind == "fl2uchar":
+        lo, hi = fl_2_uchar(args.input, args.output)
+        print(f"Min: {lo:f}, Max : {hi:f}")
+    else:
+        pgm2png(args.input, args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
 def cmd_mesh(args):
     from .io.tsdf_file import load_tsdf
 
@@ -436,6 +515,12 @@ def main(argv=None):
     _add_device_arg(p)
     p.set_defaults(fn=cmd_mesh)
 
+    p = sub.add_parser("view", help="slice heat-maps of a .tsdf")
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("-o", "--out-dir", default="tsdf_view")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_view)
+
     p = sub.add_parser("icp", help="pose of a depth frame vs a .tsdf")
     p.add_argument("-v", "--volume", required=True)
     p.add_argument("-d", "--depth", required=True)
@@ -458,6 +543,12 @@ def main(argv=None):
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_sfusion)
+
+    p = sub.add_parser("convert", help="format converters")
+    p.add_argument("kind", choices=("freenect2png", "pgm2png", "fl2uchar"))
+    p.add_argument("input")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_convert)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -59,6 +59,7 @@ class TUMDataLoader:
                 self.entries.append(
                     (depth_path, tum_pose_matrix(parts[1:8]))
                 )
+        self._cursor = 0
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -66,6 +67,15 @@ class TUMDataLoader:
     def __iter__(self):
         for depth_path, pose in self.entries:
             yield self.load(depth_path), pose
+
+    def next(self):
+        """The next (DepthImage, pose), or (None, None) past the last
+        frame. The cursor is the loader's own; iteration does not move it."""
+        if self._cursor >= len(self.entries):
+            return None, None
+        depth_path, pose = self.entries[self._cursor]
+        self._cursor += 1
+        return self.load(depth_path), pose
 
     @staticmethod
     def load(depth_path: str) -> DepthImage:

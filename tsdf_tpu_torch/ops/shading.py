@@ -5,6 +5,10 @@ from __future__ import annotations
 
 import torch
 
+from .raycast import compute_normals_from_vertices
+
+compute_normals = compute_normals_from_vertices
+
 
 def scene_image(vertices, normals, light_source) -> torch.Tensor:
     """(H, W) u8 greyscale: 0.2 + 0.8 * max(0, n . normalize(light - v)),

@@ -107,6 +107,20 @@ def vertex_map_planes(depth, fx, fy, cx, cy, cutoff: float = DEPTH_CUTOFF_MM):
     return vx, vy, vz
 
 
+def vertex_map(depth, fx, fy, cx, cy, cutoff: float = DEPTH_CUTOFF_MM):
+    """(H, W, 3) camera-space vertices in mm; NaN where invalid: the
+    planes of :func:`vertex_map_planes` stacked."""
+    return torch.stack(
+        vertex_map_planes(depth, fx, fy, cx, cy, cutoff), dim=-1
+    )
+
+
+def normal_map(vmap: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) normals of an (H, W, 3) vertex map; NaN where undefined:
+    :func:`normal_map_planes` on its planes, stacked."""
+    return torch.stack(normal_map_planes(*vmap.unbind(-1)), dim=-1)
+
+
 def normal_map_planes(vx, vy, vz):
     """Screen-space normals normalize(cross(v(x+1) - v, v(y+1) - v)) as
     three (H, W) planes; NaN where undefined (the last row and column, and
@@ -270,9 +284,15 @@ def icp_step_banded_planes(
     dist_thresh: float = DIST_THRESH_MM,
     angle_thresh: float = ANGLE_THRESH,
     cutoff: float = DEPTH_CUTOFF_MM,
+    row_offset=0,
 ):
     """One Gauss-Newton step's normal equations with the banded
     association, on (H, W) component planes.
+
+    The current planes may be a row shard of the frame: ``row_offset``
+    (an int or a 0-d integer tensor) is the shard's first row in the
+    whole image, so that the band is measured against true model rows;
+    ``depth_prev`` stays the whole model image.
 
     Only the model *depth* image is looked up: d00, d10, d01 =
     depth_prev[py, px], [py, px + 1], [py + 1, px] where the projected
@@ -298,6 +318,7 @@ def icp_step_banded_planes(
     # (px + 1, py + 1) must exist for the normal stencil
     in_img = (px >= 0) & (px < w - 1) & (py >= 0) & (py < h - 1)
     yy = torch.arange(hc, dtype=torch.int32, device=dp.device)[:, None]
+    yy = yy + row_offset
     found = in_img & ((py - yy).abs() <= band)
 
     lin = torch.where(found, py * w + px, torch.full_like(px, -1))
@@ -355,6 +376,34 @@ def icp_step_banded_planes(
         ]
     ).reshape(8, -1)
     return _normal_equations(planes)
+
+
+def icp_step_banded(
+    rot, trans,
+    vmap_curr: torch.Tensor,
+    nmap_curr: torch.Tensor,
+    depth_prev: torch.Tensor,
+    fx, fy, cx, cy,
+    band: int = 32,
+    dist_thresh: float = DIST_THRESH_MM,
+    angle_thresh: float = ANGLE_THRESH,
+    cutoff: float = DEPTH_CUTOFF_MM,
+    row_offset=0,
+    adaptive: bool = True,
+):
+    """:func:`icp_step_banded_planes` on (H, W, 3) current maps; the
+    same (A, b, residual_sq_sum, inlier_count).
+
+    ``adaptive`` is accepted and has no effect: the JAX package's
+    adaptive sweep over the rows that occur is bit-identical to its fixed
+    sweep, and here each pixel looks its model row up directly.
+    """
+    del adaptive
+    return icp_step_banded_planes(
+        rot, trans, vmap_curr.unbind(-1), nmap_curr.unbind(-1), depth_prev,
+        fx, fy, cx, cy, band=band, dist_thresh=dist_thresh,
+        angle_thresh=angle_thresh, cutoff=cutoff, row_offset=row_offset,
+    )
 
 
 # -- the Gauss-Newton loop ------------------------------------------------

@@ -279,3 +279,12 @@ def make_volume(
     if with_deformation:
         vol = vol.with_identity_deformation()
     return vol.with_color() if with_color else vol
+
+
+def voxel_for_point(points, voxel_size) -> torch.Tensor:
+    """(..., 3) grid-local points in mm -> (..., 3) int32 voxel indices:
+    floor(points / voxel_size). Points that are not a tensor go to the
+    device of a tensor ``voxel_size``."""
+    dev = voxel_size.device if isinstance(voxel_size, torch.Tensor) else None
+    points = torch.as_tensor(points, dtype=_F32, device=dev)
+    return torch.floor(points / voxel_size).to(torch.int32)
