@@ -100,7 +100,24 @@ Phases (any failed check exits non-zero; nothing is caught):
      colour) and ``track_and_fuse_frames``: launch counts, no miss, the
      fused field against the exact fusion and the analytic surface, and
      ms/frame of the fast and the exact fuse loop side by side;
- 10. SceneFusion: a fabricated RGB-D + PD-Flow directory (a sphere seen
+ 10. bf16 storage (``TSDFVolume.astype``): each bf16 kernel instance (the
+     four integrates of the brick walk, the raycast, the warped integrate
+     with and without colour, the pose adjoint) bit-equal with its bf16
+     twin, timed in turns with its float32 instance, its bound with 2-byte
+     storage; ``fuse_frames`` of the 20 frames at 512^3 on a bf16 volume
+     in depth, colour, fast and colour-fast modes (counted: the bf16
+     instance only) against the same on float32 (weights and colour equal,
+     tsdf within one bf16 ulp of its largest magnitude), the device peaks
+     of both; the tracked loop on a bf16 volume; the marching-cubes vertex
+     count beside float32's; the SceneFusion loop and colour frames into a
+     deformed bf16 volume; one config4b step on a bf16 volume;
+ 11. decode: the TUM frames rewritten with Paeth and mixed row filters,
+     the native unfilter (``csrc/png_unfilter.cpp``) bit-equal with its
+     twin on every file, ms/frame of the Python codec, the native codec,
+     ``load_png16_batch`` and the prefetched loader, and the ``fuse`` verb's
+     wall time on the filtered frames (native and Python codec) beside the
+     unfiltered ones, renders byte-equal; the native library must build;
+ 12. SceneFusion: a fabricated RGB-D + PD-Flow directory (a sphere seen
      from the identity pose, a uniform +x flow of 4 + i mm) through
      ``cli.main(["sfusion", ...])`` with exact launch counts; the
      ``SceneFusion`` class on the same files with dumps, bit-equal to a
@@ -2108,16 +2125,17 @@ def sf_run(dev, depth, flows, n_frames=SF_FRAMES):
     return vol, n_corrs, overflows
 
 
-def warped_bound(vol, in_front: int, updated: int, band: int = 0) -> dict:
+def warped_bound(vol, in_front: int, updated: int, band: int = 0,
+                 storage_bytes: int = 4) -> dict:
     """The least time for one warped integrate of a 640x480 frame: the
     deformed centre of every voxel (12 B), tsdf and weight read and
-    written where a voxel is updated (16 B: a voxel that fails a gate
-    needs neither), the depth image once; with colour, 6 B per voxel in
-    the colour band and the rgb image. The operations are the rigid
+    written where a voxel is updated (16 B, 8 B in bf16: a voxel that fails
+    a gate needs neither), the depth image once; with colour, 6 B per voxel
+    in the colour band and the rgb image. The operations are the rigid
     kernel's less the centre's six."""
     n = vol.tsdf.numel()
     o = INTEGRATE_OPS
-    moved = 12 * n + 16 * updated + W * H * 4
+    moved = 12 * n + 4 * storage_bytes * updated + W * H * 4
     ops = (o["voxel"] - 6) * n + o["in_front"] * in_front + o["updated"] * updated
     if band:
         moved += 6 * band + W * H * 3
@@ -3068,7 +3086,9 @@ def probe_raycast(dev, frames) -> dict:
         libs["parent"] = (path, os.path.join(os.path.dirname(path), "build.log"))
     out = {}
     for who, (lib, build_log) in libs.items():
-        found = sass_loop(lib, build_log, "raycast_kernel")
+        # the float32 instance (the parent's library has no other)
+        found = sass_loop(lib, build_log, "raycast_kernel" if who == "parent"
+                          else "raycast_kernelIfE")
         log(f"probe raycast, {who}: {found['registers']} registers, march "
             f"loop of {found['loop_instructions']} instructions "
             f"({found['loop_loads']} global loads) of {found['instructions']}")
@@ -3431,7 +3451,8 @@ def compare_pose_grad(dev, frames) -> dict:
 
     copy_ms = median_ms(copy_both, reps=20)
     del cd, cw
-    registers = kernel_registers(["pose_grad_copy_kernel", "pose_grad_walk_kernel"])
+    registers = kernel_registers(["pose_grad_copy_kernelIf",
+                                  "pose_grad_walk_kernelIfE"])
     # device time by kernel: the copy of the culled bricks, the walk of the
     # live ones, the pre-passes and the wrapper's small launches
     split = {what: profile_and_log(
@@ -3728,6 +3749,744 @@ def phase_config4(dev) -> dict:
                 errors=errors, rms=[h["rms"] for h in history], profile=prof)
 
 
+# -- bfloat16 volume storage ------------------------------------------------------
+
+BF16 = torch.bfloat16
+# the bf16 fusion of n frames against the float32 fusion of the same
+# frames: weights equal, and tsdf within n / 2 bf16 ulps at its largest
+# magnitude: each stored update rounds by at most half an ulp, and the
+# running mean carries an earlier rounding forward with a weight below 1
+# (for 3 frames about the JAX package's own gate of one ulp,
+# tests/test_integrate.py:204)
+BF16_ULPS_PER_FRAME = 0.5
+# the bf16 and float32 meshes of the same frames: vertex counts this close
+BF16_MESH_REL = 0.01
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit, NaN included: bf16 as 16-bit words, else 32."""
+    word = torch.int16 if a.dtype == BF16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(word), b.view(word))
+
+
+def in_turns(fn16, fn32, reps: int, inner: int = 1):
+    """Median ms of the bf16 and the float32 instance, in turns (bf16,
+    f32, bf16, f32): (the first bf16 time, the first f32 time, all four)."""
+    t = [median_ms(f, reps=reps, inner=inner) for f in (fn16, fn32, fn16, fn32)]
+    return t[0], t[1], t
+
+
+def bf16_integrates(dev, frames, rgbs) -> dict:
+    """The brick walk's four bf16 instances at 512^3 against their bf16
+    twins over the first two frames (the second blends into weighted,
+    coloured voxels): tsdf and weight bit-equal (the dtype kept), colour
+    bytes and miss counts equal. Each timed in turns with its float32
+    instance on a float32 volume of the same two frames; the bound with
+    2-byte storage (8 B of tsdf and weight read and written per updated
+    voxel)."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import _build
+    from tsdf_tpu_torch.kernels.integrate import (
+        integrate_color_cuda,
+        integrate_cuda,
+        integrate_fast_cuda,
+    )
+    from tsdf_tpu_torch.ops.integrate import integrate, integrate_fast
+
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames]
+    depths = [d for d, _ in frames]
+
+    def kernel(name, vol, i):
+        if name == "integrate":
+            return integrate_cuda(vol, depths[i], cams[i]), 0
+        if name == "integrate_fast":
+            return integrate_fast_cuda(vol, depths[i], cams[i])
+        mode = "fast" if name == "integrate_color_fast" else "exact"
+        return integrate_color_cuda(vol, depths[i], rgbs[i], cams[i], mode=mode)
+
+    def twin(name, vol, i):
+        rgb = rgbs[i] if "color" in name else None
+        if "fast" in name:
+            return integrate_fast(vol, depths[i], cams[i], rgb=rgb)
+        return integrate(vol, depths[i], cams[i], rgb=rgb), 0
+
+    results = {}
+    for name in ("integrate", "integrate_color", "integrate_fast",
+                 "integrate_color_fast"):
+        color = "color" in name
+        ref, out = (make_volume((SIZE,) * 3, PHYSICAL, with_color=color,
+                                dtype=BF16, device=dev) for _ in range(2))
+        out32 = make_volume((SIZE,) * 3, PHYSICAL, with_color=color, device=dev)
+        for i in range(2):
+            before = ref
+            ref, want_miss = twin(name, ref, i)
+            out, miss = kernel(name, out, i)
+            out32, _ = kernel(name, out32, i)
+            check(int(miss) == int(want_miss),
+                  f"{name} bf16: miss count {int(miss)}, twin {int(want_miss)}")
+        torch.cuda.synchronize()
+        blended = int(((ref.weight > before.weight) & (before.weight > 0)).sum())
+        equal = (out.tsdf.dtype == BF16 and bits_equal(out.tsdf, ref.tsdf)
+                 and bits_equal(out.weight, ref.weight)
+                 and (not color or torch.equal(out.color, ref.color)))
+        err = float((out.tsdf.float() - ref.tsdf.float()).abs().max())
+        updated = int((ref.weight > before.weight).sum())
+        band = int(((ref.color != before.color).any(-1)).sum()) if color else 0
+        log(f"{name} bf16 512^3, two frames: tsdf, weight"
+            + (", colour" if color else "") + f" bit-equal with the bf16 "
+            f"twin: {equal} (max |tsdf diff| {err:.3g} mm); the second frame "
+            f"blended into {blended} voxels of weight > 0; miss {int(miss)}")
+        check(blended > 0, f"{name} bf16: nothing was blended into")
+        check(equal, f"{name} bf16 differs from its twin")
+        ms, f32_ms, turns = in_turns(lambda: kernel(name, out, 1),
+                                     lambda: kernel(name, out32, 1), reps=20)
+        plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
+        fast = "fast" in name
+        pixels = W * H // 8 if fast else W * H
+        moved = 8 * updated + pixels * 4 + (6 * band + pixels * 3) * color
+        if fast:
+            ops = (FAST_OPS["voxel"] * SIZE**3 + FAST_OPS["column"] * SIZE**2
+                   + FAST_OPS["updated"] * updated)
+        else:
+            ops = (INTEGRATE_OPS["voxel"] * SIZE**3
+                   + INTEGRATE_OPS["in_front"] * voxels_in_front(ref, cams[1])
+                   + INTEGRATE_OPS["updated"] * updated)
+        ops += COLOR_OPS_PER_BAND_VOXEL * band
+        least = bound(moved, ops)
+        # the two instances' code: registers, SASS instructions, and the
+        # longest inner loop's instructions and global loads
+        args = f"Lb{int(fast)}ELb{int(color)}E"
+        sass = {d: sass_loop(str(_build.library_path()),
+                             str(_build.BUILD_DIR / "build.log"),
+                             f"integrate_kernelI{m}{args}")
+                for d, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))}
+        log(f"{name} bf16 512^3 one frame: kernel {ms:.4f} ms, float32 "
+            f"instance {f32_ms:.4f} ms (in turns: "
+            + ", ".join(f"{t:.4f}" for t in turns)
+            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({updated} voxels updated, 2-byte storage); "
+            + "; ".join(f"{d}: {v['registers']} registers, {v['instructions']} "
+                        f"SASS instructions, inner loop {v['loop_instructions']} "
+                        f"({v['loop_loads']} global loads)"
+                        for d, v in sass.items()))
+        results[name + "_bf16"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+            library_ms=None, f32_ms=f32_ms, updated=updated)
+        del ref, out, out32, before
+        torch.cuda.empty_cache()
+    return results
+
+
+def bf16_fuse_paths(dev, frames, rgbs, gt_poses) -> dict:
+    """The main paths on a bf16 volume, each with the counts set to 0
+    just before and read just after: ``fuse_frames`` of the 20 frames at
+    512^3 in depth, colour, fast and colour-fast modes (the bf16 instance
+    launched once a frame, no other kernel), each against the same path on
+    a float32 volume: weights (and colour bytes) equal, tsdf within
+    BF16_ULPS_PER_FRAME ulps a frame at its largest magnitude; the device
+    peak of the depth fuse, float32 against bf16 (the volume made in its
+    dtype), and ms/frame of both loops; then the tracked loop on a bf16
+    volume (the raycast's bf16 instance each frame after the first; ATE
+    under one voxel). Returns the fused depth-mode volumes and the launch
+    counts of each path."""
+    import warnings
+
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.pipelines.kinfu import (
+        FusionConfig,
+        fuse_frames,
+        track_and_fuse_frames,
+    )
+    from tsdf_tpu_torch.utils.trajectory import ate
+
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    triples = [(d, p, c) for (d, p), c in zip(frames, rgbs)]
+    n = len(frames)
+    out = {"counts": {}}
+    for mode in ("depth", "colour", "fast", "colour-fast"):
+        color = mode.startswith("colour")
+        cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL,
+                           width=W, height=H,
+                           integrate_mode="fast" if "fast" in mode else "exact")
+        source = triples if color else frames
+        name = {"depth": "integrate", "colour": "integrate_color",
+                "fast": "integrate_fast",
+                "colour-fast": "integrate_color_fast"}[mode] + "_bf16"
+        runs, peaks, seconds = {}, {}, {}
+        for dtype in (BF16, torch.float32):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            vol = make_volume((SIZE,) * 3, PHYSICAL, with_color=color,
+                              dtype=dtype, device=dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                vol, _ = fuse_frames(vol, cam, source, cfg)
+            torch.cuda.synchronize()
+            seconds[dtype] = time.perf_counter() - t0
+            counts = launch_counts()
+            peaks[dtype] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+            check(not [w for w in caught if "skipped" in str(w.message)],
+                  f"fuse_frames {mode}: voxels were skipped")
+            if dtype == BF16:
+                log(f"fuse_frames {mode}, bf16 volume, {n} frames: launches "
+                    f"{counts}")
+                check_counts(counts, f"fuse_frames {mode} bf16", **{name: n})
+                check(vol.tsdf.dtype == vol.weight.dtype == BF16,
+                      f"fuse_frames {mode}: the volume left bf16")
+                out["counts"][name] = counts[name]
+            runs[dtype] = vol
+        v16, v32 = runs[BF16], runs[torch.float32]
+        same_w = torch.equal(v16.weight.float(), v32.weight)
+        same_c = not color or torch.equal(v16.color, v32.color)
+        gap = float((v16.tsdf.float() - v32.tsdf).abs().max())
+        scale = float(v32.tsdf.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        gate = BF16_ULPS_PER_FRAME * n * ulp
+        log(f"fuse_frames {mode}, 512^3, bf16 against float32: weights equal "
+            f"{same_w}" + (f", colour bytes equal {same_c}" if color else "")
+            + f"; max |tsdf diff| {gap:.4f} mm = {gap / ulp:.2f} ulps of "
+            f"{ulp:g} mm at the largest magnitude {scale:.4f} (gate {n} / 2 "
+            f"ulps = {gate:.4f} mm); device peak above the frames "
+            f"{peaks[BF16]:.3f} GiB bf16, {peaks[torch.float32]:.3f} GiB float32;"
+            f" {seconds[BF16]:.3f} s / {seconds[torch.float32]:.3f} s with the "
+            "volume's allocation")
+        check(same_w and same_c, f"fuse_frames {mode}: bf16 weights or colour "
+              "differ from float32's")
+        check(gap <= gate,
+              f"fuse_frames {mode}: bf16 tsdf beyond bf16 rounding of f32")
+        out[mode] = dict(peak_gib_bf16=peaks[BF16],
+                         peak_gib_f32=peaks[torch.float32], tsdf_gap_mm=gap,
+                         tsdf_gap_ulps=gap / ulp)
+        if mode == "depth":
+            out["fused"] = runs
+            # timed on copies: the fused volumes are rendered and meshed next
+            t16, t32 = (v.replace(tsdf=v.tsdf.clone(), weight=v.weight.clone())
+                        for v in (v16, v32))
+            ms16, ms32, turns = in_turns(
+                lambda: fuse_frames(t16, cam, frames, cfg),
+                lambda: fuse_frames(t32, cam, frames, cfg), reps=3)
+            del t16, t32
+            log(f"fuse loop on the device, 512^3, ms/frame, bf16 and float32 "
+                f"volumes in turns: " + ", ".join(f"{t / n:.4f}" for t in turns))
+            out[mode].update(ms_per_frame_bf16=ms16 / n,
+                             ms_per_frame_f32=ms32 / n)
+        del runs, v16, v32, vol
+        torch.cuda.empty_cache()
+
+    # the tracked loop on a bf16 volume
+    cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL,
+                       width=W, height=H, use_bilateral_filter=True)
+    depths = [d for d, _ in frames]
+    reset_launch_counts()
+    vol, _cam, poses, stats = track_and_fuse_frames(
+        cfg.make_volume(device=dev).astype(BF16), cam.set_pose(frames[0][1]),
+        depths, cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"track_and_fuse_frames, bf16 volume, {n} frames: launches {counts}")
+    check_counts(counts, "tracked bf16", at_least=dict(lane_gather=19 * (n - 1)),
+                 integrate_bf16=n, raycast_bf16=n - 1, bilateral=n - 1)
+    a = ate([p.cpu().numpy() for p in poses], gt_poses)
+    inliers = [int(k) for _, k in stats[1:]]
+    log(f"tracked on a bf16 volume: ATE rmse {a['rmse']:.4f} mm (max "
+        f"{a['max']:.4f}), inliers {min(inliers)}..{max(inliers)}")
+    check(vol.tsdf.dtype == BF16, "the tracked loop's volume left bf16")
+    check(a["rmse"] < ATE_MAX_MM, "bf16 tracked ATE is not under one voxel")
+    check(min(inliers) > 0.02 * W * H, "bf16 tracked loop lost a frame")
+    out["counts"]["raycast_bf16"] = counts["raycast_bf16"]
+    out["tracked_ate_mm"] = a["rmse"]
+    return out
+
+
+def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
+    """The raycast's bf16 instance on the analytic 512^3 scene and on the
+    volume the 20-frame bf16 fuse leaves, against its bf16 twin: hit masks
+    equal, vertices bit-equal where hit; timed in turns with the float32
+    instance on the float32 volumes; the bound with 2-byte voxels. Then
+    the marching-cubes vertex count of the bf16 fuse beside the float32
+    fuse's."""
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.ops.marching_cubes import extract_surface
+    from tsdf_tpu_torch.ops.raycast import raycast_vertices
+
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(pose)
+    rows = {}
+    for name, (v16, v32) in vols32.items():
+        vk = raycast_vertices_cuda(v16, cam, W, H)
+        vp = raycast_vertices(v16, cam, W, H)
+        torch.cuda.synchronize()
+        hk, hp = torch.isfinite(vk).all(-1), torch.isfinite(vp).all(-1)
+        equal = torch.equal(hk, hp) and torch.equal(vk[hk].view(torch.int32),
+                                                    vp[hp].view(torch.int32))
+        err = float((vk[hk & hp] - vp[hk & hp]).abs().max())
+        h32 = torch.isfinite(raycast_vertices_cuda(v32, cam, W, H)).all(-1)
+        log(f"raycast bf16 512^3 {W}x{H}, {name} volume: hit masks equal and "
+            f"vertices bit-equal with the bf16 twin: {equal} ({int(hk.sum())} "
+            f"hits; the float32 volume's render {int(h32.sum())}, hit masks "
+            f"agree on {float((hk == h32).float().mean()):.6f})")
+        check(equal, f"raycast bf16 on the {name} volume differs from its twin")
+        n_samples, n_voxels, _hit, n_uniform = raycast_work(v16, cam)
+        ms, f32_ms, turns = in_turns(
+            lambda: raycast_vertices_cuda(v16, cam, W, H),
+            lambda: raycast_vertices_cuda(v32, cam, W, H), reps=10)
+        plain_ms = median_ms(lambda: raycast_vertices(v16, cam, W, H), reps=2)
+        least = bound(2 * n_voxels + 12 * W * H,
+                      RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
+        log(f"raycast bf16 512^3, {name} volume: kernel {ms:.4f} ms, float32 "
+            f"instance {f32_ms:.4f} ms (in turns: "
+            + ", ".join(f"{t:.4f}" for t in turns)
+            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
+            f"voxels of 2 B); {n_uniform / n_samples:.4f} of the samples in "
+            "uniform bricks")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+                          library_ms=None, f32_ms=f32_ms, samples=n_samples)
+    v16, v32 = vols32["fused"]
+    counts = [int(extract_surface(v, max_cubes=MAX_CUBES,
+                                  max_vertices=MAX_VERTICES).n_vertices)
+              for v in (v16, v32)]
+    log(f"marching cubes of the 20-frame fuse, 512^3: {counts[0]} vertices "
+        f"from the bf16 volume, {counts[1]} from the float32 one")
+    check(abs(counts[0] - counts[1]) <= BF16_MESH_REL * counts[1],
+          "the bf16 mesh's vertex count is far from float32's")
+    first, *others = rows
+    return {**rows[first], **{k: rows[k] for k in others},
+            "mesh_vertices_bf16": counts[0], "mesh_vertices_f32": counts[1]}
+
+
+def bf16_warped(dev, sf_depth, sf_flows) -> dict:
+    """The warped integrate's bf16 instances at 255^3 under the field two
+    real deformation updates leave, cast to bf16: two frames, tsdf and
+    weight (and colour bytes) bit-equal with the bf16 twin; timed in turns
+    with the float32 instances. Then the SceneFusion loop with a bf16
+    volume and its float32 field (the warped bf16 instance each frame),
+    bit-equal with the same loop through the plain twins, beside the loop
+    on float32; and colour frames into a deformed bf16 volume through
+    ``fuse_frames``."""
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import integrate_warped_cuda
+    from tsdf_tpu_torch.ops.integrate import integrate as integrate_plain
+    from tsdf_tpu_torch.pipelines import scenefusion as sf
+    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
+
+    field, _, _ = sf_run(dev, sf_depth, sf_flows, n_frames=3)
+    cam = sf_camera(dev)
+    rgb = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        (np.arange(W) * 255 // W).astype(np.uint8)[None, :, None], (H, W, 3))
+    )).to(dev)
+    results = {}
+    def copy(vol, dtype, color):
+        vol = vol.replace(tsdf=vol.tsdf.to(dtype, copy=True),
+                          weight=vol.weight.to(dtype, copy=True))
+        return vol.with_color() if color else vol
+
+    for name, color in (("integrate_warped", False),
+                        ("integrate_warped_color", True)):
+        ref, out, v32 = (copy(field, d, color)
+                         for d in (BF16, BF16, torch.float32))
+        c = rgb if color else None
+        for _ in range(2):
+            before = ref
+            ref = integrate_plain(ref, sf_depth, cam, rgb=c)
+            out = integrate_warped_cuda(out, sf_depth, cam, rgb=c)
+            v32 = integrate_warped_cuda(v32, sf_depth, cam, rgb=c)
+        torch.cuda.synchronize()
+        equal = (bits_equal(out.tsdf, ref.tsdf) and bits_equal(out.weight, ref.weight)
+                 and (not color or torch.equal(out.color, ref.color)))
+        err = float((out.tsdf.float() - ref.tsdf.float()).abs().max())
+        updated = int((ref.weight > before.weight).sum())
+        band = int((ref.color.to(torch.int32) > 0).any(-1).sum()) if color else 0
+        log(f"{name} bf16 255^3 after two deformation updates, two frames: "
+            f"bit-equal with the bf16 twin: {equal} ({updated} voxels updated)")
+        check(equal, f"{name} bf16 differs from its twin")
+        ms, f32_ms, turns = in_turns(
+            lambda: integrate_warped_cuda(out, sf_depth, cam, rgb=c),
+            lambda: integrate_warped_cuda(v32, sf_depth, cam, rgb=c), reps=20,
+            inner=4)
+        plain_ms = median_ms(lambda: integrate_plain(before, sf_depth, cam, rgb=c),
+                             reps=3)
+        least = warped_bound(ref, int((ref.deform[..., 2] > 0).sum()),
+                             updated, band, storage_bytes=2)
+        log(f"{name} bf16 255^3 one frame: kernel {ms:.4f} ms, float32 instance "
+            f"{f32_ms:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
+            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']}")
+        results[name + "_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       **least, library_ms=None, f32_ms=f32_ms)
+        del ref, out, v32, before
+    del field
+
+    # the SceneFusion loop on a bf16 volume through the kernels and through
+    # the plain twins (bit-equal), and the same loop on float32
+    loops = {}
+    for what, dtype, ctx in (("kernels", BF16, contextlib.nullcontext()),
+                             ("twins", BF16, plain_twins()),
+                             ("float32", torch.float32,
+                              contextlib.nullcontext())):
+        cfg = sf.SceneFusionConfig()
+        vol = cfg.make_volume(device=dev).astype(dtype)
+        reset_launch_counts()
+        with ctx:
+            vol = sf.integrate_warped_cuda(vol, sf_depth, cam)
+            for flow in sf_flows:
+                vol, _n, _over = sf.scenefusion_step(
+                    vol, sf_depth, flow, cam, max_cubes=cfg.max_cubes,
+                    threshold_mm=cfg.threshold_mm)
+        torch.cuda.synchronize()
+        loops[what] = (vol, launch_counts())
+    (v16, counts), (t16, _), (v32, _) = (loops[k] for k in
+                                         ("kernels", "twins", "float32"))
+    log(f"SceneFusion loop, bf16 volume, {SF_FRAMES} frames: launches {counts}")
+    check_counts(counts, "SceneFusion bf16", at_least=dict(lane_gather=1),
+                 integrate_warped_bf16=SF_FRAMES, row_gather=SF_FRAMES - 1)
+    equal = (bits_equal(v16.tsdf, t16.tsdf) and bits_equal(v16.weight, t16.weight)
+             and bits_equal(v16.deform, t16.deform))
+    # the bf16 surface lies within bf16 rounding of the float32 one, so
+    # voxels at the edge of the shell that brackets it can bracket a vertex
+    # in one run and not in the other: such a voxel takes a whole flow step
+    # more or less, and no voxel more than the flow fed
+    moved = int(((v32.deform - v32.voxel_centres()).abs().amax(-1) > 1e-3).sum())
+    gap = (v16.deform - v32.deform).abs().amax(-1)
+    differ = int((gap > 1e-3).sum())
+    same_w = float((v16.weight.float() == v32.weight).float().mean())
+    log(f"SceneFusion bf16: tsdf, weight and field bit-equal with the loop "
+        f"through the plain twins: {equal}; against float32 the field differs "
+        f"by more than 1e-3 mm at {differ} of the {moved} voxels it moved (max "
+        f"{float(gap.max()):.4g} mm; {SF_TOTAL_FLOW_MM} mm of flow fed), "
+        f"weights equal on {same_w:.6f} of the voxels")
+    check(equal, "SceneFusion bf16 differs from its run through the twins")
+    check(v16.tsdf.dtype == BF16 and v16.deform.dtype == torch.float32,
+          "SceneFusion bf16: the dtypes changed")
+    check(moved > 1000 and same_w >= 0.999
+          and float(gap.max()) <= SF_TOTAL_FLOW_MM,
+          "SceneFusion on bf16 is far from the float32 loop")
+    del loops, v16, t16, v32, gap
+
+    # colour frames into a deformed bf16 volume
+    vol = sf.SceneFusionConfig().make_volume(device=dev).astype(BF16).with_color()
+    white = torch.full((H, W, 3), 200, dtype=torch.uint8, device=dev)
+    reset_launch_counts()
+    vol, _ = fuse_frames(vol, cam, [(sf_depth, cam.pose, white)] * 3,
+                         FusionConfig(width=W, height=H))
+    torch.cuda.synchronize()
+    wc = launch_counts()
+    check_counts(wc, "deformed colour fuse bf16", integrate_warped_color_bf16=3)
+    check(float(vol.weight.max()) == 3.0, "deformed colour fuse bf16 weights")
+    results["counts"] = {"integrate_warped_bf16": counts["integrate_warped_bf16"],
+                         "integrate_warped_color_bf16":
+                             wc["integrate_warped_color_bf16"]}
+    return results
+
+
+def bf16_adjoint(dev, frames) -> dict:
+    """The pose adjoint's bf16 instance at 512^3 (the second frame over a
+    bf16 volume the first fused, bf16 cotangents): dd and dw bit-equal with
+    the bf16 twin, dpinv within POSE_GRAD_DPINV_RTOL, a second launch
+    bit-equal; timed in turns with the float32 instance; the bound with
+    2-byte cotangents and storage. Then one config4b value-and-grad step on
+    a bf16 volume through ``fusion_loss_and_grad``, counted, its gradient
+    against the float32 step's."""
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import integrate as kint
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import integrate_cuda, pose_grad_cuda
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad, sample_frame
+    from tsdf_tpu_torch.pipelines.pose_recovery import fusion_loss_and_grad
+    from tsdf_tpu_torch.utils import fixtures
+
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
+            for _, p in frames]
+    v32 = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+    integrate_cuda(v32, frames[0][0], cams[0])
+    v16 = v32.astype(BF16)
+    depth, cam = frames[1][0], cams[1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g32 = [torch.randn(v32.tsdf.shape, generator=gen, device=dev) for _ in range(2)]
+    g16 = [g.to(BF16) for g in g32]
+    dd, dw, dp = pose_grad_cuda(v16, depth, cam, *g16)
+    dd2, dw2, dp2 = pose_grad_cuda(v16, depth, cam, *g16)
+    rd, rw, rp = integrate_pose_grad(v16, depth, cam, *g16)
+    torch.cuda.synchronize()
+    err = float((dp - rp).abs().max())
+    scale = float(rp.abs().max())
+    equal = bits_equal(dd, rd) and bits_equal(dw, rw)
+    again = bits_equal(dd, dd2) and bits_equal(dw, dw2) and bits_equal(dp, dp2)
+    log(f"pose adjoint bf16 512^3: dd and dw bit-equal with the bf16 twin: "
+        f"{equal}; dpinv max |diff| {err:.4g} (largest entry {scale:.6g}); a "
+        f"second launch bit-equal: {again}")
+    check(equal and again and err <= POSE_GRAD_DPINV_RTOL * scale and scale > 0,
+          "the bf16 pose adjoint differs from its twin")
+    del dd2, dw2, rd, rw
+    *_, sdf, updated = sample_frame(depth, v16, cam)
+    n_upd = int(updated.sum())
+    in_band = int((updated & (sdf < v16.truncation_distance)).sum())
+    del sdf, updated
+    ms, f32_ms, turns = in_turns(lambda: pose_grad_cuda(v16, depth, cam, *g16),
+                                 lambda: pose_grad_cuda(v32, depth, cam, *g32),
+                                 reps=20)
+    plain_ms = median_ms(lambda: integrate_pose_grad(v16, depth, cam, *g16), reps=3)
+    o = POSE_GRAD_OPS
+    n = v16.tsdf.numel()
+    least = bound(8 * n + 4 * n_upd + 3 * 4 * depth.numel(),
+                  o["voxel"] * n + o["in_front"] * voxels_in_front(v16, cam)
+                  + o["updated"] * n_upd + o["band"] * in_band)
+    log(f"pose adjoint bf16 512^3 one frame: kernel {ms:.4f} ms, float32 "
+        f"instance {f32_ms:.4f} ms (in turns: "
+        + ", ".join(f"{t:.4f}" for t in turns)
+        + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+        f"{least['bound_by']} (2 B cotangents and storage); registers "
+        f"{kernel_registers(['pose_grad_walk_kernelI13__nv_bfloat16E'])}")
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+                  library_ms=None, f32_ms=f32_ms)
+    del v16, v32, g16, g32, dd, dw
+    torch.cuda.empty_cache()
+
+    # one config4b value-and-grad step on a bf16 volume (tools/run_config4b.py)
+    vol = make_volume((SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET, device=dev)
+    cam = default_camera(dev, *C4B_CAMERA)
+    depth = fixtures.sphere_depth_map(W, H, 150.0, 1000.0, 2500.0)
+    depth = torch.from_numpy(depth.astype(np.float32)).to(dev)
+    zero = torch.zeros(6, device=dev)
+    delta0 = torch.tensor(C4B_DELTA0, dtype=torch.float32, device=dev)
+    grads = {}
+    for dtype in (BF16, torch.float32):
+        v = vol.astype(dtype)
+        with torch.no_grad():
+            target, _ = kint.integrate_pose(v, depth, cam, zero)
+        reset_launch_counts()
+        loss, g = fusion_loss_and_grad(v, depth, cam, target, delta0)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        grads[dtype] = (float(loss), g)
+        if dtype == BF16:
+            log(f"config4b step, bf16 volume: launches {counts}")
+            check_counts(counts, "config4b bf16", integrate_bf16=1,
+                         integrate_pose_grad_bf16=1)
+            result["launches"] = counts["integrate_pose_grad_bf16"]
+            step_ms = median_ms(
+                lambda: fusion_loss_and_grad(v, depth, cam, target, delta0), reps=5)
+    (l16, g16), (l32, g32) = grads[BF16], grads[torch.float32]
+    cos = float((g16 @ g32) / (g16.norm() * g32.norm()))
+    log(f"config4b step 512^3: bf16 loss {l16:.6f}, gradient "
+        f"{g16.cpu().numpy().tolist()}; float32 loss {l32:.6f}, gradient "
+        f"{g32.cpu().numpy().tolist()}; cosine {cos:.6f}; {step_ms:.4f} ms a "
+        "bf16 value-and-grad step by CUDA events")
+    check(bool(torch.isfinite(g16).all()) and cos > 0.99,
+          "config4b on bf16: the gradient is far from float32's")
+    result.update(config4b_step_ms=step_ms, config4b_cosine=cos)
+    return result
+
+
+def phase_bf16(dev, frames, rgbs, gt_poses, sf_depth, sf_flows) -> dict:
+    """bfloat16 volume storage (``TSDFVolume.astype``) through every kernel
+    that reads the volume, its paths and its twins (see each part)."""
+    results = bf16_integrates(dev, frames[:2], rgbs[:2])
+    paths = bf16_fuse_paths(dev, frames, rgbs, gt_poses)
+    fused = paths.pop("fused")
+    scene32 = analytic_volume(dev)
+    results["raycast_bf16"] = bf16_raycast_and_mesh(
+        dev, {"analytic": (scene32.astype(BF16), scene32),
+              "fused": (fused[BF16], fused[torch.float32])}, frames[0][1])
+    del scene32, fused
+    torch.cuda.empty_cache()
+    warped = bf16_warped(dev, sf_depth, sf_flows)
+    torch.cuda.empty_cache()
+    results["integrate_pose_grad_bf16"] = bf16_adjoint(dev, frames)
+    counts = {**paths["counts"], **warped.pop("counts")}
+    results.update(warped)
+    for name, n in counts.items():
+        results[name]["launches"] = n
+    results["paths"] = paths
+    return results
+
+
+# -- frame loading: the native PNG unfilter and decode-ahead ----------------------
+
+# the row filters the rewritten frames use: every row Paeth, or the five
+# types in turn row by row (an encoder such as libpng picks per row)
+DECODE_FILTERS = {"paeth": (4,), "mixed": (4, 0, 3, 1, 2)}
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """The filtered image data of ``rows`` (H, stride) u8: row y filtered
+    with type ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth) behind its filter byte."""
+    h, stride = rows.shape
+    x = rows.astype(np.int32)
+    prior = np.vstack([np.zeros((1, stride), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int32), x[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int32), prior[:, :-bpp]])
+    p = left + prior - upleft
+    pa, pb, pc = (np.abs(p - v) for v in (left, prior, upleft))
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, prior, upleft))
+    preds = (0, left, prior, (left + prior) >> 1, paeth)
+    types = np.asarray([filters[y % len(filters)] for y in range(h)], np.uint8)
+    out = np.empty((h, stride + 1), np.uint8)
+    out[:, 0] = types
+    for f in set(types.tolist()):
+        sel = types == f
+        pred = preds[f] if f else 0
+        out[sel, 1:] = ((x - pred)[sel] & 0xFF).astype(np.uint8)
+    return out
+
+
+def save_png_filtered(path: str, array: np.ndarray, filters) -> None:
+    """Write ``array`` (u16 grey, u8 grey or u8 RGB) as a PNG whose row y
+    is filtered with type ``filters[y % len(filters)]``, as an encoder such
+    as libpng chooses per row (the port's ``save_png`` writes filter 0)."""
+    import struct
+    import zlib
+
+    array = np.asarray(array)
+    if array.dtype == np.uint16:
+        depth, ctype, pixels = 16, 0, array.astype(">u2")
+    else:
+        depth, ctype, pixels = 8, 0 if array.ndim == 2 else 2, array
+    h, w = array.shape[:2]
+    rows = np.ascontiguousarray(pixels).view(np.uint8).reshape(h, -1)
+    raw = _filter_rows(rows, (3 if ctype == 2 else 1) * depth // 8, filters)
+
+    def chunk(kind, body):
+        crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                           0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+@contextlib.contextmanager
+def without_native():
+    """``native.available()`` False inside: PNG rows unfiltered by the
+    plain twin, TUM frames decoded on the calling thread."""
+    from tsdf_tpu_torch import native
+
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def write_filtered_tum(src: str, dst: str) -> list:
+    """A copy of the TUM directory ``src`` at ``dst`` whose PNGs are
+    rewritten with row filters: depth frames every row Paeth (even) or
+    mixed (odd), rgb frames mixed. Returns (path, array written) for
+    every PNG."""
+    from tsdf_tpu_torch.io.png import load_png
+
+    shutil.copytree(src, dst)
+    written = []
+    for sub in ("depth", "rgb"):
+        for i, f in enumerate(sorted(os.listdir(os.path.join(dst, sub)))):
+            path = os.path.join(dst, sub, f)
+            with without_native():
+                image = load_png(path)
+            kind = "paeth" if sub == "depth" and i % 2 == 0 else "mixed"
+            save_png_filtered(path, image, DECODE_FILTERS[kind])
+            written.append((path, image))
+    return written
+
+
+def phase_decode(dev, tum: str, tmp: str, out_dir: str) -> dict:
+    """The TUM frames rewritten with Paeth and mixed row filters: the
+    native unfilter (``csrc/png_unfilter.cpp``) bit-equal with its plain
+    twin and with what was written, for every file; ms/frame of the Python
+    codec, the native codec, ``load_png16_batch`` and the prefetched
+    ``TUMDataLoader``; the ``fuse`` verb's wall time on the filtered frames
+    (with the native library, and with the Python codec) beside the
+    unfiltered ones, its renders byte-equal. The library must build."""
+    from tsdf_tpu_torch import native
+    from tsdf_tpu_torch.io import png
+    from tsdf_tpu_torch.io.tum import TUMDataLoader
+
+    check(native.available(), f"the native PNG library did not build: "
+          f"{native.build_error()}")
+    filtered = os.path.join(tmp, "tum_filtered")
+    written = write_filtered_tum(tum, filtered)
+    for path, want in written:
+        data = png.read_png(path)
+        got = png.unfiltered(data)
+        stride = data.width * data.bpp
+        twin = png._unfilter(data.raw, data.height, stride, data.bpp)
+        swapped = native.unfilter(data.raw, data.height, stride, data.bpp,
+                                  swap16=data.depth == 16)
+        if data.depth == 16:
+            twin = twin.view(">u2").astype(np.uint16)
+            swapped = swapped.view(np.uint16)
+        check(got.dtype == want.dtype and np.array_equal(got, want)
+              and np.array_equal(swapped.reshape(want.shape), twin.reshape(
+                  want.shape)),
+              f"{path}: the native unfilter differs from its twin")
+    depth_paths = sorted(p for p, _ in written if os.sep + "depth" + os.sep in p)
+    n = len(depth_paths)
+    log(f"decode: {len(written)} PNGs rewritten with row filters (depth Paeth "
+        f"/ mixed, rgb mixed), each decoded bit-equal by the native unfilter, "
+        f"its twin and as written")
+
+    def per_frame(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    with without_native():
+        python_ms = per_frame(lambda: [png.load_png(p) for p in depth_paths])
+    native_ms = per_frame(lambda: [png.load_png(p) for p in depth_paths])
+    batch = native.load_png16_batch(depth_paths, threads=8)
+    batch_ms = per_frame(lambda: native.load_png16_batch(depth_paths, threads=8))
+    loader = TUMDataLoader(filtered)
+    prefetch_ms = per_frame(lambda: [d for d, _ in loader])
+    check(all(np.array_equal(b, png.load_png(p))
+              for b, p in zip(batch, depth_paths)),
+          "load_png16_batch differs from load_png")
+    with without_native():
+        plain = [d.data for d, _ in TUMDataLoader(filtered)]
+    check(all(np.array_equal(d.data, q) for (d, _), q in zip(loader, plain)),
+          "the prefetched loader differs from the plain one")
+    log(f"decode 640x480 u16 depth, {n} Paeth/mixed-filtered frames, host "
+        f"ms/frame: Python codec {python_ms:.3f}, native codec {native_ms:.3f}, "
+        f"load_png16_batch (8 threads) {batch_ms:.3f}, TUMDataLoader "
+        f"(prefetched, x0.2 to mm) {prefetch_ms:.3f}")
+
+    seconds = {}
+    renders = {}
+    for what, src, plain_codec in (("unfiltered", tum, False),
+                                   ("filtered", filtered, False),
+                                   ("filtered, Python codec", filtered, True)):
+        sub = os.path.join(out_dir, "decode_" + str(len(seconds)))
+        os.makedirs(sub)
+        ctx = without_native() if plain_codec else contextlib.nullcontext()
+        with ctx:
+            run = run_fuse(dev, src, sub, mesh=False, tsdf=False)
+        check_counts(run["counts"], f"fuse, {what} frames",
+                     integrate=N_FRAMES, raycast=1)
+        seconds[what] = run["seconds"]
+        renders[what] = [open(run["outs"][k], "rb").read()
+                         for k in ("scene", "normals")]
+    check(renders["filtered"] == renders["unfiltered"]
+          == renders["filtered, Python codec"],
+          "the renders of the filtered frames differ")
+    log(f"fuse verb, {N_FRAMES} frames at {SIZE}^3, renders only: "
+        f"{seconds['unfiltered']:.3f} s on unfiltered frames, "
+        f"{seconds['filtered']:.3f} s on Paeth/mixed-filtered frames, "
+        f"{seconds['filtered, Python codec']:.3f} s on those with the Python "
+        "codec; renders byte-equal")
+    return dict(python_ms_per_frame=python_ms, native_ms_per_frame=native_ms,
+                batch_ms_per_frame=batch_ms, prefetch_ms_per_frame=prefetch_ms,
+                fuse_seconds=seconds)
+
+
 # -- config 3 (--config3): the 500-pose tracked orbit at 256^3 -----------------
 
 
@@ -3928,8 +4687,11 @@ def main() -> int:
         color_tracked = phase_color_tracked_path(dev, tum, out_dir, rgbs)
         torch.cuda.empty_cache()
         fast = phase_fast(dev, frames, rgbs, poses)
+        torch.cuda.empty_cache()
+        bf16 = phase_bf16(dev, frames, rgbs, poses, sf_depth, sf_flows)
         del frames, rgbs
         torch.cuda.empty_cache()
+        decode = phase_decode(dev, tum, tmp, out_dir)
         sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth, sf_flows)
         warped_color = phase_warped_color(dev, sf_depth)
 
@@ -4014,6 +4776,30 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": rep, "launches": config4b["counts"][k],
                         "launches_on": path, **results[k]})
+    # the bf16-storage instances, each with the launches of the path on a
+    # bf16 volume that runs it (the counts set to 0 just before it)
+    integ = "tsdf_tpu/kernels/integrate.py"
+    for k, src, rep, path in (
+        ("integrate_bf16", "integrate.cu", f"{integ}:289",
+         "fuse_frames, bf16 volume"),
+        ("integrate_color_bf16", "integrate_color.cu", f"{integ}:1087",
+         "fuse_frames, colour frames, bf16 volume"),
+        ("integrate_fast_bf16", "integrate_fast.cu", f"{integ}:371",
+         "fuse_frames(integrate_mode='fast'), bf16 volume"),
+        ("integrate_color_fast_bf16", "integrate_color.cu", f"{integ}:1087",
+         "fuse_frames(integrate_mode='fast'), colour frames, bf16 volume"),
+        ("raycast_bf16", "raycast.cu", "tsdf_tpu/kernels/raycast.py:518",
+         "track_and_fuse_frames, bf16 volume"),
+        ("integrate_warped_bf16", "integrate_warped.cu", f"{integ}:473",
+         "SceneFusion loop, bf16 volume"),
+        ("integrate_warped_color_bf16", "integrate_warped.cu", f"{integ}:473",
+         "fuse_frames, colour frames into a deformed bf16 volume"),
+        ("integrate_pose_grad_bf16", "integrate_pose_grad.cu", f"{integ}:1378",
+         "config4b: a value-and-grad step on a bf16 volume"),
+    ):
+        kernels.append({"name": k, "route": "cuda",
+                        "source": f"tsdf_tpu_torch/csrc/{src}", "replaces": rep,
+                        "launches_on": path, **bf16[k]})
     for entry in kernels:
         check(entry["launches"] > 0 or entry["launches_on"] in (no_path, probe),
               f"{entry['name']} was never launched")
@@ -4024,6 +4810,10 @@ def main() -> int:
         f"{config4b['residual_mm']:.4f} mm; config4: "
         f"{config4['host_step_ms']:.4f} ms a Levenberg-Marquardt step, "
         f"{config4['final_mm']:.4f} mm in {config4['iters']} iterations")
+    log(f"bf16 storage: 512^3 depth fuse peak {bf16['paths']['depth']['peak_gib_bf16']:.3f}"
+        f" GiB (float32 {bf16['paths']['depth']['peak_gib_f32']:.3f}); decode "
+        f"ms/frame Python {decode['python_ms_per_frame']:.3f}, native "
+        f"{decode['native_ms_per_frame']:.3f}")
     log(f"SceneFusion: {sfusion['ms_per_frame']:.4f} ms/frame on the device, "
         f"{sfusion['syncs_per_frame']:.3f} host syncs per frame, the sfusion "
         f"verb {sfusion['cli_seconds']:.2f} s for {SF_FRAMES} frames")

@@ -18,6 +18,8 @@ pose adjoint's dd and dw are bit-equal; its pose_inv cotangent, float64
 sums of the same float32 terms in another order, is within 1e-6 of its
 largest entry, and equals bit for bit the plain model of its reduction
 order (``kernels.integrate.pose_grad_partials``) summed on the card.
+Each kernel's bf16-storage instance (a bf16 volume, ``TSDFVolume.astype``)
+is held bit for bit to the twin on the same bf16 volume in the same way.
 """
 
 import dataclasses
@@ -1353,3 +1355,203 @@ def test_timing_helpers_on_the_card(dev):
     assert prof["top"] and len(prof["top"][0]) == 3
     assert prof["host"] and len(prof["host"][0]) == 4
     assert sync(x) == float(1 << 20)
+
+
+# -- bfloat16 storage: each kernel's bf16 instance against its bf16 twin -----
+
+BF16 = torch.bfloat16
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (NaN included): bf16 as 16-bit words, else 32."""
+    word = torch.int16 if a.dtype == BF16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(word), b.view(word))
+
+
+def _bf16_depths(dev, n=3):
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(n):
+        depth = fixtures.sphere_depth_map(W, H, 40.0, 800.0, 1600.0)
+        depth = depth.astype(np.float32) + rng.uniform(0, 5, depth.shape).astype(
+            np.float32) * (depth > 0)
+        depth[rng.uniform(size=depth.shape) < 0.02] = 0.0
+        out.append(torch.from_numpy(depth).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize("mode", ["exact", "fast", "color", "color_fast"])
+@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21)])
+def test_bf16_integrate_kernels_match_twins(dev, size, mode, cap_weight):
+    """The brick walk's bf16 instances over three frames into a bf16
+    volume (the later ones blend into weighted, coloured voxels; max_weight
+    2 so the cap bites): tsdf and weight bit-equal with the bf16 twin, the
+    dtype kept, colour bytes and miss counts equal; the bf16 instance is
+    launched and the float32 one is not."""
+    color = mode.startswith("color")
+    fast = mode.endswith("fast")
+    vol = make_volume(size, 2000.0, offset=(-1000.0, -800.0, 0.0),
+                      max_weight=2.0, with_color=color, dtype=BF16, device=dev)
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                      color=None if vol.color is None else vol.color.clone())
+    f32 = {"exact": integrate.KERNEL, "fast": integrate.KERNEL_FAST,
+           "color": integrate.KERNEL_COLOR,
+           "color_fast": integrate.KERNEL_COLOR_FAST}[mode]
+    kern = integrate.instance(f32, vol)
+    assert kern.symbol == f32.symbol + "_bf16"
+    for i, depth in enumerate(_bf16_depths(dev)):
+        cam = _camera(dev, [40.0 * i, -25.0 * i, -500.0 + 10.0 * i],
+                      [0.0, 0.0, 1000.0])
+        rgb = torch.from_numpy(np.roll(
+            fixtures.gradient_rgb(W, H, diagonal=True), 31 * i, axis=1
+        ).copy()).to(dev) if color else None
+        twin = integrate_fast_plain if fast else integrate_plain
+        out = twin(ref, depth, cam, cap_weight=cap_weight, rgb=rgb)
+        ref, want_miss = out if fast else (out, 0)
+        counts = (kern.launches, f32.launches)
+        if color:
+            vol, miss = integrate.integrate_color_cuda(
+                vol, depth, rgb, cam, cap_weight=cap_weight,
+                mode="fast" if fast else "exact")
+        elif fast:
+            vol, miss = integrate.integrate_fast_cuda(vol, depth, cam,
+                                                      cap_weight=cap_weight)
+        else:
+            vol, miss = integrate.integrate_cuda(
+                vol, depth, cam, cap_weight=cap_weight), 0
+        assert (kern.launches, f32.launches) == (counts[0] + 1, counts[1])
+        assert int(miss) == int(want_miss)
+    torch.cuda.synchronize()
+    assert _bits_equal(vol.tsdf, ref.tsdf) and _bits_equal(vol.weight, ref.weight)
+    assert float(vol.weight.max()) == (2.0 if cap_weight else 3.0)
+    if color:
+        assert torch.equal(vol.color, ref.color)
+        assert int((vol.color.to(torch.int32) > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("color", [False, True], ids=["depth", "colour"])
+@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21)])
+def test_bf16_warped_kernel_matches_twin(dev, size, color):
+    vol = _warped_volume(dev, size, color).astype(BF16)
+    ref = vol.replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone(),
+                      color=None if vol.color is None else vol.color.clone())
+    f32 = integrate.KERNEL_WARPED_COLOR if color else integrate.KERNEL_WARPED
+    kern = integrate.instance(f32, vol)
+    for i, depth in enumerate(_bf16_depths(dev)):
+        cam = _camera(dev, [40.0 * i, -25.0 * i, -500.0 + 10.0 * i],
+                      [0.0, 0.0, 1000.0])
+        rgb = torch.from_numpy(np.roll(
+            fixtures.gradient_rgb(W, H, diagonal=True), 31 * i, axis=1
+        ).copy()).to(dev) if color else None
+        ref = integrate_plain(ref, depth, cam, rgb=rgb)
+        before = kern.launches
+        vol = integrate.integrate_warped_cuda(vol, depth, cam, rgb=rgb)
+        assert kern.launches == before + 1
+    torch.cuda.synchronize()
+    assert _bits_equal(vol.tsdf, ref.tsdf) and _bits_equal(vol.weight, ref.weight)
+    assert float(vol.weight.max()) == 3.0
+    if color:
+        assert torch.equal(vol.color, ref.color)
+
+
+@pytest.mark.parametrize("cap_weight", [False, True])
+@pytest.mark.parametrize("image_term", [False, True])
+@pytest.mark.parametrize("size", [(64, 48, 40), (33, 50, 21), (70, 37, 13)])
+def test_bf16_pose_grad_kernel_matches_twin(dev, size, image_term, cap_weight):
+    """The adjoint's bf16 instance: dd and dw (bf16) bit-equal with the
+    twin's, dpinv within 1e-6 of its largest entry, two launches bit-equal;
+    x a multiple of 8 (the culled bricks' 16-byte copy) and not."""
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad
+
+    vol, depth, gd, gw = _adjoint_inputs(dev, size, seed=size[0])
+    vol, gd, gw = vol.astype(BF16), gd.to(BF16), gw.to(BF16)
+    cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
+    kw = dict(cap_weight=cap_weight, image_term=image_term)
+    before = integrate.KERNEL_POSE_GRAD_BF16.launches
+    dd, dw, dp = integrate.pose_grad_cuda(vol, depth, cam, gd, gw, **kw)
+    dd2, dw2, dp2 = integrate.pose_grad_cuda(vol, depth, cam, gd, gw, **kw)
+    assert integrate.KERNEL_POSE_GRAD_BF16.launches == before + 2
+    rd, rw, rp = integrate_pose_grad(vol, depth, cam, gd, gw, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(dd, rd) and _bits_equal(dw, rw)
+    assert float((dp - rp).abs().max()) <= 1e-6 * float(rp.abs().max()) + 1e-6
+    assert _bits_equal(dd, dd2) and _bits_equal(dw, dw2) and _bits_equal(dp, dp2)
+    assert (dd != gd).any() and float(dp.abs().max()) > 0
+    # a frame with no depth: a copy of the cotangents, bit for bit
+    dd, dw, dp = integrate.pose_grad_cuda(vol, torch.zeros_like(depth), cam,
+                                          gd, gw, **kw)
+    torch.cuda.synchronize()
+    assert _bits_equal(dd, gd) and _bits_equal(dw, gw)
+    assert not bool(dp.any())
+
+
+@pytest.mark.parametrize("case", ["scene", "ragged", "inside", "fused", "nan"])
+def test_bf16_raycast_kernel_matches_twin(dev, case):
+    """The raycast's bf16 instance on the scenes of the float32 test, cast
+    to bf16: hit masks equal, vertices bit-equal where hit; its brick table
+    is the float32 table of the widened volume."""
+    at, target = [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0]
+    if case == "ragged":
+        vol = _raycast_scene(dev, size=(45, 37, 29))
+    elif case == "inside":
+        vol, at = _raycast_scene(dev), [100.0, -80.0, 200.0]
+    elif case == "fused":
+        vol = _fused_raycast_volume(dev)
+        at, target = [0.0, 2.0, -90.0], [0.0, 0.0, 300.0]
+    elif case == "nan":
+        vol = _raycast_scene(dev, wall=1200.0)
+        tsdf = vol.tsdf.clone()
+        tsdf[57, 41, 25] = float("nan")
+        tsdf[48, 16, 16] = float("nan")
+        vol = vol.replace(tsdf=tsdf)
+    else:
+        vol = _raycast_scene(dev)
+    vol = vol.astype(BF16)
+    cam = _camera(dev, at, target)
+    before = raycast.KERNEL_BF16.launches, raycast.KERNEL.launches
+    vk, nk = raycast.raycast_cuda(vol, cam, W, H)
+    assert (raycast.KERNEL_BF16.launches, raycast.KERNEL.launches) == (
+        before[0] + 1, before[1])
+    vp, npl = raycast_plain(vol, cam, W, H)
+    torch.cuda.synchronize()
+    hits = _assert_same_render(vk, vp)
+    assert torch.equal(nk, npl)
+    assert hits > 0.2 * W * H
+    table = raycast.uniform_bricks(vol.tsdf)
+    assert torch.equal(table.isnan(), raycast.uniform_bricks(
+        vol.tsdf.float()).isnan())
+
+
+def test_bf16_integrate_pose_on_the_card_matches_the_cpu(dev):
+    """integrate_pose on a bf16 volume, CUDA tensors (the bf16 kernels)
+    against CPU tensors (the twins), with the float32 test's tolerances
+    and reasons: weights equal on >= 99.9 % of voxels, the twist gradient
+    within 1e-3 of its largest component; the fused volume stays bf16."""
+    vol, depth, gd, _gw = _adjoint_inputs(dev, (48, 40, 44), seed=7)
+    vol = vol.astype(BF16)
+    cam = _camera(dev, [100.0, -50.0, -500.0], [0.0, 0.0, 1200.0])
+    delta = np.array([0.004, -0.003, 0.002, 12.0, -9.0, 8.0], np.float32)
+    grads, outs = [], []
+    for d in (dev, torch.device("cpu")):
+        v = vol.replace(**{f: getattr(vol, f).to(d) for f in (
+            "tsdf", "weight", "physical_size", "offset",
+            "truncation_distance", "max_weight", "global_rotation",
+            "global_translation")})
+        c = Camera.from_numpy(*(t.cpu().numpy() for t in (
+            cam.k, cam.pose, cam.k_inv, cam.pose_inv)), device=d)
+        x = torch.tensor(delta, device=d, requires_grad=True)
+        before = integrate.KERNEL_POSE_GRAD_BF16.launches
+        out, miss = integrate.integrate_pose(v, depth.to(d), c, x)
+        assert out.tsdf.dtype == out.weight.dtype == BF16
+        loss = ((gd.to(d) * out.tsdf.float()).sum()
+                + (0.1 * out.weight.float()).sum())
+        (g,) = torch.autograd.grad(loss, x)
+        assert integrate.KERNEL_POSE_GRAD_BF16.launches == before + (
+            d.type == "cuda")
+        assert int(miss) == 0
+        grads.append(g.cpu())
+        outs.append(out.weight.detach().cpu())
+    assert (outs[0] == outs[1]).float().mean() >= 0.999
+    torch.testing.assert_close(grads[0], grads[1], rtol=0,
+                               atol=1e-3 * float(grads[1].abs().max()))

@@ -20,17 +20,10 @@ JAX = ROOT / "tsdf_tpu"
 PORT = ROOT / "tsdf_tpu_torch"
 
 # module -> names still missing from the port, by reason
-QUEUE1_ITEM5 = "to port: ROADMAP Queue 1 item 5 (decode-ahead frame loading)"
 QUEUE1_ITEM6 = "to port: ROADMAP Queue 1 item 6 (multi-GPU)"
-QUEUE1_ITEM7 = "to port: ROADMAP Queue 1 item 7 (bf16 storage)"
 NO_PORT = "no port: TPU plumbing (ROADMAP Queue 2)"
 
 REMAINING = {
-    "native/__init__.py": (QUEUE1_ITEM5, {
-        "PNGPrefetcher", "PNGPrefetcher.close", "PNGPrefetcher.get",
-        "available", "build_error", "load_png16", "load_png16_batch",
-        "save_png16",
-    }),
     "parallel/distributed.py": (QUEUE1_ITEM6, {
         "global_mesh", "initialize", "is_coordinator",
     }),
@@ -46,10 +39,7 @@ REMAINING = {
         "track_and_fuse_frames_sharded", "update_deformation_sharded",
         "warped_topup_sharded",
     }),
-    "volume.py": (QUEUE1_ITEM6 + "; " + QUEUE1_ITEM7, {
-        "TSDFVolume.for_geometry",  # item 6
-        "TSDFVolume.astype",  # item 7
-    }),
+    "volume.py": (QUEUE1_ITEM6, {"TSDFVolume.for_geometry"}),
     "struct.py": (NO_PORT, {"field", "pytree_dataclass"}),
     "ops/scatter.py": (NO_PORT, {
         "gather_flat", "scatter_add_flat", "scatter_set_int", "take_flat",
@@ -109,7 +99,7 @@ def test_what_remains_to_port_is_exactly_the_written_list():
 @pytest.mark.parametrize("module", [
     "camera.py", "cli.py", "io/block_tsdf.py", "io/convert.py",
     "io/depth_image.py", "io/file_utils.py", "io/pgm.py", "io/tum.py",
-    "ops/shading.py", "tracking/icp.py", "utils/checkpoint.py",
+    "native/__init__.py", "ops/shading.py", "tracking/icp.py", "utils/checkpoint.py",
     "utils/profiling.py",
 ])
 def test_module_has_every_jax_name(module):

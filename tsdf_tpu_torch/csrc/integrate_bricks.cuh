@@ -1,5 +1,5 @@
 // The brick walk of the rigid TSDF integrations for Hopper (sm_90a), one
-// kernel template over (fast, colour), instantiated by integrate.cu (depth,
+// kernel template over (storage, fast, colour), instantiated by integrate.cu (depth,
 // each voxel's own pixel), integrate_fast.cu (depth, the decimated line
 // convention, "fast") and integrate_color.cu (depth + colour, both
 // conventions); its pre-passes and its cull also serve the pose adjoint of
@@ -68,6 +68,11 @@
 // library built with --fmad=false, so each product and sum rounds as in
 // the PyTorch twins ops/integrate.py:integrate and integrate_fast, in
 // their order: kernel and twin agree bit for bit.
+//
+// Storage: tsdf and weight are float (T = float) or bfloat16 (T = bf16,
+// storage.cuh): a strip widens the two it loads and rounds the two it
+// stores once; the arithmetic between is the float instance's. In bf16 an
+// updated voxel moves 8 B of tsdf and weight, not 16.
 
 #pragma once
 
@@ -76,6 +81,7 @@
 #include <stdint.h>
 
 #include "integrate_variants.cuh"
+#include "storage.cuh"
 
 namespace tsdf_bricks {
 // internal linkage: each source that includes this header gets its own
@@ -215,9 +221,9 @@ struct Frame {
 // The z-strip of one thread: voxels (x, y, z0 .. z0 + kBZ - 1), their
 // camera rows' (x, y) parts ax, ay, az already summed. Adds the strip's
 // in-image voxels of steep columns to ``missed`` (FAST).
-template <bool FAST, bool COLOR>
+template <typename T, bool FAST, bool COLOR>
 __device__ __forceinline__ void fuse_strip(
-    float* __restrict__ tsdf, float* __restrict__ weight, const Frame& f,
+    T* __restrict__ tsdf, T* __restrict__ weight, const Frame& f,
     const float* __restrict__ p, float ax, float ay, float az, int64_t i0,
     int64_t plane, int x, int z0, int nz, int sx, int width, int height,
     int cap_weight, int& missed) {
@@ -276,8 +282,8 @@ __device__ __forceinline__ void fuse_strip(
     sdf[k] = d[k] - cz[k];
     upd[k] = in_img[k] && d[k] > 0.0f && sdf[k] >= -trunc;
     if (upd[k]) {
-      w[k] = weight[i0 + k * plane];
-      t[k] = tsdf[i0 + k * plane];
+      w[k] = tsdf_storage::load(weight + i0 + k * plane);
+      t[k] = tsdf_storage::load(tsdf + i0 + k * plane);
     }
   }
 #pragma unroll
@@ -287,8 +293,8 @@ __device__ __forceinline__ void fuse_strip(
     float new_w = w[k] + 1.0f;
     const float new_d = (t[k] * w[k] + obs) / new_w;
     if (cap_weight) new_w = fminf(new_w, p[23]);
-    tsdf[i0 + k * plane] = new_d;
-    weight[i0 + k * plane] = new_w;
+    tsdf_storage::store(tsdf + i0 + k * plane, new_d);
+    tsdf_storage::store(weight + i0 + k * plane, new_w);
     if (COLOR && fabsf(sdf[k]) < trunc) {
       const float rate = fmaxf(1.0f / new_w, 1.0f / p[23]);
       uint8_t* c = f.color + 3 * (i0 + k * plane);
@@ -305,9 +311,9 @@ __device__ __forceinline__ void fuse_strip(
 
 // kWaves * kBlocksPerSM blocks an SM walk the list of live bricks with a
 // fixed stride, one brick a block at a time: a culled brick costs no block.
-template <bool FAST, bool COLOR>
+template <typename T, bool FAST, bool COLOR>
 __global__ void __launch_bounds__(kBX * kBY, kBlocksPerSM)
-integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight,
+integrate_kernel(T* __restrict__ tsdf, T* __restrict__ weight,
                  Frame f, const float* __restrict__ params,
                  int* __restrict__ miss, int sx, int sy, int sz, int nbx,
                  int nby, int width, int height, int cap_weight) {
@@ -326,7 +332,7 @@ integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight,
     const float wx = ((float)x + 0.5f) * p[19] + p[16];
     const float wy = ((float)y + 0.5f) * p[20] + p[17];
     // the (x, y) part of each camera row, summed first as in the twins
-    fuse_strip<FAST, COLOR>(
+    fuse_strip<T, FAST, COLOR>(
         tsdf, weight, f, p, p[0] * wx + p[1] * wy, p[4] * wx + p[5] * wy,
         p[8] * wx + p[9] * wy, ((int64_t)z0 * sy + y) * sx + x, plane, x, z0,
         min(kBZ, sz - z0), sx, width, height, cap_weight, missed);
@@ -342,8 +348,8 @@ integrate_kernel(float* __restrict__ tsdf, float* __restrict__ weight,
 // (kernels/integrate.py:brick_grid). Launches on the stream: the depth
 // maximum, the column lines (FAST: ``lines`` holds sx*sz float2, ``miss``
 // one int32 the caller zeroed), the brick cull, the live bricks.
-template <bool FAST, bool COLOR>
-int launch(float* tsdf, float* weight, const Frame& f, void* lines,
+template <typename T, bool FAST, bool COLOR>
+int launch(T* tsdf, T* weight, const Frame& f, void* lines,
            int* miss, void* params, int sx, int sy, int sz, int width,
            int height, int cap_weight, cudaStream_t st) {
   if (sx <= 0 || sy <= 0 || sz <= 0) return (int)cudaSuccess;
@@ -381,7 +387,7 @@ int launch(float* tsdf, float* weight, const Frame& f, void* lines,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   int64_t grid = (int64_t)(sms > 0 ? sms : 1) * kBlocksPerSM * kWaves;
   if (grid > bricks) grid = bricks;
-  integrate_kernel<FAST, COLOR><<<(unsigned)grid, dim3(kBX, kBY), 0, st>>>(
+  integrate_kernel<T, FAST, COLOR><<<(unsigned)grid, dim3(kBX, kBY), 0, st>>>(
       tsdf, weight, f, scratch, miss, sx, sy, sz, nbx, nby, width, height,
       cap_weight);
   return (int)cudaGetLastError();

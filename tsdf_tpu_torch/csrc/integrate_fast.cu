@@ -16,18 +16,40 @@
 
 #include "integrate_bricks.cuh"
 
+namespace {
+
+template <typename T>
+int integrate_fast(void* tsdf, void* weight, const void* depth, void* lines,
+                   void* miss, const void* params, int sx, int sy, int sz,
+                   int width, int height, int cap_weight, void* stream) {
+  const tsdf_bricks::Frame f{nullptr, (const float*)depth, nullptr,
+                             (const float2*)lines};
+  return tsdf_bricks::launch<T, true, false>(
+      (T*)tsdf, (T*)weight, f, lines, (int*)miss, const_cast<void*>(params),
+      sx, sy, sz, width, height, cap_weight, (cudaStream_t)stream);
+}
+
+}  // namespace
+
 // params holds 24 floats and then the zeroed scratch of the brick walk
 // (kernels/integrate.py:integrate_fast_cuda); lines: scratch of sx*sz
-// float2; miss: one int32, zeroed by the caller.
+// float2; miss: one int32, zeroed by the caller. tsdf and weight are
+// float32 here, bfloat16 in tsdf_integrate_fast_bf16.
 extern "C" int tsdf_integrate_fast(void* tsdf, void* weight,
                                    const void* depth, void* lines, void* miss,
                                    const void* params, int sx, int sy, int sz,
                                    int width, int height, int cap_weight,
                                    void* stream) {
-  const tsdf_bricks::Frame f{nullptr, (const float*)depth, nullptr,
-                             (const float2*)lines};
-  return tsdf_bricks::launch<true, false>(
-      (float*)tsdf, (float*)weight, f, lines, (int*)miss,
-      const_cast<void*>(params), sx, sy, sz, width, height, cap_weight,
-      (cudaStream_t)stream);
+  return integrate_fast<float>(tsdf, weight, depth, lines, miss, params, sx,
+                               sy, sz, width, height, cap_weight, stream);
+}
+
+extern "C" int tsdf_integrate_fast_bf16(void* tsdf, void* weight,
+                                        const void* depth, void* lines,
+                                        void* miss, const void* params, int sx,
+                                        int sy, int sz, int width, int height,
+                                        int cap_weight, void* stream) {
+  return integrate_fast<tsdf_storage::bf16>(tsdf, weight, depth, lines, miss,
+                                            params, sx, sy, sz, width, height,
+                                            cap_weight, stream);
 }

@@ -52,6 +52,14 @@
 
 // Rounding: rintf (half to even, as torch.round) and --fmad=false, every
 // expression in the order of the twin, so dd and dw equal it bit for bit.
+//
+// Storage: tsdf, weight, the cotangents gbar_d, gbar_w and dd, dw are all
+// of the volume's type T, float or bf16 (storage.cuh). A bf16 instance
+// widens what it loads and rounds dd and dw once when it stores them: the
+// JAX backward computes them in float32 from the float32 widening of the
+// bf16 cotangents and casts them to the volume's dtype, which gives the
+// same bits. The culled bricks' copy moves T words (8 a 16-byte vector in
+// bf16) and the 12 float64 sums are the float instance's arithmetic.
 
 #include <type_traits>
 
@@ -91,19 +99,21 @@ __device__ __forceinline__ float depth_gradient(const float* __restrict__ depth,
 // the row's bricks with brick_cull_kernel's function on the same
 // parameters (so with the same verdict as the list the walk takes), then
 // stream each z slice of the row, kBY whole lines along x that lie
-// together in memory, 16 B a thread (VEC: x a multiple of 4 and the four
-// arrays 16-byte aligned; else 4 B), copying where the brick is culled.
-template <bool VEC>
+// together in memory, 16 B a thread (VEC: x a multiple of the 4 floats or
+// 8 bf16 of 16 B and the four arrays 16-byte aligned; else one word),
+// copying where the brick is culled.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kCopyThreads, kCopyBlocksPerSM)
-pose_grad_copy_kernel(const float* __restrict__ gbar_d,
-                      const float* __restrict__ gbar_w,
-                      float* __restrict__ dd, float* __restrict__ dw,
+pose_grad_copy_kernel(const T* __restrict__ gbar_d,
+                      const T* __restrict__ gbar_w,
+                      T* __restrict__ dd, T* __restrict__ dw,
                       double* __restrict__ partials,
                       const float* __restrict__ params, int sx, int sy,
                       int sz, int nbx, int nby, int nbz, int width,
                       int height) {
-  using V = typename std::conditional<VEC, float4, float>::type;
-  constexpr int kLanes = VEC ? 4 : 1;
+  // a 16-byte vector holds 4 floats or 8 bf16; the copy moves bits only
+  using V = typename std::conditional<VEC, float4, T>::type;
+  constexpr int kLanes = VEC ? (int)(sizeof(float4) / sizeof(T)) : 1;
   __shared__ bool culled[kMaxRowBricks];
   const unsigned* head = reinterpret_cast<const unsigned*>(params);
   const float dmax = __uint_as_float(head[kDepthMax]);
@@ -141,13 +151,14 @@ pose_grad_copy_kernel(const float* __restrict__ gbar_d,
 }
 
 // The live bricks, from the cull's list.
+template <typename T>
 __global__ void __launch_bounds__(kBX * kBY, kWalkBlocksPerSM)
-pose_grad_walk_kernel(const float* __restrict__ tsdf,
-                      const float* __restrict__ weight,
-                      const float* __restrict__ gbar_d,
-                      const float* __restrict__ gbar_w,
+pose_grad_walk_kernel(const T* __restrict__ tsdf,
+                      const T* __restrict__ weight,
+                      const T* __restrict__ gbar_d,
+                      const T* __restrict__ gbar_w,
                       const float* __restrict__ depth,
-                      float* __restrict__ dd, float* __restrict__ dw,
+                      T* __restrict__ dd, T* __restrict__ dw,
                       double* __restrict__ partials,
                       const float* __restrict__ params, int sx, int sy,
                       int sz, int nbx, int nby, int width, int height,
@@ -181,8 +192,8 @@ pose_grad_walk_kernel(const float* __restrict__ tsdf,
 #pragma unroll
       for (int k = 0; k < kBZ; ++k) {
         if (k < nz) {
-          gd[k] = gbar_d[i0 + k * plane];
-          gw[k] = gbar_w[i0 + k * plane];
+          gd[k] = tsdf_storage::load(gbar_d + i0 + k * plane);
+          gw[k] = tsdf_storage::load(gbar_w + i0 + k * plane);
         }
       }
       const float wx = ((float)x + 0.5f) * p[19] + p[16];
@@ -218,8 +229,8 @@ pose_grad_walk_kernel(const float* __restrict__ tsdf,
 #pragma unroll
       for (int k = 0; k < kBZ; ++k) {
         if (upd[k]) {
-          w[k] = weight[i0 + k * plane];
-          t[k] = tsdf[i0 + k * plane];
+          w[k] = tsdf_storage::load(weight + i0 + k * plane);
+          t[k] = tsdf_storage::load(tsdf + i0 + k * plane);
         }
       }
 #pragma unroll
@@ -227,22 +238,23 @@ pose_grad_walk_kernel(const float* __restrict__ tsdf,
         if (k >= nz) continue;
         const int64_t v = i0 + k * plane;
         if (!upd[k]) {
-          dd[v] = gd[k];
-          dw[v] = gw[k];
+          tsdf_storage::store(dd + v, gd[k]);
+          tsdf_storage::store(dw + v, gw[k]);
           continue;
         }
         // volume cotangents: d new_d / d tsdf_in = w / (w+1); d new_d / d w
         // = (tsdf_in - min(sdf, trunc)) / (w+1)^2; the capped weight's
         // slope is 1 below the cap, 0.5 at the tie, 0 above
         const float new_w = w[k] + 1.0f;
-        dd[v] = gd[k] * (w[k] / new_w);
+        tsdf_storage::store(dd + v, gd[k] * (w[k] / new_w));
         const float o = fminf(sdf[k], trunc);
         float capfac = 1.0f;
         if (cap_weight) {
           capfac = (new_w < max_weight ? 1.0f : 0.0f) +
                    0.5f * (new_w == max_weight ? 1.0f : 0.0f);
         }
-        dw[v] = gd[k] * ((t[k] - o) / (new_w * new_w)) + gw[k] * capfac;
+        tsdf_storage::store(
+            dw + v, gd[k] * ((t[k] - o) / (new_w * new_w)) + gw[k] * capfac);
         if (!(sdf[k] < trunc)) continue;  // the clamp is flat: no pose term
         in_band = true;
 
@@ -313,18 +325,14 @@ pose_grad_walk_kernel(const float* __restrict__ tsdf,
 
 }  // namespace
 
-// params holds 24 floats and then the zeroed scratch of the brick walk
-// (kernels/integrate.py:pose_grad_cuda); partials: (n_blocks, 12) float64
-// with n_blocks the count of bricks, ceil(sx/32) * ceil(sy/4) * ceil(sz/8)
-// (a count that disagrees is refused). Four launches on the stream: the
-// depth maximum, the brick cull, the copy of the culled bricks, the walk of
-// the live ones.
-extern "C" int tsdf_integrate_pose_grad(
-    const void* tsdf, const void* weight, const void* gbar_d,
-    const void* gbar_w, const void* depth,
-    void* dd, void* dw, void* partials, long long n_blocks, const void* params,
-    int sx, int sy, int sz, int width, int height, int cap_weight,
-    int image_term, void* stream) {
+namespace {
+
+template <typename T>
+int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
+              const void* gbar_w, const void* depth, void* dd, void* dw,
+              void* partials, long long n_blocks, const void* params, int sx,
+              int sy, int sz, int width, int height, int cap_weight,
+              int image_term, void* stream) {
   if (sx <= 0 || sy <= 0 || sz <= 0) {
     return n_blocks == 0 ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
   }
@@ -360,27 +368,61 @@ extern "C" int tsdf_integrate_pose_grad(
   const int copy_grid =
       rows < sms * kCopyBlocksPerSM ? rows : sms * kCopyBlocksPerSM;
   const bool vec =
-      sx % 4 == 0 && ((uintptr_t)gbar_d | (uintptr_t)gbar_w | (uintptr_t)dd |
-                      (uintptr_t)dw) % 16 == 0;
+      sx % (int)(sizeof(float4) / sizeof(T)) == 0 &&
+      ((uintptr_t)gbar_d | (uintptr_t)gbar_w | (uintptr_t)dd |
+       (uintptr_t)dw) % 16 == 0;
   if (vec) {
-    pose_grad_copy_kernel<true><<<copy_grid, kCopyThreads, 0, st>>>(
-        (const float*)gbar_d, (const float*)gbar_w, (float*)dd, (float*)dw,
+    pose_grad_copy_kernel<T, true><<<copy_grid, kCopyThreads, 0, st>>>(
+        (const T*)gbar_d, (const T*)gbar_w, (T*)dd, (T*)dw,
         (double*)partials, scratch, sx, sy, sz, nbx, nby, nbz, width,
         height);
   } else {
-    pose_grad_copy_kernel<false><<<copy_grid, kCopyThreads, 0, st>>>(
-        (const float*)gbar_d, (const float*)gbar_w, (float*)dd, (float*)dw,
+    pose_grad_copy_kernel<T, false><<<copy_grid, kCopyThreads, 0, st>>>(
+        (const T*)gbar_d, (const T*)gbar_w, (T*)dd, (T*)dw,
         (double*)partials, scratch, sx, sy, sz, nbx, nby, nbz, width,
         height);
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long walk_grid = (long long)sms * kWalkBlocksPerSM * kWalkWaves;
-  pose_grad_walk_kernel<<<(unsigned)(walk_grid < bricks ? walk_grid : bricks),
-                          dim3(kBX, kBY), 0, st>>>(
-      (const float*)tsdf, (const float*)weight, (const float*)gbar_d,
-      (const float*)gbar_w, (const float*)depth, (float*)dd, (float*)dw,
-      (double*)partials, scratch,
-      sx, sy, sz, nbx, nby, width, height, cap_weight, image_term);
+  pose_grad_walk_kernel<T>
+      <<<(unsigned)(walk_grid < bricks ? walk_grid : bricks), dim3(kBX, kBY),
+         0, st>>>((const T*)tsdf, (const T*)weight, (const T*)gbar_d,
+                  (const T*)gbar_w, (const float*)depth, (T*)dd, (T*)dw,
+                  (double*)partials, scratch, sx, sy, sz, nbx, nby, width,
+                  height, cap_weight, image_term);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// params holds 24 floats and then the zeroed scratch of the brick walk
+// (kernels/integrate.py:pose_grad_cuda); partials: (n_blocks, 12) float64
+// with n_blocks the count of bricks, ceil(sx/32) * ceil(sy/4) * ceil(sz/8)
+// (a count that disagrees is refused). Four launches on the stream: the
+// depth maximum, the brick cull, the copy of the culled bricks, the walk of
+// the live ones.
+// tsdf, weight, gbar_d, gbar_w, dd and dw are float32 here, bfloat16 in
+// tsdf_integrate_pose_grad_bf16.
+extern "C" int tsdf_integrate_pose_grad(
+    const void* tsdf, const void* weight, const void* gbar_d,
+    const void* gbar_w, const void* depth,
+    void* dd, void* dw, void* partials, long long n_blocks, const void* params,
+    int sx, int sy, int sz, int width, int height, int cap_weight,
+    int image_term, void* stream) {
+  return pose_grad<float>(tsdf, weight, gbar_d, gbar_w, depth, dd, dw,
+                          partials, n_blocks, params, sx, sy, sz, width,
+                          height, cap_weight, image_term, stream);
+}
+
+extern "C" int tsdf_integrate_pose_grad_bf16(
+    const void* tsdf, const void* weight, const void* gbar_d,
+    const void* gbar_w, const void* depth,
+    void* dd, void* dw, void* partials, long long n_blocks, const void* params,
+    int sx, int sy, int sz, int width, int height, int cap_weight,
+    int image_term, void* stream) {
+  return pose_grad<tsdf_storage::bf16>(tsdf, weight, gbar_d, gbar_w, depth,
+                                       dd, dw, partials, n_blocks, params, sx,
+                                       sy, sz, width, height, cap_weight,
+                                       image_term, stream);
 }

@@ -34,13 +34,16 @@
 //
 // Rounding: rintf (half to even, as torch.round) and --fmad=false, every
 // expression in the order of its plain twin in ops/integrate.py, so twin
-// and kernel agree bit for bit.
+// and kernel agree bit for bit. tsdf and weight are float or bf16
+// (storage.cuh): widened on load, rounded once on store.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace tsdf_variants {
 
@@ -90,9 +93,9 @@ static __global__ void fit_lines_kernel(float2* __restrict__ lines,
   if (!(fabsf(beta) <= 1.0f)) *steep = 1u;
 }
 
-template <bool COLOR>
+template <typename T, bool COLOR>
 __global__ void integrate_warped_kernel(
-    float* __restrict__ tsdf, float* __restrict__ weight,
+    T* __restrict__ tsdf, T* __restrict__ weight,
     uint8_t* __restrict__ color, const float* __restrict__ deform,
     const float* __restrict__ depth, const uint8_t* __restrict__ rgb,
     const float* __restrict__ p, int sx, int width, int height,
@@ -127,13 +130,13 @@ __global__ void integrate_warped_kernel(
   if (!(sdf >= -trunc)) return;
   const float obs = fminf(sdf, trunc);
 
-  const float w = weight[i];
-  const float t = tsdf[i];
+  const float w = tsdf_storage::load(weight + i);
+  const float t = tsdf_storage::load(tsdf + i);
   float new_w = w + 1.0f;
   const float new_d = (t * w + obs) / new_w;
   if (cap_weight) new_w = fminf(new_w, p[23]);
-  tsdf[i] = new_d;
-  weight[i] = new_w;
+  tsdf_storage::store(tsdf + i, new_d);
+  tsdf_storage::store(weight + i, new_w);
 
   if (COLOR) {
     if (!(fabsf(sdf) < trunc)) return;
@@ -149,9 +152,10 @@ __global__ void integrate_warped_kernel(
   }
 }
 
-// Launch the warped kernel on ``stream``: ``deform`` is the (sz, sy, sx, 3)
-// f32 field of deformed centres; ``color`` and ``rgb`` with COLOR only.
-template <bool COLOR>
+// Launch the warped kernel on ``stream``: tsdf and weight of type T,
+// ``deform`` the (sz, sy, sx, 3) f32 field of deformed centres; ``color``
+// and ``rgb`` with COLOR only.
+template <typename T, bool COLOR>
 int launch_warped(void* tsdf, void* weight, void* color, const void* deform,
                   const void* depth, const void* rgb, const void* params,
                   int sx, int sy, int sz, int width, int height,
@@ -160,9 +164,9 @@ int launch_warped(void* tsdf, void* weight, void* color, const void* deform,
   if (sy > 65535 || sz > 65535) return (int)cudaErrorInvalidConfiguration;
   const int threads = sx >= kThreads ? kThreads : ((sx + 31) / 32) * 32;
   const unsigned xb = (unsigned)((sx + threads - 1) / threads);
-  integrate_warped_kernel<COLOR>
+  integrate_warped_kernel<T, COLOR>
       <<<dim3(xb, sy, sz), threads, 0, (cudaStream_t)stream>>>(
-          (float*)tsdf, (float*)weight, (uint8_t*)color, (const float*)deform,
+          (T*)tsdf, (T*)weight, (uint8_t*)color, (const float*)deform,
           (const float*)depth, (const uint8_t*)rgb, (const float*)params, sx,
           width, height, cap_weight);
   return (int)cudaGetLastError();

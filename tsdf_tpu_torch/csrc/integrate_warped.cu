@@ -28,13 +28,25 @@
 
 #include "integrate_variants.cuh"
 
-// deform: (sz, sy, sx, 3) f32, contiguous.
+// deform: (sz, sy, sx, 3) f32, contiguous. tsdf and weight are float32
+// here, bfloat16 in the _bf16 entry points.
 extern "C" int tsdf_integrate_warped(void* tsdf, void* weight,
                                      const void* deform, const void* depth,
                                      const void* params, int sx, int sy,
                                      int sz, int width, int height,
                                      int cap_weight, void* stream) {
-  return tsdf_variants::launch_warped<false>(
+  return tsdf_variants::launch_warped<float, false>(
+      tsdf, weight, nullptr, deform, depth, nullptr, params, sx, sy, sz,
+      width, height, cap_weight, stream);
+}
+
+extern "C" int tsdf_integrate_warped_bf16(void* tsdf, void* weight,
+                                          const void* deform,
+                                          const void* depth,
+                                          const void* params, int sx, int sy,
+                                          int sz, int width, int height,
+                                          int cap_weight, void* stream) {
+  return tsdf_variants::launch_warped<tsdf_storage::bf16, false>(
       tsdf, weight, nullptr, deform, depth, nullptr, params, sx, sy, sz,
       width, height, cap_weight, stream);
 }
@@ -46,7 +58,16 @@ extern "C" int tsdf_integrate_warped_color(void* tsdf, void* weight,
                                            const void* params, int sx, int sy,
                                            int sz, int width, int height,
                                            int cap_weight, void* stream) {
-  return tsdf_variants::launch_warped<true>(
+  return tsdf_variants::launch_warped<float, true>(
+      tsdf, weight, color, deform, depth, rgb, params, sx, sy, sz, width,
+      height, cap_weight, stream);
+}
+
+extern "C" int tsdf_integrate_warped_color_bf16(
+    void* tsdf, void* weight, void* color, const void* deform,
+    const void* depth, const void* rgb, const void* params, int sx, int sy,
+    int sz, int width, int height, int cap_weight, void* stream) {
+  return tsdf_variants::launch_warped<tsdf_storage::bf16, true>(
       tsdf, weight, color, deform, depth, rgb, params, sx, sy, sz, width,
       height, cap_weight, stream);
 }

@@ -52,10 +52,18 @@
 //
 // Built with --fmad=false and IEEE division/sqrt, so each sample rounds
 // as in the PyTorch twin.
+//
+// Storage: the volume is float or bf16 (storage.cuh). A bf16 instance tests
+// its bricks for bitwise uniformity on the 16-bit words, stores a uniform
+// brick's value widened to float in the table, and widens each tap it
+// loads (2-byte reads): a sample's arithmetic is the float instance's on
+// the widened values, as the twin casts after its gather.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -112,13 +120,16 @@ constexpr int kTable = kParams + 1;
 // block keeps many loads in flight: the pass runs at the memory's rate
 // over the bricks in view. The mismatches gather in shared memory, one
 // word a layer; the table is written after one barrier.
+template <typename T>
 __global__ void __launch_bounds__(32 * kBrick)
-brick_table_kernel(const float* __restrict__ tsdf, float* __restrict__ params,
+brick_table_kernel(const T* __restrict__ tsdf, float* __restrict__ params,
                    int sx, int sy, int sz, int nbx, int nby, int nbz,
                    int width, int height) {
+  using Word = typename tsdf_storage::Storage<T>::Word;
   const float* p = params;
   float* table = params + kTable;
-  const unsigned* bits = reinterpret_cast<const unsigned*>(tsdf);
+  // the stored words, compared bitwise (widened to 32 bits in registers)
+  const Word* bits = reinterpret_cast<const Word*>(tsdf);
   __shared__ unsigned live_s[kChunk], bad_s[kChunk], first_s[kChunk][kGroup];
   const int lane = threadIdx.x, row = threadIdx.y;
   const int bx0 = blockIdx.x * kGroup, by = blockIdx.y;
@@ -215,13 +226,14 @@ brick_table_kernel(const float* __restrict__ tsdf, float* __restrict__ params,
     if (bx0 + g < nbx) {
       const bool uniform = ((live_s[l] & ~bad_s[l]) >> g) & 1u;
       table[((bz0 + l) * nby + by) * nbx + bx0 + g] =
-          uniform ? __uint_as_float(first_s[l][g]) : NAN;
+          uniform ? tsdf_storage::Storage<T>::widen(first_s[l][g]) : NAN;
     }
   }
 }
 
+template <typename T>
 struct Grid {
-  const float* __restrict__ tsdf;
+  const T* __restrict__ tsdf;
   const float* __restrict__ table;
   int sx, sy, sz, nbx, nby;
   float vs[3];
@@ -247,7 +259,8 @@ __device__ __forceinline__ float blend(float c000, float c001, float c010,
 // ops/trilinear.py:trilinear_sample at one grid-local point, with the
 // reference's border rules. ``brick`` and ``value`` are the ray's current
 // brick and its table entry.
-__device__ __forceinline__ float trilinear(const Grid& g, float p0, float p1,
+template <typename T>
+__device__ __forceinline__ float trilinear(const Grid<T>& g, float p0, float p1,
                                            float p2, int& brick,
                                            float& value) {
   float p[3] = {p0, p1, p2};
@@ -284,14 +297,16 @@ __device__ __forceinline__ float trilinear(const Grid& g, float p0, float p1,
   const int dx = lower[0] + 1 < g.sx ? 1 : 0;
   const int dy = lower[1] + 1 < g.sy ? g.sx : 0;
   const int dz = lower[2] + 1 < g.sz ? g.sx * g.sy : 0;
-  const float* v = g.tsdf + base;
-  return blend(__ldg(v), __ldg(v + dz), __ldg(v + dy), __ldg(v + dy + dz),
-               __ldg(v + dx), __ldg(v + dx + dz), __ldg(v + dx + dy),
-               __ldg(v + dx + dy + dz), u, w1, w2);
+  const T* v = g.tsdf + base;
+  using tsdf_storage::ldg;
+  return blend(ldg(v), ldg(v + dz), ldg(v + dy), ldg(v + dy + dz),
+               ldg(v + dx), ldg(v + dx + dz), ldg(v + dx + dy),
+               ldg(v + dx + dy + dz), u, w1, w2);
 }
 
 // One ray: the ops/raycast.py contract at pixel (px, py), written to verts.
-__device__ __forceinline__ void march(const Grid& g, const float* __restrict__ params,
+template <typename T>
+__device__ __forceinline__ void march(const Grid<T>& g, const float* __restrict__ params,
                                       float* __restrict__ verts, int px, int py,
                                       int width, int max_steps) {
   const float* ki = params;
@@ -378,11 +393,12 @@ __device__ __forceinline__ void march(const Grid& g, const float* __restrict__ p
 // counter, marches its 32 rays, and takes the next, so warps whose rays
 // end early take more tiles and no wave of blocks waits for a few long
 // rays.
+template <typename T>
 __global__ void __launch_bounds__(kMarchThreads, kMarchBlocks)
-raycast_kernel(const float* __restrict__ tsdf, float* __restrict__ verts,
+raycast_kernel(const T* __restrict__ tsdf, float* __restrict__ verts,
                float* __restrict__ params, int sx, int sy, int sz, int nbx,
                int nby, int width, int height, int max_steps) {
-  Grid g;
+  Grid<T> g;
   g.tsdf = tsdf;
   g.table = params + kTable;
   g.sx = sx, g.sy = sy, g.sz = sz, g.nbx = nbx, g.nby = nby;
@@ -414,9 +430,11 @@ raycast_kernel(const float* __restrict__ tsdf, float* __restrict__ verts,
 // the brick table, one word for each of ceil(sx/kBrick) * ceil(sy/kBrick)
 // * ceil(sz/kBrick) bricks (kernels/raycast.py:brick_table_shape). Two
 // launches on the stream: the brick table, the march.
-extern "C" int tsdf_raycast(const void* tsdf, void* verts, const void* params,
-                            int sx, int sy, int sz, int width, int height,
-                            int max_steps, void* stream) {
+namespace {
+
+template <typename T>
+int raycast(const void* tsdf, void* verts, const void* params, int sx, int sy,
+            int sz, int width, int height, int max_steps, void* stream) {
   if (sx <= 0 || sy <= 0 || sz <= 0 || (int64_t)sx * sy * sz >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -424,24 +442,42 @@ extern "C" int tsdf_raycast(const void* tsdf, void* verts, const void* params,
   const int nbx = (sx + kBrick - 1) / kBrick;
   const int nby = (sy + kBrick - 1) / kBrick;
   const int nbz = (sz + kBrick - 1) / kBrick;
-  brick_table_kernel<<<dim3((nbx + kGroup - 1) / kGroup, nby,
+  brick_table_kernel<T><<<dim3((nbx + kGroup - 1) / kGroup, nby,
                             (nbz + kChunk - 1) / kChunk),
                        dim3(32, kBrick), 0, st>>>(
-      (const float*)tsdf, scratch, sx, sy, sz, nbx, nby, nbz, width, height);
+      (const T*)tsdf, scratch, sx, sy, sz, nbx, nby, nbz, width, height);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raycast_kernel,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raycast_kernel<T>,
                                                 kMarchThreads, 0);
   const int64_t warps = (int64_t)((width + kTileW - 1) / kTileW) *
                         ((height + kTileH - 1) / kTileH);
   int64_t blocks = (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   const int64_t needed = (warps * 32 + kMarchThreads - 1) / kMarchThreads;
   if (blocks > needed) blocks = needed;
-  raycast_kernel<<<(unsigned)blocks, kMarchThreads, 0, st>>>(
-      (const float*)tsdf, (float*)verts, scratch, sx, sy, sz, nbx, nby,
-      width, height, max_steps);
+  raycast_kernel<T><<<(unsigned)blocks, kMarchThreads, 0, st>>>(
+      (const T*)tsdf, (float*)verts, scratch, sx, sy, sz, nbx, nby, width,
+      height, max_steps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// tsdf is float32 here, bfloat16 in tsdf_raycast_bf16.
+extern "C" int tsdf_raycast(const void* tsdf, void* verts, const void* params,
+                            int sx, int sy, int sz, int width, int height,
+                            int max_steps, void* stream) {
+  return raycast<float>(tsdf, verts, params, sx, sy, sz, width, height,
+                        max_steps, stream);
+}
+
+extern "C" int tsdf_raycast_bf16(const void* tsdf, void* verts,
+                                 const void* params, int sx, int sy, int sz,
+                                 int width, int height, int max_steps,
+                                 void* stream) {
+  return raycast<tsdf_storage::bf16>(tsdf, verts, params, sx, sy, sz, width,
+                                     height, max_steps, stream);
 }

@@ -54,8 +54,9 @@ def save_block_tsdf(vol: TSDFVolume, path: str) -> None:
     """Write ``vol``'s distances and weights, each value as the repr of
     its float."""
     sx, sy, sz = vol.size
-    dist = vol.tsdf.detach().cpu().numpy()  # [z, y, x]
-    weight = vol.weight.detach().cpu().numpy()
+    # [z, y, x]; bf16 storage widened to f32 (numpy has no bfloat16)
+    dist = vol.tsdf.detach().cpu().float().numpy()
+    weight = vol.weight.detach().cpu().float().numpy()
     ps = vol.physical_size.detach().cpu().numpy()
     with open(path, "w") as f:
         f.write(f"voxel_size= {sx} {sy} {sz}\n")

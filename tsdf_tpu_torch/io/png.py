@@ -5,12 +5,18 @@ kinds of image the system uses: 8-bit and 16-bit greyscale and 8-bit RGB,
 non-interlaced. Reading undoes all five PNG row filters; writing uses
 filter 0 (None) on every row. Decoded arrays are identical to Pillow's:
 u16 (H, W) for 16-bit grey, u8 (H, W) for 8-bit grey, u8 (H, W, 3) for RGB.
+
+The row filters are undone by the host library of ``tsdf_tpu_torch.native``
+(``csrc/png_unfilter.cpp``) where it built; ``_unfilter`` is its plain
+twin in numpy and Python, which runs where it did not, and is slow on the
+Average and Paeth filters: they are a loop over bytes (PERF.md section 5).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
@@ -96,9 +102,22 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path) -> np.ndarray:
-    """Load a PNG: 16-bit grey as u16 (H, W), 8-bit grey as u8 (H, W),
-    8-bit RGB as u8 (H, W, 3)."""
+class PNGData(NamedTuple):
+    """A PNG's header and its inflated image data (still filtered)."""
+
+    width: int
+    height: int
+    depth: int  # bits a sample: 8 or 16
+    channels: int  # 1 grey, 3 RGB
+    raw: bytes  # height rows of (filter byte + width * bpp bytes)
+
+    @property
+    def bpp(self) -> int:
+        return self.channels * self.depth // 8
+
+
+def read_png(path) -> PNGData:
+    """Read a PNG's chunks, check them, and inflate its image data."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -122,14 +141,35 @@ def load_png(path) -> np.ndarray:
         )
     if interlace:
         raise ValueError(f"{path}: interlaced PNGs are not supported")
-    channels = _CHANNELS[ctype]
-    bpp = channels * depth // 8
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp, bpp)
-    if depth == 16:
-        return pixels.view(">u2").astype(np.uint16).reshape(height, width)
-    if channels == 1:
-        return pixels.reshape(height, width)
-    return pixels.reshape(height, width, channels)
+    return PNGData(width, height, depth, _CHANNELS[ctype],
+                   zlib.decompress(b"".join(idat)))
+
+
+def unfiltered(data: PNGData) -> np.ndarray:
+    """The image of ``data``: u16 (H, W), u8 (H, W) or u8 (H, W, 3). The
+    row filters are undone by the native library when it is available,
+    else by the plain twin ``_unfilter``."""
+    from .. import native
+
+    h, w, bpp = data.height, data.width, data.bpp
+    if native.available():
+        pixels = native.unfilter(data.raw, h, w * bpp, bpp,
+                                 swap16=data.depth == 16)
+        if data.depth == 16:
+            return pixels.view(np.uint16).reshape(h, w)
+    else:
+        pixels = _unfilter(data.raw, h, w * bpp, bpp)
+        if data.depth == 16:
+            return pixels.view(">u2").astype(np.uint16).reshape(h, w)
+    if data.channels == 1:
+        return pixels.reshape(h, w)
+    return pixels.reshape(h, w, data.channels)
+
+
+def load_png(path) -> np.ndarray:
+    """Load a PNG: 16-bit grey as u16 (H, W), 8-bit grey as u8 (H, W),
+    8-bit RGB as u8 (H, W, 3)."""
+    return unfiltered(read_png(path))
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

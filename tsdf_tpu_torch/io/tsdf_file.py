@@ -13,6 +13,9 @@ Port of ``tsdf_tpu/io/tsdf_file.py``; the two writers give the same bytes.
   body:
     distances    f32 [x + y*sx + z*sx*sy]   (x fastest: the flatten order)
     weights      f32 [same]
+
+A bfloat16 volume is saved widened to float32, as the JAX writer does (the
+file is always float32), and every load gives a float32 volume.
     colours      u8  [n*3]
     deformation  f32 [n*6]  ({translation xyz, rotation xyz} per voxel)
 """
@@ -20,6 +23,7 @@ Port of ``tsdf_tpu/io/tsdf_file.py``; the two writers give the same bytes.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..volume import TSDFVolume
 
@@ -31,7 +35,9 @@ _SLAB = 32
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    """A tensor as numpy; bf16 (which numpy lacks) widened to f32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def save_tsdf(vol: TSDFVolume, path: str) -> None:

@@ -4,9 +4,12 @@ Port of ``tsdf_tpu/io/tum.py``: parses ``<dir>/ground_truth.txt`` lines
 ``timestamp tx ty tz qx qy qz qw``, loads ``<dir>/depth/<timestamp>.png``
 through the zlib PNG codec, scales TUM depth (1/5000 m units) to mm
 (x 0.2) and converts the 7-float pose to a 4x4 camera->world matrix with
-translation in mm. Frames are decoded one at a time on the calling
-thread. ``iter_with_rgb`` adds the colour frame ``<dir>/rgb/<timestamp>.png``
-where there is one.
+translation in mm. Iteration decodes the depth frames ahead of the
+consumer on a thread pool (``native.PNGPrefetcher``) where the native
+library is available, as the JAX loader does with its own; a frame the
+prefetcher refuses (not 16-bit grey) is loaded by ``load``, so both paths
+give the same frames. ``iter_with_rgb`` decodes on the calling thread and
+adds the colour frame ``<dir>/rgb/<timestamp>.png`` where there is one.
 """
 
 from __future__ import annotations
@@ -65,6 +68,23 @@ class TUMDataLoader:
         return len(self.entries)
 
     def __iter__(self):
+        from .. import native
+
+        if len(self.entries) > 1 and native.available():
+            # JAX io/tum.py:72-95: decode ahead, at most the prefetch window
+            # of frames resident; a frame that is not 16-bit grey raises
+            # IOError there and is loaded here instead
+            pf = native.PNGPrefetcher([p for p, _ in self.entries])
+            try:
+                for i, (path, pose) in enumerate(self.entries):
+                    try:
+                        frame = DepthImage(pf.get(i)).scale_depth(0.2)
+                    except IOError:
+                        frame = self.load(path)
+                    yield frame, pose
+            finally:
+                pf.close()
+            return
         for depth_path, pose in self.entries:
             yield self.load(depth_path), pose
 

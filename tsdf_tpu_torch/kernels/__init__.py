@@ -24,6 +24,15 @@ KERNELS = {
     "lane_gather_if_missed": gather.KERNEL_IF_MISSED,
     "bilateral": bilateral.KERNEL,
     "gather_probe": gather.KERNEL_PROBE,
+    # the bfloat16-storage instances of the kernels that read the volume
+    "integrate_bf16": integrate.KERNEL_BF16,
+    "integrate_color_bf16": integrate.KERNEL_COLOR_BF16,
+    "integrate_fast_bf16": integrate.KERNEL_FAST_BF16,
+    "integrate_color_fast_bf16": integrate.KERNEL_COLOR_FAST_BF16,
+    "raycast_bf16": raycast.KERNEL_BF16,
+    "integrate_warped_bf16": integrate.KERNEL_WARPED_BF16,
+    "integrate_warped_color_bf16": integrate.KERNEL_WARPED_COLOR_BF16,
+    "integrate_pose_grad_bf16": integrate.KERNEL_POSE_GRAD_BF16,
 }
 
 

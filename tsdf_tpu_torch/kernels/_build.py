@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from ..volume import STORAGE_DTYPES
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 LIB_NAME = "libtsdf_kernels.so"
@@ -165,6 +167,22 @@ def check_tensor(name, t, dtype, ndim=None, shape=None) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def storage_dtype(tsdf, weight=None) -> torch.dtype:
+    """The storage dtype of a volume's tsdf (and weight, which must match
+    it): float32 or bfloat16, the two the kernels have instances for. Any
+    other raises TypeError; nothing is cast."""
+    for name, t in (("tsdf", tsdf), ("weight", weight)):
+        if t is not None and not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if tsdf.dtype not in STORAGE_DTYPES:
+        raise TypeError(
+            f"tsdf: dtype {tsdf.dtype}; the kernels store float32 or bfloat16")
+    if weight is not None and weight.dtype != tsdf.dtype:
+        raise TypeError(
+            f"weight: dtype {weight.dtype}, expected tsdf's {tsdf.dtype}")
+    return tsdf.dtype
 
 
 def check_same_device(device: torch.device, **tensors) -> None:

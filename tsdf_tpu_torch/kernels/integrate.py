@@ -31,6 +31,13 @@ is that order in plain PyTorch). ``integrate_pose`` is the
 differentiable fusion built on it, a ``torch.autograd.Function`` whose
 forward is ``integrate_cuda`` (or ``integrate_fast_cuda``) and whose
 backward is one ``pose_grad_cuda`` launch.
+
+Every kernel has two instances, one for each storage dtype of the volume's
+tsdf and weight: float32, and bfloat16 (``TSDFVolume.astype``), which
+reads and writes half the volume's bytes; ``instance`` picks the one a
+launch takes, and each counts its own launches. Both compute in float32,
+as their twins do. Another dtype, or a weight of another dtype than the
+tsdf, raises TypeError.
 """
 
 from __future__ import annotations
@@ -48,7 +55,13 @@ from ..ops.integrate import integrate_fast as integrate_fast_plain
 from ..ops.integrate_diff import integrate_pose_grad, pose_grad_terms
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
-from ._build import Kernel, check_same_device, check_tensor, stream_handle
+from ._build import (
+    Kernel,
+    check_same_device,
+    check_tensor,
+    storage_dtype,
+    stream_handle,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
@@ -96,6 +109,39 @@ KERNEL_POSE_GRAD = Kernel(
 )
 # the pose adjoint's sums a brick: the rows R_wc | t_wc of dL/dpose_inv
 POSE_GRAD_SUMS = 12
+
+
+def _bf16(kernel: Kernel) -> Kernel:
+    """The bfloat16-storage instance of ``kernel``: the same arguments, its
+    own entry point and launch count."""
+    return Kernel(kernel.symbol + "_bf16", kernel.argtypes)
+
+
+KERNEL_BF16 = _bf16(KERNEL)
+KERNEL_COLOR_BF16 = _bf16(KERNEL_COLOR)
+KERNEL_FAST_BF16 = _bf16(KERNEL_FAST)
+KERNEL_COLOR_FAST_BF16 = _bf16(KERNEL_COLOR_FAST)
+KERNEL_WARPED_BF16 = _bf16(KERNEL_WARPED)
+KERNEL_WARPED_COLOR_BF16 = _bf16(KERNEL_WARPED_COLOR)
+KERNEL_POSE_GRAD_BF16 = _bf16(KERNEL_POSE_GRAD)
+# the instance a launch takes, by the volume's storage dtype
+_INSTANCES = {
+    k: {torch.float32: k, torch.bfloat16: b}
+    for k, b in (
+        (KERNEL, KERNEL_BF16), (KERNEL_COLOR, KERNEL_COLOR_BF16),
+        (KERNEL_FAST, KERNEL_FAST_BF16),
+        (KERNEL_COLOR_FAST, KERNEL_COLOR_FAST_BF16),
+        (KERNEL_WARPED, KERNEL_WARPED_BF16),
+        (KERNEL_WARPED_COLOR, KERNEL_WARPED_COLOR_BF16),
+        (KERNEL_POSE_GRAD, KERNEL_POSE_GRAD_BF16),
+    )
+}
+
+
+def instance(kernel: Kernel, vol: TSDFVolume) -> Kernel:
+    """``kernel``'s instance for ``vol``'s storage: the float32 one or its
+    bfloat16 twin (``storage_dtype`` has checked the dtype)."""
+    return _INSTANCES[kernel][vol.tsdf.dtype]
 
 MODES = ("exact", "line", "fast")
 
@@ -270,8 +316,9 @@ def _check_frame(vol: TSDFVolume, depth, camera: Camera, rgb=None):
         dev, weight=vol.weight, depth=depth, pose_inv=camera.pose_inv
     )
     shape = tuple(vol.tsdf.shape)
-    check_tensor("tsdf", vol.tsdf, torch.float32, ndim=3)
-    check_tensor("weight", vol.weight, torch.float32, shape=shape)
+    dtype = storage_dtype(vol.tsdf, vol.weight)
+    check_tensor("tsdf", vol.tsdf, dtype, ndim=3)
+    check_tensor("weight", vol.weight, dtype, shape=shape)
     check_tensor("depth", depth, torch.float32, ndim=2)
     if rgb is not None and not isinstance(rgb, torch.Tensor):
         raise TypeError(f"rgb: expected a tensor, got {type(rgb).__name__}")
@@ -316,7 +363,9 @@ def integrate_cuda(
     its result back.
 
     Args:
-      vol: float32 volume, tsdf/weight contiguous (Z, Y, X).
+      vol: volume with float32 or bfloat16 tsdf/weight (both the same),
+        contiguous (Z, Y, X); a bfloat16 volume launches the kernel's bf16
+        instance.
       depth: (H, W) float32 depth in mm, contiguous; 0 means no data.
       camera: the frame's camera, on the volume's device.
       cap_weight: clamp the accumulated weight at vol.max_weight.
@@ -332,7 +381,7 @@ def integrate_cuda(
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     with torch.cuda.device(dev):
-        KERNEL(
+        instance(KERNEL, vol)(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), depth.data_ptr(),
             params.data_ptr(), sx, sy, sz, w, h, int(bool(cap_weight)),
             stream_handle(dev),
@@ -384,7 +433,7 @@ def integrate_fast_cuda(
     sz, sy, sx = vol.tsdf.shape
     h, w = depth.shape
     with torch.cuda.device(dev):
-        KERNEL_FAST(
+        instance(KERNEL_FAST, vol)(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), depth.data_ptr(),
             lines.data_ptr(), miss.data_ptr(), params.data_ptr(),
             sx, sy, sz, w, h, int(bool(cap_weight)), stream_handle(dev),
@@ -412,7 +461,8 @@ def integrate_color_cuda(
     device, as ``integrate_fast_cuda``.
 
     Args:
-      vol: float32 volume with a (Z, Y, X, 3) uint8 colour field.
+      vol: float32 or bfloat16 volume with a (Z, Y, X, 3) uint8 colour
+        field.
       depth: (H, W) float32 depth in mm, contiguous; 0 means no data.
       rgb: (H, W, 3) uint8 colour frame, contiguous, on the volume's device.
       camera: the frame's camera, on the volume's device.
@@ -444,12 +494,13 @@ def integrate_color_cuda(
     with torch.cuda.device(dev):
         if fast:
             lines, miss = _fast_scratch(vol)
-            KERNEL_COLOR_FAST(
+            instance(KERNEL_COLOR_FAST, vol)(
                 *volume, *images, lines.data_ptr(), miss.data_ptr(),
                 params.data_ptr(), *tail,
             )
             return vol, miss[0]
-        KERNEL_COLOR(*volume, *images, params.data_ptr(), *tail)
+        instance(KERNEL_COLOR, vol)(
+            *volume, *images, params.data_ptr(), *tail)
     return vol, torch.zeros((), dtype=torch.int32, device=dev)
 
 
@@ -474,8 +525,9 @@ def integrate_warped_cuda(
     plain twin and copies its result back.
 
     Args:
-      vol: float32 volume with a contiguous (Z, Y, X, 3) float32
-        ``deform`` (a strided view raises: it is not copied silently).
+      vol: float32 or bfloat16 volume with a contiguous (Z, Y, X, 3)
+        float32 ``deform`` (a strided view raises: it is not copied
+        silently).
       depth: (H, W) float32 depth in mm, contiguous; 0 means no data.
       camera: the frame's camera, on the volume's device.
       cap_weight: clamp the accumulated weight at vol.max_weight.
@@ -506,12 +558,12 @@ def integrate_warped_cuda(
     )
     with torch.cuda.device(dev):
         if rgb is None:
-            KERNEL_WARPED(
+            instance(KERNEL_WARPED, vol)(
                 vol.tsdf.data_ptr(), vol.weight.data_ptr(),
                 vol.deform.data_ptr(), depth.data_ptr(), *tail,
             )
         else:
-            KERNEL_WARPED_COLOR(
+            instance(KERNEL_WARPED_COLOR, vol)(
                 vol.tsdf.data_ptr(), vol.weight.data_ptr(),
                 vol.color.data_ptr(), vol.deform.data_ptr(),
                 depth.data_ptr(), rgb.data_ptr(), *tail,
@@ -539,14 +591,17 @@ def pose_grad_cuda(
     (``pose_grad_partials``), in one fixed-order ``torch.sum``; on CPU
     tensors it runs the plain twin
     ``ops.integrate_diff.integrate_pose_grad``. Arguments as the twin's;
-    ``vol`` is the volume the frame was fused into.
+    ``vol`` is the volume the frame was fused into. The cotangents gbar_d
+    and gbar_w are of the volume's dtype, and so are dd and dw: a bfloat16
+    volume launches the bf16 instance, which reads them into float32 and
+    rounds dd and dw once, as the JAX backward does.
     """
     check_rigid(vol, "pose_grad_cuda")
     dev = _check_frame(vol, depth, camera)
     shape = tuple(vol.tsdf.shape)
     check_same_device(dev, gbar_d=gbar_d, gbar_w=gbar_w)
-    check_tensor("gbar_d", gbar_d, torch.float32, shape=shape)
-    check_tensor("gbar_w", gbar_w, torch.float32, shape=shape)
+    check_tensor("gbar_d", gbar_d, vol.tsdf.dtype, shape=shape)
+    check_tensor("gbar_w", gbar_w, vol.tsdf.dtype, shape=shape)
     if dev.type == "cpu":
         return integrate_pose_grad(
             vol, depth, camera, gbar_d, gbar_w, cap_weight=cap_weight,
@@ -564,7 +619,7 @@ def pose_grad_cuda(
     dd = torch.empty_like(vol.tsdf)
     dw = torch.empty_like(vol.weight)
     with torch.cuda.device(dev):
-        KERNEL_POSE_GRAD(
+        instance(KERNEL_POSE_GRAD, vol)(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), gbar_d.data_ptr(),
             gbar_w.data_ptr(), depth.data_ptr(), dd.data_ptr(), dw.data_ptr(),
             partials.data_ptr(), n_bricks, params.data_ptr(), sx, sy, sz, w, h,
@@ -609,6 +664,8 @@ class _IntegrateCore(torch.autograd.Function):
         # a loss that never reads an output gives it no cotangent: zero
         g_tsdf = torch.zeros_like(tsdf) if g_tsdf is None else g_tsdf
         g_weight = torch.zeros_like(weight) if g_weight is None else g_weight
+        # autograd gives the outputs' cotangents in their dtype, the
+        # volume's; dd and dw come back in it
         dd, dw, dpinv = pose_grad_cuda(
             ctx.vol.replace(tsdf=tsdf, weight=weight), ctx.depth,
             dataclasses.replace(ctx.camera, pose_inv=pose_inv),
@@ -652,7 +709,8 @@ def integrate_pose(
     tensors they are the plain twins. A deformed volume raises.
 
     Args:
-      vol: rigid float32 volume; tsdf and weight may require grad.
+      vol: rigid float32 or bfloat16 volume; tsdf and weight may require
+        grad (their gradients come back in the volume's dtype).
       depth: (H, W) depth in mm; 0 means no data.
       camera: the frame's camera before the twist.
       delta: (6,) twist (omega, v), a tensor (it may require grad) or an

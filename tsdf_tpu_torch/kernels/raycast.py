@@ -28,7 +28,13 @@ from ..ops.raycast import (
     vertices_to_depth_image,
 )
 from ..volume import TSDFVolume
-from ._build import Kernel, check_same_device, check_tensor, stream_handle
+from ._build import (
+    Kernel,
+    check_same_device,
+    check_tensor,
+    storage_dtype,
+    stream_handle,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
@@ -36,6 +42,8 @@ KERNEL = Kernel(
     # tsdf, verts, params, sx, sy, sz, width, height, max_steps, stream
     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
+# the bfloat16-storage instance (a volume of ``TSDFVolume.astype(bf16)``)
+KERNEL_BF16 = Kernel("tsdf_raycast_bf16", KERNEL.argtypes)
 # the edge, in voxels, of csrc/raycast.cu's uniform bricks
 RAY_BRICK = 8
 
@@ -79,7 +87,8 @@ def uniform_bricks(tsdf: torch.Tensor, brick: int = RAY_BRICK) -> torch.Tensor:
     ``brick``^3 voxels, the brick's value when every voxel of the brick and
     of a one-voxel apron on the high side of each axis (clamped at the
     volume's edge, as the sampler clamps its taps) is bitwise equal to the
-    others, and NaN ("load") otherwise.
+    others, and NaN ("load") otherwise. A bfloat16 volume is compared on
+    its 16-bit words and its value widened to float32.
 
     A trilinear sample whose lower corner lies in a brick reads only voxels
     of that closed box, so in a uniform brick its eight taps all equal the
@@ -93,14 +102,15 @@ def uniform_bricks(tsdf: torch.Tensor, brick: int = RAY_BRICK) -> torch.Tensor:
     # the last brick of an axis, and the ragged part past the edge, repeat it
     idx = [torch.clamp(torch.arange(n * brick + 1, device=dev), max=s - 1)
            for n, s in zip(nb, tsdf.shape)]
-    bits = tsdf.contiguous().view(torch.int32)
+    word = torch.int16 if tsdf.dtype == torch.bfloat16 else torch.int32
+    bits = tsdf.contiguous().view(word)
     padded = bits[idx[0]][:, idx[1]][:, :, idx[2]]
     win = padded
     for axis in range(3):
         win = win.unfold(axis, brick + 1, brick)
     first = win[..., :1, :1, :1]
     uniform = (win == first).flatten(3).all(-1)
-    value = first.reshape(nb).view(torch.float32)
+    value = first.reshape(nb).view(tsdf.dtype).to(torch.float32)
     return torch.where(uniform, value, float("nan"))
 
 
@@ -114,12 +124,14 @@ def raycast_vertices_cuda(
     """(H, W, 3) f32 surface points of ``vol`` seen from ``camera``, NaN
     on a miss; a ray stops after at most ``max_steps`` samples.
 
-    On CUDA tensors this is the kernel; on CPU tensors it is the plain
-    twin ``ops.raycast.raycast_vertices``.
+    On CUDA tensors this is the kernel (its bf16 instance for a bfloat16
+    tsdf); on CPU tensors it is the plain twin
+    ``ops.raycast.raycast_vertices``.
     """
     dev = vol.tsdf.device
     check_same_device(dev, k_inv=camera.k_inv, pose=camera.pose)
-    check_tensor("tsdf", vol.tsdf, torch.float32, ndim=3)
+    dtype = storage_dtype(vol.tsdf)
+    check_tensor("tsdf", vol.tsdf, dtype, ndim=3)
     if width <= 0 or height <= 0:
         raise ValueError(f"bad raycast size {width}x{height}")
     if max_steps < 0:
@@ -137,8 +149,9 @@ def raycast_vertices_cuda(
     params = kernel_params(vol, camera, scratch=1 + nb[0] * nb[1] * nb[2])
     verts = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     sz, sy, sx = vol.tsdf.shape
+    kernel = KERNEL_BF16 if dtype == torch.bfloat16 else KERNEL
     with torch.cuda.device(dev):
-        KERNEL(
+        kernel(
             vol.tsdf.data_ptr(), verts.data_ptr(), params.data_ptr(),
             sx, sy, sz, width, height, max_steps,
             stream_handle(dev),

@@ -32,6 +32,10 @@ is a resampling convention, not the exact contract.
 Every product and sum is a separate elementwise op written in the order
 the kernels evaluate it (no 3x3 matmul), so on the card each twin and its
 kernel round identically.
+
+tsdf and weight may be stored in bfloat16 (``TSDFVolume.astype``): the
+update reads them into float32, computes in float32 and rounds the stored
+result once, to nearest even, as the JAX package and the kernels do.
 """
 
 from __future__ import annotations
@@ -93,8 +97,10 @@ def _fuse(vol, depth, rgb, lin, z, gate, cap_weight) -> TSDFVolume:
     update = gate & (z > 0) & (surface > 0) & (sdf >= -trunc)
     tsdf_obs = torch.minimum(sdf, trunc)
 
-    prior_d = vol.tsdf
-    prior_w = vol.weight
+    # compute in f32 whatever the storage: torch multiplies two bf16
+    # tensors in bf16, so the update must read-cast BEFORE d * w + obs
+    prior_d = vol.tsdf.to(torch.float32)
+    prior_w = vol.weight.to(torch.float32)
     new_w = prior_w + 1.0
     new_d = (prior_d * prior_w + tsdf_obs) / new_w
     if cap_weight:
@@ -110,9 +116,10 @@ def _fuse(vol, depth, rgb, lin, z, gate, cap_weight) -> TSDFVolume:
         new_color = torch.clamp(
             torch.round(torch.where(col_update, blended, old)), 0, 255
         ).to(torch.uint8)
+    # stored in the storage dtype, rounded once (to nearest even)
     return vol.replace(
-        tsdf=torch.where(update, new_d, prior_d),
-        weight=torch.where(update, new_w, prior_w),
+        tsdf=torch.where(update, new_d, prior_d).to(vol.tsdf.dtype),
+        weight=torch.where(update, new_w, prior_w).to(vol.weight.dtype),
         color=new_color,
     )
 

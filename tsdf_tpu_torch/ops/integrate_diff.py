@@ -99,7 +99,8 @@ def pose_gradient_lax(
     shape = vol.tsdf.shape
     xw, yw, zw = (c.expand(shape) for c in (xw, yw, zw))
     band = sdf < vol.truncation_distance  # the min(sdf, trunc) clamp's slope
-    coef = gbar_tsdf.to(_F32) * (update & band).to(_F32) / (vol.weight + 1.0)
+    coef = (gbar_tsdf.to(_F32) * (update & band).to(_F32)
+            / (vol.weight.to(_F32) + 1.0))
 
     rwc = camera.pose_inv[0:3, 0:3]
     k = camera.k
@@ -133,9 +134,9 @@ def _camera_point_cotangent(vol, camera, frame, gbar_d, image_term):
     """dL/dx_c per voxel, (dxc, dyc, dzc): zero where the voxel is not
     updated or the clamp min(sdf, trunc) is flat."""
     _centre, (xc, yc, zc), gxv, gyv, sdf, update = frame
-    new_w = vol.weight + 1.0
+    new_w = vol.weight.to(_F32) + 1.0
     gate = update & (sdf < vol.truncation_distance)
-    coef = torch.where(gate, gbar_d / new_w, 0.0)
+    coef = torch.where(gate, gbar_d.to(_F32) / new_w, 0.0)
     if not image_term:
         return torch.zeros_like(coef), torch.zeros_like(coef), -coef
     k = camera.k
@@ -195,21 +196,24 @@ def integrate_pose_grad(
       vol: the volume the frame was fused INTO (tsdf_in, weight_in).
       depth: (H, W) depth in mm of the frame.
       camera: the frame's camera; only k and pose_inv are read.
-      gbar_d, gbar_w: (Z, Y, X) f32 cotangents of the fused tsdf and
-        weight.
+      gbar_d, gbar_w: (Z, Y, X) cotangents of the fused tsdf and weight,
+        in the volume's dtype or float32; read into float32.
       cap_weight: the forward clamped the weight at vol.max_weight.
       image_term: include the depth image's gradient under the moving
         projection (otherwise only the -cam_z term).
 
-    Returns (dd, dw, dpinv): the cotangents of tsdf_in and weight_in, and
-    the (4, 4) f32 cotangent of pose_inv (rows R_wc | t_wc; the bottom row
-    is zero). Its 12 sums are taken in float64 over float32 terms.
+    Returns (dd, dw, dpinv): the cotangents of tsdf_in and weight_in, in
+    the volume's dtype (computed in float32 and rounded once, as the JAX
+    backward casts them), and the (4, 4) f32 cotangent of pose_inv (rows
+    R_wc | t_wc; the bottom row is zero). Its 12 sums are taken in float64
+    over float32 terms.
     """
     check_rigid(vol, "integrate_pose_grad")
     frame = sample_frame(depth, vol, camera)
     centre, _cam, _gxv, _gyv, sdf, update = frame
     trunc = vol.truncation_distance
-    d, w = vol.tsdf, vol.weight
+    d, w = vol.tsdf.to(_F32), vol.weight.to(_F32)
+    gbar_d, gbar_w = gbar_d.to(_F32), gbar_w.to(_F32)
     new_w = w + 1.0
 
     cotangent = _camera_point_cotangent(vol, camera, frame, gbar_d,
@@ -233,4 +237,4 @@ def integrate_pose_grad(
         dw = dnewd_dw + gbar_w * capfac
     else:
         dw = dnewd_dw + gbar_w
-    return dd, dw, dpinv
+    return dd.to(vol.tsdf.dtype), dw.to(vol.weight.dtype), dpinv

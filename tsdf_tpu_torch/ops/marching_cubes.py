@@ -99,8 +99,10 @@ def extract_surface(
         deformation update) need no compaction, and this layout reads
         nothing on the host: the whole extraction is queued on the device.
     """
+    # bf16 storage: interpolate in f32
     return _extract(
-        vol.tsdf, vol.voxel_size, vol.offset, max_cubes, max_vertices, layout
+        vol.tsdf.to(torch.float32), vol.voxel_size, vol.offset, max_cubes,
+        max_vertices, layout,
     )
 
 

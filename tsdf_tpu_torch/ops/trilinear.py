@@ -23,7 +23,7 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     """Sample ``values`` at grid-local points.
 
     Args:
-      values: (Z, Y, X) f32 volume.
+      values: (Z, Y, X) f32 or bf16 volume.
       points: (..., 3) f32 grid-local mm coords (world - space_min),
         components (x, y, z).
       voxel_size: (3,) f32 mm.
@@ -58,7 +58,9 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     flat = values.reshape(-1)
 
     def tap(dx, dy, dz):
-        return flat[(izs[dz] * sy + iys[dy]) * sx + ixs[dx]]
+        # cast AFTER the gather: a bf16 volume is read at half the bytes
+        # and the blend still runs in f32
+        return flat[(izs[dz] * sy + iys[dy]) * sx + ixs[dx]].to(torch.float32)
 
     c000 = tap(0, 0, 0)
     c001 = tap(0, 0, 1)

@@ -67,7 +67,9 @@ def fusion_loss_and_grad(
     out, _miss = integrate_pose(vol, depth, camera, d)
     m = (target.weight > 0) & (out.weight > 0)
     n = torch.clamp(m.sum().to(_F32), min=1.0)
-    loss = torch.where(m, (out.tsdf - target.tsdf) ** 2, 0.0).sum() / n
+    # in float32 whatever the volumes' storage
+    diff = out.tsdf.to(_F32) - target.tsdf.to(_F32)
+    loss = torch.where(m, diff ** 2, 0.0).sum() / n
     (g,) = torch.autograd.grad(loss, d)
     return loss.detach(), g
 

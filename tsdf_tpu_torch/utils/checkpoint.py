@@ -8,9 +8,10 @@ number), no pickled class, so that ``load_sharded`` reads it with
 ``torch.load(weights_only=True)``. The optional colour and deformation
 fields go with it when the volume has them.
 
-Not yet here: the sharded layout across cards comes with ROADMAP.md
-Queue 1 item 6 (multi-GPU), and bf16 storage with item 7
-(``TSDFVolume.astype``); the port's volumes are float32.
+Each tensor keeps its dtype: a bfloat16 volume (``TSDFVolume.astype``)
+is saved and restored in bfloat16, and ``load_sharded`` refuses a
+checkpoint whose dtypes differ from ``like``'s. Not yet here: the sharded
+layout across cards comes with ROADMAP.md Queue 1 item 6 (multi-GPU).
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ Port of ``tsdf_tpu/volume.py``. Layout and units are the reference's:
 
 Unlike the JAX pytree, the tensors here may be updated in place: the
 CUDA integrate kernels write ``tsdf``/``weight`` (and ``color``) directly
-(see ``kernels/integrate.py``). Storage is float32 only.
+(see ``kernels/integrate.py``). ``tsdf`` and ``weight`` are stored in
+float32 or bfloat16 (``make_volume(dtype=)``, :meth:`TSDFVolume.astype`):
+every path reads the storage, computes in float32 and rounds once when it
+stores. The other fields are always float32 (``color`` uint8).
 
 ``color`` is the fused per-voxel RGB, (Z, Y, X, 3) uint8 interleaved as in
 the ``.tsdf`` file; colour fusion needs it (``with_color()``). ``deform``
@@ -32,6 +35,8 @@ import torch
 DEFAULT_MAX_WEIGHT = 15.0
 
 _F32 = torch.float32
+# the storage types of tsdf and weight
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +44,8 @@ class TSDFVolume:
     """Truncated signed distance volume + integration weights.
 
     Attributes:
-      tsdf: (Z, Y, X) f32, truncated signed distance in mm.
-      weight: (Z, Y, X) f32, accumulated integration weight.
+      tsdf: (Z, Y, X) f32 or bf16, truncated signed distance in mm.
+      weight: (Z, Y, X), tsdf's dtype, accumulated integration weight.
       physical_size: (3,) f32, (px, py, pz) mm extent of the grid.
       offset: (3,) f32, world coordinate of the grid's minimal corner.
       truncation_distance: () f32, 1.1 * ||voxel_size|| by default.
@@ -131,7 +136,8 @@ class TSDFVolume:
         """A cleared copy: weights 0, distances +truncation_distance,
         colours 0, deformation at the identity."""
         return self.replace(
-            tsdf=self.truncation_distance.expand(self.tsdf.shape).clone(),
+            tsdf=self.truncation_distance.to(self.tsdf.dtype)
+            .expand(self.tsdf.shape).clone(),
             weight=torch.zeros_like(self.weight),
             color=None if self.color is None else torch.zeros_like(self.color),
             deform=(
@@ -163,6 +169,16 @@ class TSDFVolume:
                 dtype=torch.uint8,
                 device=self.device,
             )
+        )
+
+    def astype(self, dtype) -> "TSDFVolume":
+        """Recast the dense tsdf/weight storage (e.g. torch.bfloat16 to
+        halve the memory stream of every integrate/raycast; all compute
+        paths read-cast to f32). bf16 weights count integer frames
+        exactly up to 256 -- pair with ``cap_weight`` (the reference's
+        max_weight is 15) for long sequences."""
+        return self.replace(
+            tsdf=self.tsdf.to(dtype), weight=self.weight.to(dtype)
         )
 
     # -- state carried across frameworks ---------------------------------
@@ -218,12 +234,17 @@ class TSDFVolume:
 
     def to_numpy(self) -> dict:
         """Every field as a numpy array (None stays None); the keyword
-        arguments of :meth:`from_numpy`."""
+        arguments of :meth:`from_numpy`. numpy has no bfloat16: bf16
+        storage comes back widened to float32, which is exact."""
+
+        def arr(t):
+            t = t.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
         return {
             f.name: (
-                None
-                if getattr(self, f.name) is None
-                else getattr(self, f.name).detach().cpu().numpy()
+                None if getattr(self, f.name) is None
+                else arr(getattr(self, f.name))
             )
             for f in dataclasses.fields(self)
         }
@@ -237,10 +258,11 @@ def make_volume(
     max_weight: float = DEFAULT_MAX_WEIGHT,
     with_deformation: bool = False,
     with_color: bool = False,
+    dtype=torch.float32,
     *,
     device,
 ) -> TSDFVolume:
-    """Create a cleared float32 volume on ``device``.
+    """Create a cleared volume on ``device``.
 
     Args:
       size: (size_x, size_y, size_z) voxels.
@@ -250,7 +272,12 @@ def make_volume(
       truncation_distance: defaults to 1.1 * ||voxel_size||.
       with_deformation: allocate the deformation field at the identity.
       with_color: allocate the (Z, Y, X, 3) uint8 colour field.
+      dtype: the storage of tsdf and weight, torch.float32 or
+        torch.bfloat16; every other field is float32 (colour uint8).
     """
+    if dtype not in STORAGE_DTYPES:
+        raise TypeError(
+            f"volume storage must be float32 or bfloat16, got {dtype}")
     sx, sy, sz = size
     ps = torch.as_tensor(physical_size, dtype=_F32, device=device)
     ps = ps.expand(3).clone()
@@ -267,8 +294,8 @@ def make_volume(
     else:
         trunc = torch.tensor(truncation_distance, dtype=_F32, device=device)
     vol = TSDFVolume(
-        tsdf=trunc.expand(sz, sy, sx).clone(),
-        weight=torch.zeros((sz, sy, sx), dtype=_F32, device=device),
+        tsdf=trunc.to(dtype).expand(sz, sy, sx).clone(),
+        weight=torch.zeros((sz, sy, sx), dtype=dtype, device=device),
         physical_size=ps,
         offset=off,
         truncation_distance=trunc,
