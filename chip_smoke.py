@@ -123,7 +123,21 @@ Phases (any failed check exits non-zero; nothing is caught):
      ``SceneFusion`` class on the same files with dumps, bit-equal to a
      run through the plain twins and to a second run; the deformation
      field against the flow that was fed; ms per frame, its split and its
-     host syncs; colour frames into a deformed volume.
+     host syncs; colour frames into a deformed volume;
+ 13. sharded (run after phase 9): the mesh path of ``parallel/`` on the
+     20 frames at 512^3. Four ranks share this card over gloo (a
+     correctness configuration, not a multi-card speed), as mesh 4x1 and
+     then 2x2: the GT-pose ``integrate_sharded`` gathered bit-equal with
+     the single-volume kernel run (float32, bf16, colour),
+     ``raycast_sharded`` bit-equal with the single-card render,
+     ``raycast_sharded_bricked`` within the JAX gates of it (hit agreement,
+     median, p99), ``track_and_fuse_frames_sharded`` with the filter, its
+     poses within 2 mm / 3e-3 of the single-card loop's, its ATE, each
+     rank's launches and its peak. Then ``fuse --devices 1x1`` on NCCL,
+     with and without ``--fuse-color``, byte-equal with the verb without
+     ``--devices``, and ``fuse --devices 1x1 --track --filter`` (poses held
+     to the same gates). With four cards, the verb on 4x1 and 2x2 meshes of
+     cards too; else one line says it did not run.
 
 The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
@@ -254,15 +268,21 @@ PARENT_DIR = None
 
 
 def load_parent(path: str):
-    """Build and load the kernels library of the checkout at ``path``."""
+    """Build and load the kernels library of the checkout at ``path``: its
+    package is imported under another name (its ``_build`` imports from
+    the package), so the build runs on its own sources."""
     import ctypes
+    import importlib
     import importlib.util
 
+    pkg_dir = os.path.join(path, "tsdf_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        "parent_build", os.path.join(path, "tsdf_tpu_torch", "kernels",
-                                     "_build.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+        "parent_tsdf_tpu_torch", os.path.join(pkg_dir, "__init__.py"),
+        submodule_search_locations=[pkg_dir])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pkg
+    spec.loader.exec_module(pkg)
+    mod = importlib.import_module(spec.name + ".kernels._build")
     t0 = time.perf_counter()
     mod.build(force=True)
     log(f"parent build: {time.perf_counter() - t0:.1f} s "
@@ -1536,7 +1556,12 @@ def phase_tracked_path(dev, tum: str, out_dir: str) -> dict:
     against, tracked (19 Gauss-Newton iterations, one lane-gather launch
     each) and fused; then the render (no mesh: the GT-pose and the colour
     path each extract one at this size)."""
-    run = run_fuse(dev, tum, out_dir, ("--track", "--filter"), mesh=False)
+    from tsdf_tpu_torch.pipelines import kinfu
+
+    got = []
+    with returned(kinfu, "track_and_fuse_frames", got):
+        run = run_fuse(dev, tum, out_dir, ("--track", "--filter"), mesh=False)
+    run["poses"] = [p.cpu().numpy() for p in got[0][2]]
     tracked = N_FRAMES - 1
     check_counts(run["counts"], "tracked path",
                  at_least=dict(lane_gather=19 * tracked),
@@ -3786,13 +3811,18 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
     voxel)."""
     from tsdf_tpu_torch import Camera, make_volume
     from tsdf_tpu_torch.kernels import _build
+    from tsdf_tpu_torch.kernels import integrate as k
     from tsdf_tpu_torch.kernels.integrate import (
+        instance,
         integrate_color_cuda,
         integrate_cuda,
         integrate_fast_cuda,
     )
     from tsdf_tpu_torch.ops.integrate import integrate, integrate_fast
 
+    BF16_WALKS = {"integrate": k.KERNEL, "integrate_color": k.KERNEL_COLOR,
+                  "integrate_fast": k.KERNEL_FAST,
+                  "integrate_color_fast": k.KERNEL_COLOR_FAST}
     cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
             for _, p in frames]
     depths = [d for d, _ in frames]
@@ -3854,9 +3884,10 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
                    + INTEGRATE_OPS["updated"] * updated)
         ops += COLOR_OPS_PER_BAND_VOXEL * band
         least = bound(moved, ops)
-        # the two instances' code: registers, SASS instructions, and the
-        # longest inner loop's instructions and global loads
-        args = f"Lb{int(fast)}ELb{int(color)}E"
+        # the two instances' code (of a whole volume, not a slab):
+        # registers, SASS instructions, and the longest inner loop's
+        # instructions and global loads
+        args = f"Lb{int(fast)}ELb{int(color)}ELb0E"
         sass = {d: sass_loop(str(_build.library_path()),
                              str(_build.BUILD_DIR / "build.log"),
                              f"integrate_kernelI{m}{args}")
@@ -3870,9 +3901,13 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
                         f"SASS instructions, inner loop {v['loop_instructions']} "
                         f"({v['loop_loads']} global loads)"
                         for d, v in sass.items()))
+        # with --parent: the parent's bf16 instance in turns with this one
+        parent = parent_in_turns(
+            [instance(BF16_WALKS[name], out)], lambda: kernel(name, out, 1),
+            20, ms, f"{name} bf16 512^3 one frame")
         results[name + "_bf16"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
-            library_ms=None, f32_ms=f32_ms, updated=updated)
+            library_ms=None, f32_ms=f32_ms, updated=updated, parent_ms=parent)
         del ref, out, out32, before
         torch.cuda.empty_cache()
     return results
@@ -4011,7 +4046,7 @@ def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
     the marching-cubes vertex count of the bf16 fuse beside the float32
     fuse's."""
     from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.kernels.raycast import KERNEL_BF16, raycast_vertices_cuda
     from tsdf_tpu_torch.ops.marching_cubes import extract_surface
     from tsdf_tpu_torch.ops.raycast import raycast_vertices
 
@@ -4036,6 +4071,9 @@ def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
             lambda: raycast_vertices_cuda(v16, cam, W, H),
             lambda: raycast_vertices_cuda(v32, cam, W, H), reps=10)
         plain_ms = median_ms(lambda: raycast_vertices(v16, cam, W, H), reps=2)
+        parent = parent_in_turns(
+            [KERNEL_BF16], lambda: raycast_vertices_cuda(v16, cam, W, H), 10,
+            ms, f"raycast bf16 512^3, {name} volume")
         least = bound(2 * n_voxels + 12 * W * H,
                       RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
         log(f"raycast bf16 512^3, {name} volume: kernel {ms:.4f} ms, float32 "
@@ -4046,7 +4084,8 @@ def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
             f"voxels of 2 B); {n_uniform / n_samples:.4f} of the samples in "
             "uniform bricks")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
-                          library_ms=None, f32_ms=f32_ms, samples=n_samples)
+                          library_ms=None, f32_ms=f32_ms, samples=n_samples,
+                          parent_ms=parent)
     v16, v32 = vols32["fused"]
     counts = [int(extract_surface(v, max_cubes=MAX_CUBES,
                                   max_vertices=MAX_VERTICES).n_vertices)
@@ -4490,6 +4529,530 @@ def phase_decode(dev, tum: str, tmp: str, out_dir: str) -> dict:
 # -- config 3 (--config3): the 500-pose tracked orbit at 256^3 -----------------
 
 
+# -- the sharded phase: the mesh path (parallel/) ---------------------------
+
+# the mesh shapes of the four ranks that share the one card, in one spawn
+SHARDED_MESHES = ((4, 1), (2, 2))
+# the tracked loop on the mesh against the single-card loop, per pose (the
+# JAX package's gates, tests/test_parallel_icp.py)
+SHARDED_POSE_MM, SHARDED_POSE_ROT = 2.0, 3e-3
+# the bricked raycast against the single-card render (tests/test_parallel.py)
+BRICKED_HIT_AGREE, BRICKED_MEDIAN_MM, BRICKED_P99_MM = 0.999, 0.5, 2.0
+
+
+def digests(outs: dict) -> dict:
+    """The sha256 of each output file of a ``fuse`` run."""
+    import hashlib
+
+    found = {}
+    for k, path in outs.items():
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        found[k] = h.hexdigest()
+    return found
+
+
+def vertices_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Hit masks equal and vertices equal bit for bit where hit."""
+    ha, hb = torch.isfinite(a).all(-1), torch.isfinite(b).all(-1)
+    return bool(torch.equal(ha, hb)) and torch.equal(
+        a[ha].view(torch.int32), b[hb].view(torch.int32))
+
+
+def bricked_agreement(verts: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Hit agreement and the vertex distances where both hit."""
+    hv, hr = torch.isfinite(verts).all(-1), torch.isfinite(ref).all(-1)
+    both = hv & hr
+    d = (verts[both] - ref[both]).norm(dim=-1).double()
+    return dict(hit_agree=float((hv == hr).double().mean()),
+                hits=int(hr.sum()), median_mm=float(d.median()),
+                p99_mm=float(d.quantile(0.99)))
+
+
+def pose_gaps(poses, refs) -> tuple[float, float]:
+    """The largest translation (mm) and rotation-entry gap over the poses."""
+    poses, refs = np.asarray(poses), np.asarray(refs)
+    return (float(np.abs(poses[:, :3, 3] - refs[:, :3, 3]).max()),
+            float(np.abs(poses[:, :3, :3] - refs[:, :3, :3]).max()))
+
+
+# frames of the runs that count host syncs and collectives (the first is
+# fused untracked, the rest tracked)
+SYNC_FRAMES = 5
+
+
+def syncs_and_collectives(fn) -> tuple[int, int]:
+    """The host syncs (torch's sync debug mode) and the mesh collectives
+    (calls of ``mesh.py``'s collectives from the ops) of one call of
+    ``fn``."""
+    import warnings
+
+    from tsdf_tpu_torch.parallel import halo as phalo
+    from tsdf_tpu_torch.parallel import ops as pops
+
+    calls, syncs, saved = [0], [0], []
+    for mod in (pops, phalo):
+        for name in ("all_gather", "all_reduce", "gather"):
+            if hasattr(mod, name):
+                inner = getattr(mod, name)
+                saved.append((mod, name, inner))
+
+                def counted(*args, _inner=inner, **kwargs):
+                    calls[0] += 1
+                    return _inner(*args, **kwargs)
+
+                setattr(mod, name, counted)
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message) and "prototype" not in str(message):
+            syncs[0] += 1
+
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return syncs[0], calls[0]
+
+
+def sharded_loop_syncs(dev, mesh, depths, cams) -> dict:
+    """Host syncs and collectives of ``SYNC_FRAMES`` frames of the GT-pose
+    sharded fuse and of the tracked loop on ``mesh`` (every rank runs it;
+    each counts its own)."""
+    from tsdf_tpu_torch.parallel import track_and_fuse_frames_sharded
+    from tsdf_tpu_torch.parallel.ops import integrate_sharded, make_sharded_volume
+
+    n = SYNC_FRAMES
+    vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+    torch.cuda.synchronize()
+    fuse = syncs_and_collectives(
+        lambda: [integrate_sharded(vol, depths[i], cams[i], mesh)
+                 for i in range(n)])
+    vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+    torch.cuda.synchronize()
+    tracked = syncs_and_collectives(lambda: track_and_fuse_frames_sharded(
+        vol, cams[0], depths[:n], mesh, use_bilateral_filter=True, band=32,
+        width=W, height=H))
+    torch.cuda.synchronize()
+    return {"fuse_syncs": fuse[0] / n, "fuse_collectives": fuse[1] / n,
+            "tracked_syncs": tracked[0] / (n - 1),
+            "tracked_collectives": tracked[1] / (n - 1)}
+
+
+def nccl_syncs_rank(dev, depths_np, poses_np):
+    """One rank, NCCL: the host syncs and collectives of the mesh loops."""
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, device=dev)
+    depths = [torch.from_numpy(d).to(dev) for d in depths_np]
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(
+        torch.from_numpy(p).to(dev)) for p in poses_np]
+    return sharded_loop_syncs(dev, mesh, depths, cams)
+
+
+def sharded_rank(dev, depths_np, poses_np, rgbs_np):
+    """One of four ranks that share the card (gloo, CUDA tensors staged
+    through the host), on each mesh of ``SHARDED_MESHES``: the GT-pose fuse
+    of the frames (float32; bf16 and colour on the first mesh), the
+    replicated and the bricked raycast from the first pose, the tracked
+    loop. The mesh's first rank also runs the single-card references and
+    holds the results to them; every rank returns its times, its peaks,
+    its launch counts and the seconds of each step."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch import Camera, make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import integrate_color_cuda, integrate_cuda
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
+    from tsdf_tpu_torch.parallel import (
+        make_mesh,
+        raycast_sharded,
+        raycast_sharded_bricked,
+        track_and_fuse_frames_sharded,
+    )
+    from tsdf_tpu_torch.parallel.ops import (
+        integrate_sharded,
+        make_sharded_volume,
+        unshard_volume,
+    )
+    from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
+    from tsdf_tpu_torch.utils.trajectory import ate
+
+    entered = time.time()  # the rank's group is up: its start ends here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depths = [torch.from_numpy(d).to(dev) for d in depths_np]
+    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(
+        torch.from_numpy(p).to(dev)) for p in poses_np]
+    rgbs = [torch.from_numpy(c).to(dev) for c in rgbs_np]
+    # the kernels' first launches in this process, outside every timing
+    integrate_cuda(make_volume((32,) * 3, PHYSICAL, device=dev), depths[0],
+                   cams[0])
+    torch.cuda.synchronize()
+    first_pose_render = None
+    single_poses = None
+    results = {}
+    for nb, nr in SHARDED_MESHES:
+        mesh = make_mesh(nb, nr, device=dev)
+        first = dist.get_rank() == mesh.ranks[0]
+        out = {"fuse_ms": {}, "equal": {}, "counts": {}, "seconds": {}}
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            now = time.perf_counter()
+            out["seconds"][name] = now - clock[0]
+            clock[0] = now
+
+        def fuse(dtype, color):
+            vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL, dtype=dtype,
+                                      with_color=color)
+            dist.barrier()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for i in range(len(depths)):
+                integrate_sharded(vol, depths[i], cams[i], mesh,
+                                  rgb=rgbs[i] if color else None)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(depths)
+            return vol, ms, launch_counts()
+
+        def single(dtype, color):
+            vol = make_volume((SIZE,) * 3, PHYSICAL, dtype=dtype,
+                              with_color=color, device=dev)
+            for i in range(len(depths)):
+                if color:
+                    integrate_color_cuda(vol, depths[i], rgbs[i], cams[i])
+                else:
+                    integrate_cuda(vol, depths[i], cams[i])
+            return vol
+
+        kinds = [("float32", torch.float32, False)]
+        if (nb, nr) == SHARDED_MESHES[0]:
+            kinds += [("bfloat16", BF16, False), ("color", torch.float32, True)]
+        slab32 = None
+        for name, dtype, color in kinds:
+            torch.cuda.reset_peak_memory_stats(dev)
+            vol, ms, counts = fuse(dtype, color)
+            out["fuse_ms"][name] = ms
+            out["counts"][f"fuse_{name}"] = counts
+            if name == "float32":
+                out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            whole = unshard_volume(vol, mesh)
+            if first:
+                ref = single(dtype, color)
+                out["equal"][name] = (
+                    bits_equal(whole.tsdf, ref.tsdf)
+                    and bits_equal(whole.weight, ref.weight)
+                    and (not color or torch.equal(whole.color, ref.color)))
+                if name == "float32" and first_pose_render is None:
+                    first_pose_render = raycast_vertices_cuda(ref, cams[0], W, H)
+                del ref
+            del whole
+            if name == "float32":
+                slab32 = vol
+            del vol
+            torch.cuda.empty_cache()
+            lap(f"fuse_{name}")
+
+        # the raycasts from the first pose, on the fused float32 slabs
+        reset_launch_counts()
+        rep, _ = raycast_sharded(slab32, cams[0], mesh, W, H,
+                                 replicate_volume_ok=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        lap("raycast_sharded")
+        brk, _ = raycast_sharded_bricked(slab32, cams[0], mesh, W, H)
+        torch.cuda.synchronize()
+        out["counts"]["raycasts"] = launch_counts()
+        if first:
+            out["replicated_equal"] = vertices_equal(rep, first_pose_render)
+            out["bricked"] = bricked_agreement(brk, first_pose_render)
+        del slab32, rep, brk
+        torch.cuda.empty_cache()
+        lap("raycast_sharded_bricked")
+
+        # the tracked loop (bilateral filter, the bricked model render, the
+        # banded sharded pyramid, the sharded integrate)
+        vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, poses, stats = track_and_fuse_frames_sharded(
+            vol, cams[0], depths, mesh, use_bilateral_filter=True, band=32,
+            width=W, height=H)
+        torch.cuda.synchronize()
+        out["tracked_ms"] = (time.perf_counter() - t0) * 1e3 / len(depths)
+        out["counts"]["tracked"] = launch_counts()
+        del vol
+        torch.cuda.empty_cache()
+        lap("tracked")
+        if first:
+            if single_poses is None:
+                cfg = tracked_config()
+                _, _, ref_poses, _ = track_and_fuse_frames(
+                    cfg.make_volume(device=dev), cams[0], depths, cfg)
+                single_poses = [p.cpu().numpy() for p in ref_poses]
+                torch.cuda.empty_cache()
+            est = [p.cpu().numpy() for p in poses]
+            out["pose_gap"] = pose_gaps(est, single_poses)
+            out["ate_mm"] = ate(est, list(poses_np))["rmse"]
+            out["ate_single_mm"] = ate(single_poses, list(poses_np))["rmse"]
+            out["last_inliers"] = int(stats[-1][1])
+            lap("single_tracked")
+        if (nb, nr) == SHARDED_MESHES[0]:
+            out["syncs"] = sharded_loop_syncs(dev, mesh, depths, cams)
+            lap("syncs")
+        results[f"{nb}x{nr}"] = out
+    results["clock"] = (entered, time.time())
+    return results
+
+
+def sharded_tracked_rank(dev, nb, nr, depths_np, poses_np):
+    """A rank of a mesh of cards (NCCL): the tracked loop, timed after a
+    run of its first two frames (the kernels' first launches and the
+    NCCL communicators, which each group makes at its first collective);
+    the first rank returns the poses, the ms a frame and the seconds of
+    that first run."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch.parallel import make_mesh, track_and_fuse_frames_sharded
+    from tsdf_tpu_torch.parallel.ops import make_sharded_volume
+
+    mesh = make_mesh(nb, nr, device=dev)
+    depths = [torch.from_numpy(d).to(dev) for d in depths_np]
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(
+        torch.from_numpy(poses_np[0]).to(dev))
+
+    def run(frames):
+        vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, poses, _ = track_and_fuse_frames_sharded(
+            vol, cam, frames, mesh, use_bilateral_filter=True, band=32,
+            width=W, height=H)
+        torch.cuda.synchronize()
+        return poses, time.perf_counter() - t0
+
+    _, first_s = run(depths[:2])
+    poses, seconds = run(depths)
+    if dist.get_rank() != mesh.ranks[0]:
+        return None
+    return [p.cpu().numpy() for p in poses], seconds * 1e3 / len(depths), first_s
+
+
+@contextlib.contextmanager
+def returned(mod, name: str, results: list):
+    """Inside, every call of ``mod.name`` appends what it returns to
+    ``results``."""
+    fn = getattr(mod, name)
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        results.append(out)
+        return out
+
+    setattr(mod, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def hold_sharded_mesh(shape: str, ranks: list) -> dict:
+    """Check one mesh's results from every rank and log them."""
+    outs = [r[shape] for r in ranks]
+    r0 = outs[0]
+    check(all(r0["equal"].values()),
+          f"{shape}: gathered slabs differ from the single volume {r0['equal']}")
+    check(r0["replicated_equal"],
+          f"{shape}: raycast_sharded differs from the single render")
+    b = r0["bricked"]
+    check(b["hit_agree"] > BRICKED_HIT_AGREE and b["median_mm"] < BRICKED_MEDIAN_MM
+          and b["p99_mm"] < BRICKED_P99_MM,
+          f"{shape}: the bricked raycast is off the single render {b}")
+    dt, dr = r0["pose_gap"]
+    check(dt < SHARDED_POSE_MM and dr < SHARDED_POSE_ROT,
+          f"{shape}: tracked poses off the single-card loop's ({dt}, {dr})")
+    check(r0["ate_mm"] < ATE_MAX_MM, f"{shape}: tracked ATE not under a voxel")
+    tracked = N_FRAMES - 1
+    instance = {"float32": "integrate", "bfloat16": "integrate_bf16",
+                "color": "integrate_color"}
+    for r in outs:
+        c = r["counts"]
+        for name in r["fuse_ms"]:
+            check_counts(c[f"fuse_{name}"], f"{shape} {name} fuse",
+                         **{instance[name]: N_FRAMES})
+        check_counts(c["raycasts"], f"{shape} raycasts", raycast=2)
+        check_counts(c["tracked"], f"{shape} tracked",
+                     at_least=dict(lane_gather=19 * tracked),
+                     bilateral=tracked, raycast=tracked, integrate=N_FRAMES)
+    worst = {k: max(r["fuse_ms"][k] for r in outs) for k in r0["fuse_ms"]}
+    tracked_ms = max(r["tracked_ms"] for r in outs)
+    log(f"sharded {shape}, four ranks sharing one card over gloo (a "
+        f"correctness configuration: these times are not a multi-card "
+        f"speed): GT fuse ms/frame (slowest rank) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f"; gathered slabs bit-equal with the single volume: {r0['equal']}; "
+        f"raycast_sharded rows bit-equal: {r0['replicated_equal']}; bricked "
+        f"raycast against the single render: hit agreement "
+        f"{b['hit_agree']:.6f} ({b['hits']} hits), median {b['median_mm']:.5f}"
+        f" mm, p99 {b['p99_mm']:.5f} mm; tracked loop {tracked_ms:.4f} "
+        f"ms/frame, poses within {dt:.5f} mm / {dr:.2e} of the single-card "
+        f"loop, ATE {r0['ate_mm']:.4f} mm (single card "
+        f"{r0['ate_single_mm']:.4f} mm), last inliers {r0['last_inliers']}; "
+        f"per-rank peak of the float32 fuse "
+        + ", ".join(f"{r['peak_gib']:.3f}" for r in outs)
+        + " GiB; seconds by step (first rank) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["seconds"].items()))
+    return dict(fuse_ms=worst, tracked_ms=tracked_ms, bricked=b,
+                pose_gap=(dt, dr), ate_mm=r0["ate_mm"],
+                ate_single_mm=r0["ate_single_mm"],
+                peaks_gib=[r["peak_gib"] for r in outs], counts=r0["counts"],
+                seconds=r0["seconds"])
+
+
+def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
+                  single: dict) -> dict:
+    """The mesh path (``tsdf_tpu_torch/parallel``) at 512^3 / 640x480 on the
+    20 frames.
+
+    Four ranks on this one card over gloo (a correctness configuration:
+    ranks that share a card and stage every collective through the host
+    time no multi-card speed), as mesh 4x1 and then 2x2 in one spawn: the
+    GT-pose sharded integrate gathered bit-equal with the single-volume
+    kernel run (float32; bf16 and colour on 4x1), ``raycast_sharded``
+    bit-equal with the single-card render, ``raycast_sharded_bricked``
+    within the JAX gates of it, the tracked loop's poses within 2 mm / 3e-3
+    of the single-card loop's and its ATE under a voxel, each rank's peak
+    for the float32 fuse. Then ``fuse --devices 1x1`` on NCCL: the GT-pose
+    and colour outputs byte-equal with those of the verb without
+    ``--devices`` (``single``: the earlier phases' runs and digests), the
+    tracked verb's poses held to the same gates. With four cards, the verb
+    on 4x1 and 2x2 meshes of cards (NCCL) too."""
+    from tsdf_tpu_torch.parallel import ops as pops
+    from tsdf_tpu_torch.parallel.distributed import launch
+
+    phase_t0 = time.perf_counter()
+    depths_np = [d.cpu().numpy() for d, _ in frames]
+    poses_np = [p.cpu().numpy() for _, p in frames]
+    rgbs_np = [c.cpu().numpy() for c in rgbs]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = launch(sharded_rank, 4, (depths_np, poses_np, rgbs_np),
+                   backend="gloo", device="cuda:0")
+    t1 = time.time()
+    result = {f"{nb}x{nr}": hold_sharded_mesh(f"{nb}x{nr}", ranks)
+              for nb, nr in SHARDED_MESHES}
+    entered = [r["clock"][0] for r in ranks]
+    left = [r["clock"][1] for r in ranks]
+    log(f"sharded: the four ranks' run {t1 - t0:.1f} s: their start (spawn, "
+        f"imports, CUDA context, group) {min(entered) - t0:.1f}-"
+        f"{max(entered) - t0:.1f} s, their bodies "
+        f"{max(b - a for a, b in zip(entered, left)):.1f} s (the slowest), "
+        f"from the last body's end to the launcher's return "
+        f"{t1 - max(left):.1f} s (group teardown, exit)")
+    gloo = ranks[0][f"{SHARDED_MESHES[0][0]}x{SHARDED_MESHES[0][1]}"]["syncs"]
+    nccl = launch(nccl_syncs_rank, 1, (depths_np[:SYNC_FRAMES],
+                                       poses_np[:SYNC_FRAMES]),
+                  device="cuda")[0]
+    for what, counts in (("4x1 over gloo (first rank)", gloo),
+                         ("1x1 over NCCL", nccl)):
+        log(f"sharded loops, {what}, over {SYNC_FRAMES} frames: GT fuse "
+            f"{counts['fuse_syncs']:.2f} host syncs and "
+            f"{counts['fuse_collectives']:.2f} collectives a frame; tracked "
+            f"{counts['tracked_syncs']:.2f} host syncs and "
+            f"{counts['tracked_collectives']:.2f} collectives a tracked frame")
+    result["syncs"] = {"gloo_4x1": gloo, "nccl_1x1": nccl}
+
+    # fuse --devices 1x1 on NCCL, against the verb without --devices
+    for tag, extra, color in (("gt", (), False), ("color", ("--fuse-color",), True)):
+        d = os.path.join(out_dir, f"sharded_{tag}")
+        os.makedirs(d, exist_ok=True)
+        run = run_fuse(dev, tum, d, extra + ("--devices", "1x1"), color=color)
+        check_counts(run["counts"], f"fuse --devices 1x1 {tag}",
+                     at_least=dict(lane_gather=1), raycast=1,
+                     **{"integrate_color" if color else "integrate": N_FRAMES})
+        same = digests(run["outs"]) == single[tag]["digests"]
+        log(f"fuse --devices 1x1 {' '.join(extra)} on NCCL: outputs "
+            f"byte-equal with the verb without --devices: {same}; "
+            f"{run['seconds']:.2f} s (without {single[tag]['seconds']:.2f} s)")
+        check(same, f"fuse --devices 1x1 {tag}: outputs differ")
+        for f in run["outs"].values():
+            os.remove(f)
+    got = []
+    d = os.path.join(out_dir, "sharded_tracked")
+    os.makedirs(d, exist_ok=True)
+    with returned(pops, "track_and_fuse_frames_sharded", got):
+        run = run_fuse(dev, tum, d, ("--track", "--filter", "--devices", "1x1"),
+                       mesh=False)
+    check(len(got) == 1, "track_and_fuse_frames_sharded was not called once")
+    check_counts(run["counts"], "fuse --devices 1x1 --track",
+                 at_least=dict(lane_gather=19 * (N_FRAMES - 1)),
+                 bilateral=N_FRAMES - 1, raycast=N_FRAMES, integrate=N_FRAMES)
+    check_tracked_output(run["stdout"], "frames on 1x1 mesh")
+    ref_poses = single["tracked"]["poses"]
+    dt, dr = pose_gaps([p.cpu().numpy() for p in got[0][2]], ref_poses)
+    ates = [next(line for line in r.splitlines() if line.startswith("ATE"))
+            for r in (run["stdout"], single["tracked"]["stdout"])]
+    log(f"fuse --devices 1x1 --track --filter on NCCL: poses within {dt:.5f} mm"
+        f" / {dr:.2e} of the verb without --devices; {ates[0]} (without "
+        f"--devices: {ates[1]}); {run['seconds']:.2f} s (without "
+        f"{single['tracked']['seconds']:.2f} s)")
+    check(dt < SHARDED_POSE_MM and dr < SHARDED_POSE_ROT,
+          "fuse --devices 1x1 --track: poses off the single-card verb's")
+    result["1x1"] = dict(pose_gap=(dt, dr), counts=run["counts"],
+                         tracked_seconds=run["seconds"])
+    for f in run["outs"].values():
+        os.remove(f)
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"fuse --devices 4x1 / 2x2 on four cards: not run ({cards} card"
+            f"{'s' if cards != 1 else ''} visible)")
+        log(f"sharded phase: {time.perf_counter() - phase_t0:.1f} s in all")
+        return result
+    for nb, nr in SHARDED_MESHES:
+        shape = f"{nb}x{nr}"
+        for tag, extra, color in (("gt", (), False),
+                                  ("color", ("--fuse-color",), True)):
+            d = os.path.join(out_dir, f"sharded_{tag}_{shape}")
+            os.makedirs(d, exist_ok=True)
+            run = run_fuse(dev, tum, d, extra + ("--devices", shape), color=color)
+            same = digests(run["outs"]) == single[tag]["digests"]
+            log(f"fuse --devices {shape} {' '.join(extra)} on {nb * nr} cards "
+                f"(NCCL): outputs byte-equal with one card: {same}; "
+                f"{run['seconds']:.2f} s with the ranks' start")
+            check(same, f"fuse --devices {shape} {tag}: outputs differ")
+            for f in run["outs"].values():
+                os.remove(f)
+        poses, ms, first_s = launch(sharded_tracked_rank, nb * nr,
+                                    (nb, nr, depths_np, poses_np),
+                                    device="cuda")[0]
+        dt, dr = pose_gaps(poses, ref_poses)
+        log(f"tracked loop on {nb * nr} cards, mesh {shape} (NCCL): "
+            f"{ms:.4f} ms/frame after a run of the first two frames in "
+            f"{first_s:.2f} s (first launches, NCCL communicators), poses "
+            f"within {dt:.5f} mm / {dr:.2e} of the single-card verb")
+        check(dt < SHARDED_POSE_MM and dr < SHARDED_POSE_ROT,
+              f"{shape} on four cards: tracked poses off the single card's")
+        result[f"cards_{shape}"] = dict(tracked_ms=ms, first_s=first_s,
+                                        pose_gap=(dt, dr))
+    log(f"sharded phase: {time.perf_counter() - phase_t0:.1f} s in all")
+    return result
+
+
 def run_config3(dev, n_frames: int, noise: bool, eps: float) -> dict:
     """The workload of tools/run_config3.py: a sphere (r = 600 mm, at the
     volume's centre) in front of a wall (z = 2500 mm) seen from a smooth
@@ -4668,12 +5231,14 @@ def main() -> int:
         phase_surface(dev, gt_path["outs"], first_pose)
         icp_counts = phase_icp_verb(dev, gt_path["outs"]["tsdf"], out_dir)
         phase_api(dev, frames, rgbs, gt_path["outs"]["tsdf"], tmp, smi)
+        gt_path["digests"] = digests(gt_path["outs"])
         for f in gt_path["outs"].values():
             os.remove(f)
         phase_fuse_time(dev, frames)
 
         tracked_path = phase_tracked_path(dev, tum, out_dir)
         phase_surface(dev, tracked_path["outs"], first_pose)
+        tracked_path["digests"] = digests(tracked_path["outs"])
         for f in tracked_path["outs"].values():
             os.remove(f)
         torch.cuda.empty_cache()
@@ -4681,12 +5246,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         color_path = phase_color_path(dev, tum, out_dir, frames, rgbs)
+        color_path["digests"] = digests(color_path["outs"])
         for f in color_path["outs"].values():
             os.remove(f)
         torch.cuda.empty_cache()
         color_tracked = phase_color_tracked_path(dev, tum, out_dir, rgbs)
         torch.cuda.empty_cache()
         fast = phase_fast(dev, frames, rgbs, poses)
+        torch.cuda.empty_cache()
+        sharded = phase_sharded(dev, tum, out_dir, frames, rgbs, poses, {
+            "gt": gt_path, "color": color_path, "tracked": tracked_path})
         torch.cuda.empty_cache()
         bf16 = phase_bf16(dev, frames, rgbs, poses, sf_depth, sf_flows)
         del frames, rgbs
@@ -4715,6 +5284,11 @@ def main() -> int:
          "launches_icp_verb": icp_counts[k], **results[k]}
         for k, (src, rep) in meta.items()
     ]
+    # the mesh path runs the same four on every rank: their launches on
+    # one rank of the 4x1 tracked loop (four ranks sharing the card)
+    for entry in kernels:
+        entry["launches_sharded_rank"] = (
+            sharded["4x1"]["counts"]["tracked"][entry["name"]])
     # the differentiable paths reuse two of them
     kernels[0]["launches_config4b"] = config4b["counts"]["integrate"]
     kernels[1]["launches_config4"] = config4["counts"]["raycast"]

@@ -1555,3 +1555,84 @@ def test_bf16_integrate_pose_on_the_card_matches_the_cpu(dev):
     assert (outs[0] == outs[1]).float().mean() >= 0.999
     torch.testing.assert_close(grads[0], grads[1], rtol=0,
                                atol=1e-3 * float(grads[1].abs().max()))
+
+
+# -- z-slabs and row tiles (the mesh path's two kernel parameters) --------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("kind", ["exact", "fast", "color", "color_fast"])
+@pytest.mark.parametrize("roll", [0.0, 1.2])
+def test_slab_integrate_kernels_match_twins(dev, kind, dtype, roll):
+    """A z-slab (planes 4..19 of 40) through the brick walk's kernels,
+    whose centres, column lines and cull start at the slab's first plane
+    (``z0``): bit-equal with the twin on the same slab, and with planes
+    4..19 of the whole volume fused by the same kernel, over three frames;
+    the fast kernels' miss counts are the whole volume's share. A 1.2 rad
+    roll makes the fast convention skip (and count) every column."""
+    size = (64, 48, 40)
+    kw = dict(offset=(-1000.0, -800.0, 0.0), dtype=dtype,
+              with_color="color" in kind, device=dev)
+    whole = make_volume(size, 2000.0, **kw)
+    slab = make_volume(size, 2000.0, slab=(4, 16), **kw)
+    twin = dataclasses.replace(slab, **{
+        f: getattr(slab, f).to("cpu", copy=True) for f in (
+            "tsdf", "weight", "color", "physical_size", "offset",
+            "truncation_distance", "max_weight", "global_rotation",
+            "global_translation") if getattr(slab, f) is not None})
+    rgb = torch.from_numpy(fixtures.gradient_rgb(W, H)).to(dev)
+    mode = "fast" if "fast" in kind else "exact"
+    misses = []
+    for i in range(3):
+        cam = _rolled(_camera(dev, [300.0 + 30.0 * i, 200.0, -700.0],
+                              [0.0, 0.0, 1000.0]), roll)
+        depth = torch.from_numpy(_frame_depth(i)).to(dev)
+        camc = Camera.from_numpy(cam.k.cpu(), cam.pose.cpu(),
+                                 cam.k_inv.cpu(), cam.pose_inv.cpu(),
+                                 device="cpu")
+        for vol, c, d, img in ((whole, cam, depth, rgb), (slab, cam, depth, rgb),
+                               (twin, camc, depth.cpu(), rgb.cpu())):
+            if "color" in kind:
+                _, miss = integrate.integrate_color_cuda(vol, d, img, c,
+                                                         mode=mode)
+            elif kind == "fast":
+                _, miss = integrate.integrate_fast_cuda(vol, d, c)
+            else:
+                integrate.integrate_cuda(vol, d, c)
+                miss = torch.zeros((), dtype=torch.int32)
+            misses.append(int(miss))
+    torch.cuda.synchronize()
+    for f in ("tsdf", "weight", "color"):
+        if getattr(slab, f) is None:
+            continue
+        got, same = getattr(slab, f), _bits_equal
+        if f == "color":
+            same = torch.equal
+        assert same(got.cpu(), getattr(twin, f)), f
+        assert same(got, getattr(whole, f)[4:20]), f
+    slab_miss, twin_miss = misses[1::3], misses[2::3]
+    assert slab_miss == twin_miss
+    if roll and mode == "fast":  # every column skipped and counted
+        assert min(slab_miss) > 0 and all(
+            m <= w for m, w in zip(slab_miss, misses[0::3]))
+    else:
+        assert float(slab.weight.float().max()) >= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("row0,rows", [(0, 120), (37, 30), (90, 40)])
+def test_raycast_row_origin_matches_twin_and_whole_render(dev, dtype, row0,
+                                                          rows):
+    """A tile of rows row0 .. row0 + rows - 1 (past the image's last row
+    where it is longer): each row equals the twin's tile and the same row
+    of the whole render bit for bit."""
+    vol = _raycast_scene(dev).astype(dtype)
+    cam = _camera(dev, [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0])
+    whole = raycast.raycast_vertices_cuda(vol, cam, W, H)
+    tile = raycast.raycast_vertices_cuda(vol, cam, W, rows, row0=row0)
+    twin = raycast.raycast_vertices(vol, cam, W, rows, row0=row0)
+    torch.cuda.synchronize()
+    _assert_same_render(tile, twin)
+    inside = min(rows, H - row0)
+    _assert_same_render(tile[:inside], whole[row0:row0 + inside])
+    assert bool(torch.isfinite(tile[:inside]).all(-1).any())

@@ -173,13 +173,72 @@ def test_render_and_mesh_verbs_match_jax(tum_dir, tmp_path):
     np.testing.assert_array_equal(ft, fj)
 
 
-@pytest.mark.parametrize(
-    "flag", [["--fuse-color", "--devices", "2x1"], ["--devices", "2x1"]]
-)
-def test_unported_flags_exit_with_error(tum_dir, tmp_path, flag, capsys):
-    """``--devices`` is not ported, with or without ``--fuse-color`` (the
-    combination on which the JAX CLI itself fails, ROADMAP Queue 3)."""
-    rc = torch_main(["fuse", "-d", str(tum_dir), "--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", [["--fuse-color"], []])
+def test_fuse_devices_writes_the_single_device_bytes(tum_dir, tmp_path, flag):
+    """``fuse --devices 2x1`` (two gloo ranks on the CPU, each fusing its
+    z-slab), with or without ``--fuse-color``, writes the same .tsdf, PNG
+    and PLY bytes as the verb without ``--devices``: the slabs are the
+    single volume's planes bit for bit. The colour run fuses rgb/ frames
+    of a gradient added to a copy of the directory."""
+    import shutil
+
+    from tsdf_tpu_torch.utils import fixtures
+
+    src = tmp_path / "tum"
+    shutil.copytree(tum_dir, src)
+    (src / "rgb").mkdir()
+    for i in range(3):
+        save_png(src / "rgb" / f"{i}.0.png",
+                 np.roll(fixtures.gradient_rgb(W, H), 9 * i, axis=1))
+    outs = {}
+    for tag, devices in (("one", []), ("mesh", ["--devices", "2x1"])):
+        d = tmp_path / tag
+        d.mkdir()
+        argv = ["fuse", "-d", str(src), "-s", "32", "--device", "cpu",
+                "-o", str(d / "v.tsdf"), "--scene", str(d / "s.png"),
+                "--normals", str(d / "n.png"), "--mesh", str(d / "m.ply"),
+                "--max-cubes", str(1 << 14), "--max-vertices", str(1 << 16),
+                ] + CAM_ARGS + flag + devices
+        if flag:
+            argv += ["--color", str(d / "c.png")]
+        assert torch_main(argv) == 0
+        outs[tag] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert len(outs["one"]) == (5 if flag else 4)
+    assert outs["mesh"] == outs["one"]
+    if flag:  # the colour was fused
+        assert load_png(tmp_path / "one" / "c.png").max() > 0
+
+
+def test_fuse_devices_tracked_follows_the_single_device_verb(tum_dir, tmp_path,
+                                                             capsys):
+    """``fuse --devices 2x1 --track --filter`` (the sharded tracked loop on
+    two gloo ranks) tracks every frame and prints an ATE within 2 mm of the
+    verb's without ``--devices``, the tracked loop's pose gate."""
+    base = ["fuse", "-d", str(tum_dir), "-s", "32", "--device", "cpu",
+            "--track", "--filter", "--scene", str(tmp_path / "s.png"),
+            "--normals", str(tmp_path / "n.png"), "--mesh", ""] + CAM_ARGS
+    ates = []
+    for devices in ([], ["--devices", "2x1"]):
+        capsys.readouterr()
+        assert torch_main(base + devices) == 0
+        out = capsys.readouterr().out
+        assert "tracked 3 frames" in out
+        (line,) = [ln for ln in out.splitlines() if ln.startswith("ATE")]
+        ates.append(float(line.split("rmse=")[1].split("mm")[0]))
+    assert "on 2x1 mesh" in out
+    assert abs(ates[1] - ates[0]) < 2.0
+
+
+def test_fuse_devices_refusals(tum_dir, capsys):
+    """A malformed or indivisible ``--devices`` exits 1; ``sfusion
+    --devices`` is not ported yet and exits 2."""
+    base = ["fuse", "-d", str(tum_dir), "--device", "cpu", "-s", "30"]
+    assert torch_main(base + ["--devices", "4x1"]) == 1
+    assert "divisible" in capsys.readouterr().err
+    assert torch_main(base + ["--devices", "twox1"]) == 1
+    assert "BxR" in capsys.readouterr().err
+    rc = torch_main(["sfusion", str(tum_dir), str(tum_dir), "--device", "cpu",
+                     "--devices", "2x1"])
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err
 

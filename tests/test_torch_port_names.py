@@ -20,26 +20,15 @@ JAX = ROOT / "tsdf_tpu"
 PORT = ROOT / "tsdf_tpu_torch"
 
 # module -> names still missing from the port, by reason
-QUEUE1_ITEM6 = "to port: ROADMAP Queue 1 item 6 (multi-GPU)"
+QUEUE1_ITEM6 = "to port: ROADMAP Queue 1 item 6b (multi-GPU surface, non-rigid, gradient)"
 NO_PORT = "no port: TPU plumbing (ROADMAP Queue 2)"
 
 REMAINING = {
-    "parallel/distributed.py": (QUEUE1_ITEM6, {
-        "global_mesh", "initialize", "is_coordinator",
-    }),
-    "parallel/halo.py": (QUEUE1_ITEM6, {"halo_exchange_z"}),
-    "parallel/mesh.py": (QUEUE1_ITEM6, {
-        "make_mesh", "replicated", "volume_pspecs", "volume_sharding",
-    }),
     "parallel/ops.py": (QUEUE1_ITEM6, {
-        "extract_surface_sharded", "get_incremental_transformation_sharded",
-        "icp_step_sharded", "integrate_pose_sharded", "integrate_sharded",
-        "merge_brick_soups", "raycast_sharded", "raycast_sharded_bricked",
-        "scenefusion_frame_sharded", "shard_volume",
-        "track_and_fuse_frames_sharded", "update_deformation_sharded",
-        "warped_topup_sharded",
+        "extract_surface_sharded", "integrate_pose_sharded",
+        "merge_brick_soups", "scenefusion_frame_sharded",
+        "update_deformation_sharded", "warped_topup_sharded",
     }),
-    "volume.py": (QUEUE1_ITEM6, {"TSDFVolume.for_geometry"}),
     "struct.py": (NO_PORT, {"field", "pytree_dataclass"}),
     "ops/scatter.py": (NO_PORT, {
         "gather_flat", "scatter_add_flat", "scatter_set_int", "take_flat",
@@ -100,7 +89,8 @@ def test_what_remains_to_port_is_exactly_the_written_list():
     "camera.py", "cli.py", "io/block_tsdf.py", "io/convert.py",
     "io/depth_image.py", "io/file_utils.py", "io/pgm.py", "io/tum.py",
     "native/__init__.py", "ops/shading.py", "tracking/icp.py", "utils/checkpoint.py",
-    "utils/profiling.py",
+    "utils/profiling.py", "parallel/distributed.py", "parallel/halo.py",
+    "parallel/mesh.py", "volume.py",
 ])
 def test_module_has_every_jax_name(module):
     """The modules this comparison found short, each complete now."""

@@ -80,14 +80,15 @@ def integrate(
     return integrate_cuda(vol, depth, camera, cap_weight=cap_weight)
 
 
-def _vertices(vol, camera, width, height, mode, max_steps, step_scale):
+def _vertices(vol, camera, width, height, mode, max_steps, step_scale,
+              row0=0):
     """The march: the kernel's wrapper for the kernel's keywords, the
     plain march for any other on CPU tensors; on CUDA tensors any other
-    raises."""
+    raises. ``row0``: the image row of the first of ``height`` rows."""
     kernel_keywords = mode == _KERNEL_MODE and step_scale == _KERNEL_STEP_SCALE
     if kernel_keywords:
         return raycast_vertices_cuda(
-            vol, camera, width, height, max_steps=max_steps
+            vol, camera, width, height, max_steps=max_steps, row0=row0
         )
     if vol.device.type == "cuda":
         raise ValueError(
@@ -99,7 +100,7 @@ def _vertices(vol, camera, width, height, mode, max_steps, step_scale):
         )
     return raycast_vertices(
         vol, camera, width, height,
-        mode=mode, max_steps=max_steps, step_scale=step_scale,
+        mode=mode, max_steps=max_steps, step_scale=step_scale, row0=row0,
     )
 
 

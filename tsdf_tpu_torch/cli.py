@@ -20,6 +20,12 @@ Verbs:
   convert  format converters: freenect2png, pgm2png, fl2uchar (host
            code, no device)
 
+``fuse --devices BxR`` fuses on a mesh of B x R ranks (``parallel/``):
+B z-slabs of the volume, R row tiles of the image. Run as one command, it
+starts the ranks itself, rank r on card r over NCCL (with ``--device cpu``
+on the CPU over gloo); under ``torchrun`` it joins the group it is given.
+The mesh's first rank gathers the slabs and writes the outputs.
+
 Every verb but ``convert`` takes ``--device`` (default ``cuda``). On a
 CUDA device every integration (depth, or depth + colour with
 --fuse-color), raycast, bilateral filter and lane gather a verb makes is
@@ -39,6 +45,8 @@ Run as ``python -m tsdf_tpu_torch <verb> ...``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import itertools
 import math
 import os
@@ -47,12 +55,6 @@ import time
 
 import numpy as np
 import torch
-
-# Flags of the JAX CLI whose paths are not ported yet.
-_NOT_PORTED = {
-    "devices": "--devices (multi-device fusion)",
-}
-
 
 def resolve_device(name: str) -> torch.device:
     """The torch device for ``--device``; a CUDA device without a card
@@ -151,13 +153,6 @@ def _write_mesh(vol, path, max_cubes, max_vertices, color=False):
 
 
 def cmd_fuse(args):
-    from .io.tum import TUMDataLoader
-    from .pipelines.kinfu import (
-        FusionConfig,
-        fuse_frames,
-        track_and_fuse_frames,
-    )
-
     if args.fuse_color and args.track and args.devices:
         print(
             "--fuse-color --track --devices is not supported "
@@ -165,15 +160,87 @@ def cmd_fuse(args):
             file=sys.stderr,
         )
         return 1
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
+    if args.devices:
+        return _fuse_on_mesh(args)
+    return _fuse(args, resolve_device(args.device))
+
+
+def _parse_devices(spec: str, size: int):
+    """(B, R) of ``--devices BxR``, or an error message."""
+    b, _, r = spec.partition("x")
+    try:
+        nb, nr = int(b), int(r or 1)
+    except ValueError:
+        return None, f"--devices must be BxR (got {spec!r})"
+    if nb < 1 or nr < 1:
+        return None, f"--devices must be BxR with B, R >= 1 (got {spec!r})"
+    if size % nb:
+        return None, (f"--size {size} must be divisible by the brick "
+                      f"axis ({nb})")
+    return (nb, nr), None
+
+
+def _fuse_on_mesh(args):
+    """``fuse --devices BxR``: join the group ``torchrun`` describes, or
+    start B x R local ranks (the kernels built first, once); the mesh's
+    first rank prints and writes the outputs."""
+    from .parallel.distributed import initialize, launch
+
+    shape, err = _parse_devices(args.devices, args.size)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    nb, nr = shape
+    device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize(backend="nccl" if device.type == "cuda" else "gloo")
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if device.type == "cuda" else device)
+        rc, text = _fuse_rank(dev, args, nb, nr)
+        print(text, end="")
+        return rc
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if nb * nr > cards:
             print(
-                f"{what} is not yet ported to tsdf_tpu_torch; see "
-                "ROADMAP.md (run the JAX CLI, python -m tsdf_tpu)",
+                f"--devices {args.devices} needs {nb * nr} cards; "
+                f"{cards} visible (ranks are not stacked on one card)",
                 file=sys.stderr,
             )
-            return 2
-    device = resolve_device(args.device)
+            return 1
+        from .kernels._build import library
+
+        library()
+    rc, text = launch(_fuse_rank, nb * nr, (args, nb, nr),
+                      device="cuda" if device.type == "cuda" else "cpu")[0]
+    print(text, end="")
+    return rc
+
+
+def _fuse_rank(device, args, nb, nr):
+    """One rank of ``fuse --devices``: (exit code, what the mesh's first
+    rank printed; every other rank prints nothing)."""
+    import torch.distributed as dist
+
+    from .parallel import make_mesh
+
+    mesh = make_mesh(nb, nr, device=device)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = _fuse(args, device, mesh)
+    return rc, (text.getvalue() if dist.get_rank() == mesh.ranks[0] else "")
+
+
+def _fuse(args, device, mesh=None):
+    """The fuse verb on ``device``, on one card or, with ``mesh``, on
+    this rank's slab of the mesh."""
+    from .io.tum import TUMDataLoader
+    from .pipelines.kinfu import (
+        FusionConfig,
+        fuse_frames,
+        track_and_fuse_frames,
+    )
+
     cfg = FusionConfig(
         volume_size=(args.size,) * 3,
         physical_size_mm=args.physical,
@@ -182,7 +249,13 @@ def cmd_fuse(args):
         height=args.height,
         icp_conv_eps=args.icp_eps,
     )
-    vol = cfg.make_volume(device=device)
+    if mesh is None:
+        vol = cfg.make_volume(device=device)
+    else:
+        from .parallel.ops import make_sharded_volume
+
+        vol = make_sharded_volume(mesh, cfg.volume_size, cfg.physical_size_mm,
+                                  offset=cfg.offset_mm)
     if args.fuse_color:
         vol = vol.with_color()
     camera = _make_camera(args, device)
@@ -197,7 +270,8 @@ def cmd_fuse(args):
         )
         return 1
     first_pose = torch.as_tensor(loader.entries[0][1], device=device)
-    print(f"fusing {n} frames at {args.size}^3 on {device} ...")
+    where = device if mesh is None else f"a {args.devices} mesh"
+    print(f"fusing {n} frames at {args.size}^3 on {where} ...")
 
     gt_poses = []
 
@@ -224,18 +298,37 @@ def cmd_fuse(args):
     t0 = time.perf_counter()
     if args.track:
         camera = camera.set_pose(first_pose)
-        vol, camera, poses, stats = track_and_fuse_frames(
-            vol, camera, stream(False), cfg
-        )
+        if mesh is None:
+            vol, camera, poses, stats = track_and_fuse_frames(
+                vol, camera, stream(False), cfg
+            )
+        else:
+            from .parallel.ops import track_and_fuse_frames_sharded
+
+            vol, camera, poses, stats = track_and_fuse_frames_sharded(
+                vol, camera, stream(False), mesh,
+                use_bilateral_filter=cfg.use_bilateral_filter,
+                band=cfg.icp_band or None, width=cfg.width, height=cfg.height,
+                conv_eps=cfg.icp_conv_eps,
+            )
     else:
+        # on the mesh, each rank fuses its slab: no collective
         vol, camera = fuse_frames(vol, camera, stream(True), cfg)
     _sync(device)
     seconds = time.perf_counter() - t0
+    if mesh is not None:
+        from .parallel.ops import unshard_volume
+
+        vol = unshard_volume(vol, mesh)
+        if vol is None:  # the mesh's first rank writes the outputs
+            return 0
+    on_mesh = "" if mesh is None else f" on {args.devices} mesh"
     if args.track:
         err, inl = stats[-1]
         print(
             f"tracked {len(poses)}{' colour' if args.fuse_color else ''} "
-            f"frames; lastError={float(err):.2f}mm lastInliers={int(inl)}"
+            f"frames{on_mesh}; lastError={float(err):.2f}mm "
+            f"lastInliers={int(inl)}"
         )
         # trajectory error against the dataset's ground truth
         if len(gt_poses) == len(poses) and len(poses) >= 2:
@@ -250,7 +343,9 @@ def cmd_fuse(args):
                 f"/frame rot={r['rot_rmse']*1e3:.2f}mrad/frame"
             )
     elif args.fuse_color:
-        print(f"fused {len(gt_poses)} frames with colour")
+        print(f"fused {len(gt_poses)} frames with colour{on_mesh}")
+    elif mesh is not None:
+        print(f"fused {len(gt_poses)} frames{on_mesh}")
     print(
         f"{'tracked and fused' if args.track else 'fused'} {n} frames in "
         f"{seconds:.3f} s ({1000.0 * seconds / n:.2f} ms/frame, PNG decode "
@@ -480,7 +575,11 @@ def main(argv=None):
         help="fuse rgb/<stamp>.png frames into per-voxel colour (with the "
         "ground-truth poses, or with --track at the tracked poses)",
     )
-    p.add_argument("--devices", help="not yet ported")
+    p.add_argument(
+        "--devices",
+        help="BxR: fuse on a mesh of B z-slabs x R row tiles, one rank "
+        "(card) each",
+    )
     p.add_argument("-o", "--out", help="output .tsdf")
     p.add_argument("--scene", default="scene.png")
     p.add_argument("--normals", default="normals.png")

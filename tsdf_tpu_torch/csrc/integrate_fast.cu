@@ -21,12 +21,13 @@ namespace {
 template <typename T>
 int integrate_fast(void* tsdf, void* weight, const void* depth, void* lines,
                    void* miss, const void* params, int sx, int sy, int sz,
-                   int width, int height, int cap_weight, void* stream) {
+                   int width, int height, int cap_weight, void* stream,
+                   int z0) {
   const tsdf_bricks::Frame f{nullptr, (const float*)depth, nullptr,
                              (const float2*)lines};
   return tsdf_bricks::launch<T, true, false>(
       (T*)tsdf, (T*)weight, f, lines, (int*)miss, const_cast<void*>(params),
-      sx, sy, sz, width, height, cap_weight, (cudaStream_t)stream);
+      sx, sy, sz, width, height, cap_weight, (cudaStream_t)stream, z0);
 }
 
 }  // namespace
@@ -34,22 +35,23 @@ int integrate_fast(void* tsdf, void* weight, const void* depth, void* lines,
 // params holds 24 floats and then the zeroed scratch of the brick walk
 // (kernels/integrate.py:integrate_fast_cuda); lines: scratch of sx*sz
 // float2; miss: one int32, zeroed by the caller. tsdf and weight are
-// float32 here, bfloat16 in tsdf_integrate_fast_bf16.
+// float32 here, bfloat16 in tsdf_integrate_fast_bf16. z0: the volume's
+// first plane in the whole volume, as in tsdf_integrate.
 extern "C" int tsdf_integrate_fast(void* tsdf, void* weight,
                                    const void* depth, void* lines, void* miss,
                                    const void* params, int sx, int sy, int sz,
                                    int width, int height, int cap_weight,
-                                   void* stream) {
+                                   void* stream, int z0) {
   return integrate_fast<float>(tsdf, weight, depth, lines, miss, params, sx,
-                               sy, sz, width, height, cap_weight, stream);
+                               sy, sz, width, height, cap_weight, stream, z0);
 }
 
 extern "C" int tsdf_integrate_fast_bf16(void* tsdf, void* weight,
                                         const void* depth, void* lines,
                                         void* miss, const void* params, int sx,
                                         int sy, int sz, int width, int height,
-                                        int cap_weight, void* stream) {
+                                        int cap_weight, void* stream, int z0) {
   return integrate_fast<tsdf_storage::bf16>(tsdf, weight, depth, lines, miss,
                                             params, sx, sy, sz, width, height,
-                                            cap_weight, stream);
+                                            cap_weight, stream, z0);
 }

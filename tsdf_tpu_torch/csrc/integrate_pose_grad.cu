@@ -357,7 +357,7 @@ int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
   if (err != 0) return err;
   tsdf_bricks::brick_cull_kernel<false>
       <<<(unsigned)((bricks + kMaxThreads - 1) / kMaxThreads), kMaxThreads, 0,
-         st>>>(scratch, nbx, nby, nbz, width, height);
+         st>>>(scratch, nbx, nby, nbz, width, height, 0);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   int dev = 0, sms = 0;

@@ -60,16 +60,17 @@ __device__ __forceinline__ float clip_big(float v) {
 // One thread per voxel column (z, x): lines[(z*sx + x)] = (alpha, beta).
 // y_far = Y - 0.5 voxels with Y the column length rounded up to 128. A
 // column steeper than |beta| = 1 also sets *steep (the brick cull of
-// integrate_bricks.cuh then keeps every brick).
+// integrate_bricks.cuh then keeps every brick). zg is the volume's first
+// plane in the whole volume (0 unless it is a z-slab).
 static __global__ void fit_lines_kernel(float2* __restrict__ lines,
                                         const float* __restrict__ p, int sx,
                                         int sz, float y_far,
-                                        unsigned* __restrict__ steep) {
+                                        unsigned* __restrict__ steep, int zg) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y;
   if (x >= sx) return;
   const float wx = ((float)x + 0.5f) * p[19] + p[16];
-  const float wz = ((float)z + 0.5f) * p[21] + p[18];
+  const float wz = ((float)(zg + z) + 0.5f) * p[21] + p[18];
   const float kx = p[2] * wz + p[3];
   const float ky = p[6] * wz + p[7];
   const float kz = p[10] * wz + p[11];

@@ -304,11 +304,12 @@ __device__ __forceinline__ float trilinear(const Grid<T>& g, float p0, float p1,
                ldg(v + dx + dy + dz), u, w1, w2);
 }
 
-// One ray: the ops/raycast.py contract at pixel (px, py), written to verts.
+// One ray: the ops/raycast.py contract at pixel (px, y0 + py) of the
+// image, written to row py of verts (a tile of rows from y0).
 template <typename T>
 __device__ __forceinline__ void march(const Grid<T>& g, const float* __restrict__ params,
                                       float* __restrict__ verts, int px, int py,
-                                      int width, int max_steps) {
+                                      int y0, int width, int max_steps) {
   const float* ki = params;
   const float* rot = params + kRot;
   const float* origin = params + kOrigin;
@@ -317,7 +318,7 @@ __device__ __forceinline__ void march(const Grid<T>& g, const float* __restrict_
   const float trunc = params[kTrunc];
 
   // ray_directions: normalize(R @ K^-1 @ (x, y, 1))
-  const float fx = (float)px, fy = (float)py;
+  const float fx = (float)px, fy = (float)(y0 + py);
   float dc[3], d[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) dc[i] = ki[3 * i] * fx + ki[3 * i + 1] * fy + ki[3 * i + 2];
@@ -397,7 +398,7 @@ template <typename T>
 __global__ void __launch_bounds__(kMarchThreads, kMarchBlocks)
 raycast_kernel(const T* __restrict__ tsdf, float* __restrict__ verts,
                float* __restrict__ params, int sx, int sy, int sz, int nbx,
-               int nby, int width, int height, int max_steps) {
+               int nby, int width, int height, int max_steps, int y0) {
   Grid<T> g;
   g.tsdf = tsdf;
   g.table = params + kTable;
@@ -420,7 +421,8 @@ raycast_kernel(const T* __restrict__ tsdf, float* __restrict__ verts,
     if (tile >= tiles) break;
     const int px = (int)(tile % tiles_x) * kTileW + (lane % kTileW);
     const int py = (int)(tile / tiles_x) * kTileH + lane / kTileW;
-    if (px < width && py < height) march(g, params, verts, px, py, width, max_steps);
+    if (px < width && py < height)
+      march(g, params, verts, px, py, y0, width, max_steps);
   }
 }
 
@@ -434,7 +436,8 @@ namespace {
 
 template <typename T>
 int raycast(const void* tsdf, void* verts, const void* params, int sx, int sy,
-            int sz, int width, int height, int max_steps, void* stream) {
+            int sz, int width, int height, int max_steps, void* stream,
+            int y0) {
   if (sx <= 0 || sy <= 0 || sz <= 0 || (int64_t)sx * sy * sz >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -460,24 +463,27 @@ int raycast(const void* tsdf, void* verts, const void* params, int sx, int sy,
   if (blocks > needed) blocks = needed;
   raycast_kernel<T><<<(unsigned)blocks, kMarchThreads, 0, st>>>(
       (const T*)tsdf, (float*)verts, scratch, sx, sy, sz, nbx, nby, width,
-      height, max_steps);
+      height, max_steps, y0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// tsdf is float32 here, bfloat16 in tsdf_raycast_bf16.
+// tsdf is float32 here, bfloat16 in tsdf_raycast_bf16. y0, after the
+// stream, is the row origin: verts holds the height rows of the image
+// from row y0 (kernels/raycast.py:raycast_vertices_cuda's row0; the
+// pre-pass's frustum test takes that tile from the cy in params).
 extern "C" int tsdf_raycast(const void* tsdf, void* verts, const void* params,
                             int sx, int sy, int sz, int width, int height,
-                            int max_steps, void* stream) {
+                            int max_steps, void* stream, int y0) {
   return raycast<float>(tsdf, verts, params, sx, sy, sz, width, height,
-                        max_steps, stream);
+                        max_steps, stream, y0);
 }
 
 extern "C" int tsdf_raycast_bf16(const void* tsdf, void* verts,
                                  const void* params, int sx, int sy, int sz,
                                  int width, int height, int max_steps,
-                                 void* stream) {
+                                 void* stream, int y0) {
   return raycast<tsdf_storage::bf16>(tsdf, verts, params, sx, sy, sz, width,
-                                     height, max_steps, stream);
+                                     height, max_steps, stream, y0);
 }

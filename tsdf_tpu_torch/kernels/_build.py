@@ -3,7 +3,10 @@
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process
 per source and all at once, and linked into
 ``csrc/build/libtsdf_kernels.so`` on first use, and again whenever a
-source is newer than the library. Each C entry point launches one kernel
+source is newer than the library. The build holds an inter-process lock
+(``fcntl``) on a file beside the library and renames a finished library
+into place, so ranks or workers that start together build once and each
+load a whole library. Each C entry point launches one kernel
 on the stream it is given and returns ``cudaGetLastError()``; the
 :class:`Kernel` wrapper raises on a non-zero code and counts launches.
 
@@ -14,6 +17,7 @@ machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -65,14 +69,21 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> Path:
     """Compile the kernels if the library is missing or stale; returns
-    its path. Raises RuntimeError with nvcc's output on failure."""
+    its path. Raises RuntimeError with nvcc's output on failure. One
+    process builds at a time; the others wait and find it built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / (LIB_NAME + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(force)
+
+
+def _build_locked(force: bool) -> Path:
     lib = library_path()
     srcs = _sources()
     # a header (*.cuh) shared by several sources makes the library stale too
     newest = max(s.stat().st_mtime for s in [*srcs, *CSRC.glob("*.cuh")])
     if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = os.getpid()
     objects = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]

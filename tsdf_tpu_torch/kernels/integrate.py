@@ -66,26 +66,27 @@ from ._build import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
     "tsdf_integrate",
-    # tsdf, weight, depth, params, sx, sy, sz, width, height, cap, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tsdf, weight, depth, params, sx, sy, sz, width, height, cap, stream,
+    # z0
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
 )
 KERNEL_COLOR = Kernel(
     "tsdf_integrate_color",
     # tsdf, weight, color, depth, rgb, params, sx, sy, sz, width, height,
-    # cap, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # cap, stream, z0
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
 )
 KERNEL_FAST = Kernel(
     "tsdf_integrate_fast",
     # tsdf, weight, depth, lines, miss, params, sx, sy, sz, width, height,
-    # cap, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # cap, stream, z0
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
 )
 KERNEL_COLOR_FAST = Kernel(
     "tsdf_integrate_color_fast",
     # tsdf, weight, color, depth, rgb, lines, miss, params, sx, sy, sz,
-    # width, height, cap, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # width, height, cap, stream, z0
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
 )
 KERNEL_WARPED = Kernel(
     "tsdf_integrate_warped",
@@ -205,7 +206,8 @@ def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera,
     or Z > max depth + truncation, m = ``CULL_MARGIN_PX``, mu = m or, with
     ``fast``, ``FAST_CULL_MARGIN_PX`` -- or when the frame has no depth > 0.
     All six are affine in the voxel index, so a plane negative at the
-    corners is negative on the box. With ``fast``, a voxel column steeper
+    corners is negative on the box. A slab's bricks are tested at the
+    whole volume's centres of their voxels (``vol.z0`` on). With ``fast``, a voxel column steeper
     than |beta| = 1 (``ops.integrate.fit_column_lines``) keeps every brick:
     its voxels count as misses wherever they lie.
     """
@@ -216,14 +218,14 @@ def brick_cull(vol: TSDFVolume, depth: torch.Tensor, camera: Camera,
     m = CULL_MARGIN_PX
     mu = FAST_CULL_MARGIN_PX if fast else m
 
-    def ends(n, b, axis):
+    def ends(n, b, axis, origin=0):
         """The low and high corner coordinate of every brick on an axis."""
-        first = torch.arange(0, n, b, device=dev).to(torch.float32)
+        first = torch.arange(origin, origin + n, b, device=dev).to(torch.float32)
         return [(c + 0.5) * vs[axis] + off[axis]
                 for c in (first - 1, first + b)]
 
     bz, by, bx = BRICK
-    xs, ys, zs = ends(sx, bx, 0), ends(sy, by, 1), ends(sz, bz, 2)
+    xs, ys, zs = ends(sx, bx, 0), ends(sy, by, 1), ends(sz, bz, 2, vol.z0)
     depth = depth.to(torch.float32)
     dmax = torch.where(depth > 0, depth, 0.0).max()
     far = dmax + vol.truncation_distance
@@ -384,7 +386,7 @@ def integrate_cuda(
         instance(KERNEL, vol)(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), depth.data_ptr(),
             params.data_ptr(), sx, sy, sz, w, h, int(bool(cap_weight)),
-            stream_handle(dev),
+            stream_handle(dev), vol.z0,
         )
     return vol
 
@@ -437,6 +439,7 @@ def integrate_fast_cuda(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), depth.data_ptr(),
             lines.data_ptr(), miss.data_ptr(), params.data_ptr(),
             sx, sy, sz, w, h, int(bool(cap_weight)), stream_handle(dev),
+            vol.z0,
         )
     return vol, miss[0]
 
@@ -490,7 +493,8 @@ def integrate_color_cuda(
     h, w = depth.shape
     volume = (vol.tsdf.data_ptr(), vol.weight.data_ptr(), vol.color.data_ptr())
     images = (depth.data_ptr(), rgb.data_ptr())
-    tail = (sx, sy, sz, w, h, int(bool(cap_weight)), stream_handle(dev))
+    tail = (sx, sy, sz, w, h, int(bool(cap_weight)), stream_handle(dev),
+            vol.z0)
     with torch.cuda.device(dev):
         if fast:
             lines, miss = _fast_scratch(vol)
@@ -594,9 +598,12 @@ def pose_grad_cuda(
     ``vol`` is the volume the frame was fused into. The cotangents gbar_d
     and gbar_w are of the volume's dtype, and so are dd and dw: a bfloat16
     volume launches the bf16 instance, which reads them into float32 and
-    rounds dd and dw once, as the JAX backward does.
+    rounds dd and dw once, as the JAX backward does. A z-slab raises: the
+    adjoint of the sharded integrate is not ported yet.
     """
     check_rigid(vol, "pose_grad_cuda")
+    if vol.full_z is not None:
+        raise ValueError("pose_grad_cuda takes a whole volume, not a z-slab")
     dev = _check_frame(vol, depth, camera)
     shape = tuple(vol.tsdf.shape)
     check_same_device(dev, gbar_d=gbar_d, gbar_w=gbar_w)

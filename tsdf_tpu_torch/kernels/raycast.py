@@ -39,8 +39,9 @@ from ._build import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
     "tsdf_raycast",
-    # tsdf, verts, params, sx, sy, sz, width, height, max_steps, stream
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tsdf, verts, params, sx, sy, sz, width, height, max_steps, stream,
+    # row origin
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I],
 )
 # the bfloat16-storage instance (a volume of ``TSDFVolume.astype(bf16)``)
 KERNEL_BF16 = Kernel("tsdf_raycast_bf16", KERNEL.argtypes)
@@ -49,14 +50,15 @@ RAY_BRICK = 8
 
 
 def kernel_params(
-    vol: TSDFVolume, camera: Camera, scratch: int = 0
+    vol: TSDFVolume, camera: Camera, scratch: int = 0, row0: int = 0
 ) -> torch.Tensor:
     """The kernel's 47 f32 parameters, assembled on the volume's device:
     K^-1 (9, row-major), camera->world rotation (9), ray origin (3),
     space min (3), space max (3), voxel size (3), truncation distance,
-    world->camera rows 0-2 (12), fx, fy, cx, cy; then ``scratch`` words
-    the kernel writes before it reads them (its tile counter and its brick
-    table)."""
+    world->camera rows 0-2 (12), fx, fy, cx, cy - row0; then ``scratch``
+    words the kernel writes before it reads them (its tile counter and its
+    brick table). The last four serve only the pre-pass's frustum test,
+    which sees a tile of rows from ``row0`` as an image of its own."""
     k = camera.k
     parts = [
         camera.k_inv.reshape(-1),
@@ -67,7 +69,7 @@ def kernel_params(
         vol.voxel_size,
         vol.truncation_distance.reshape(1),
         camera.pose_inv[0:3, :].reshape(-1),
-        torch.stack([k[0, 0], k[1, 1], k[0, 2], k[1, 2]]),
+        torch.stack([k[0, 0], k[1, 1], k[0, 2], k[1, 2] - row0]),
     ]
     if scratch:
         parts.append(torch.empty(scratch, dtype=torch.float32,
@@ -120,9 +122,13 @@ def raycast_vertices_cuda(
     width: int = 640,
     height: int = 480,
     max_steps: int = REFERENCE_MAX_STEPS,
+    row0: int = 0,
 ) -> torch.Tensor:
     """(H, W, 3) f32 surface points of ``vol`` seen from ``camera``, NaN
-    on a miss; a ray stops after at most ``max_steps`` samples.
+    on a miss; a ray stops after at most ``max_steps`` samples. With
+    ``row0`` the H rows are the image's rows row0 .. row0 + H - 1, each
+    equal to the same row of a whole render bit for bit (a tile of a
+    sharded render).
 
     On CUDA tensors this is the kernel (its bf16 instance for a bfloat16
     tsdf); on CPU tensors it is the plain twin
@@ -136,9 +142,11 @@ def raycast_vertices_cuda(
         raise ValueError(f"bad raycast size {width}x{height}")
     if max_steps < 0:
         raise ValueError(f"max_steps must be >= 0, got {max_steps}")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if dev.type == "cpu":
         return raycast_vertices(vol, camera, width, height,
-                                max_steps=max_steps)
+                                max_steps=max_steps, row0=row0)
     if vol.tsdf.numel() >= 2**31:
         raise ValueError(
             f"tsdf: {vol.tsdf.numel()} voxels; the kernel indexes in 32 bits "
@@ -146,7 +154,8 @@ def raycast_vertices_cuda(
 
     # the scratch: the march's tile counter and the brick table
     nb = brick_table_shape(vol.tsdf.shape)
-    params = kernel_params(vol, camera, scratch=1 + nb[0] * nb[1] * nb[2])
+    params = kernel_params(vol, camera, scratch=1 + nb[0] * nb[1] * nb[2],
+                           row0=row0)
     verts = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     sz, sy, sx = vol.tsdf.shape
     kernel = KERNEL_BF16 if dtype == torch.bfloat16 else KERNEL
@@ -154,7 +163,7 @@ def raycast_vertices_cuda(
         kernel(
             vol.tsdf.data_ptr(), verts.data_ptr(), params.data_ptr(),
             sx, sy, sz, width, height, max_steps,
-            stream_handle(dev),
+            stream_handle(dev), row0,
         )
     return verts
 

@@ -39,11 +39,15 @@ def _mat3_rows(m, v0, v1, v2):
     return [m[i, 0] * v0 + m[i, 1] * v1 + m[i, 2] * v2 for i in range(3)]
 
 
-def ray_directions(camera: Camera, width: int, height: int) -> torch.Tensor:
-    """(H, W, 3) unit world-space ray directions: normalize(R K^-1 p)."""
+def ray_directions(
+    camera: Camera, width: int, height: int, row0: int = 0
+) -> torch.Tensor:
+    """(H, W, 3) unit world-space ray directions: normalize(R K^-1 p),
+    for the image rows row0 .. row0 + H - 1."""
     dev = camera.device
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.arange(row0, row0 + height, dtype=torch.float32,
+                      device=dev)[:, None]
     xs, ys = xs.expand(height, width), ys.expand(height, width)
     ki = camera.k_inv
     d_cam = [ki[i, 0] * xs + ki[i, 1] * ys + ki[i, 2] for i in range(3)]
@@ -181,10 +185,13 @@ def raycast_vertices(
     mode: str = "sphere",
     max_steps: int = REFERENCE_MAX_STEPS,
     step_scale: float = 0.75,
+    row0: int = 0,
 ) -> torch.Tensor:
     """(H, W, 3) world-space surface points in mm seen from ``camera``;
-    NaN on a miss."""
-    dirs = ray_directions(camera, width, height).reshape(-1, 3)
+    NaN on a miss. With ``row0`` the H rows are the image's rows from
+    row0 (each ray marches alone, so a tile's rows equal the whole
+    render's)."""
+    dirs = ray_directions(camera, width, height, row0).reshape(-1, 3)
     return march_rays(
         vol, camera.position, dirs,
         mode=mode, max_steps=max_steps, step_scale=step_scale,

@@ -85,33 +85,41 @@ def _check_integrate_mode(config: FusionConfig) -> None:
         raise ValueError(f"unknown integrate_mode {config.integrate_mode!r}")
 
 
-def _integrate(vol, depth, camera, config: FusionConfig, miss_log, rgb=None):
-    """Fuse one frame with the kernel the frame and the mode select. A
-    kernel that returns a miss count leaves it on the device, in
-    ``miss_log``; ``_check_misses`` reads the run's counts once. A volume
-    with a deformation field is fused at its deformed centres (exact
-    pixels, no miss; the "fast" convention has no deformed variant)."""
+def integrate_frame(vol, depth, camera, *, mode="line", cap_weight=False,
+                    rgb=None):
+    """Fuse one frame with the kernel the frame and ``mode`` select:
+    depth in mode "exact", "line" or "fast", depth and colour with ``rgb``,
+    a volume with a deformation field at its deformed centres (exact
+    pixels, no miss; the "fast" convention has no deformed variant).
+    Returns (volume, miss): the kernel's miss count, a 0-d tensor left on
+    the device, or None where the kernel counts none."""
     if vol.deform is not None:
-        if config.integrate_mode == "fast":
+        if mode == "fast":
             raise ValueError(
                 "integrate_mode='fast' is the rigid path; a deformed "
                 "volume needs 'exact' or 'line'"
             )
         return integrate_warped_cuda(
-            vol, depth, camera, cap_weight=config.cap_weight, rgb=rgb
-        )
+            vol, depth, camera, cap_weight=cap_weight, rgb=rgb
+        ), None
     if rgb is not None:
-        vol, miss = integrate_color_cuda(
-            vol, depth, rgb, camera, cap_weight=config.cap_weight,
-            mode=config.integrate_mode,
+        return integrate_color_cuda(
+            vol, depth, rgb, camera, cap_weight=cap_weight, mode=mode
         )
-    elif config.integrate_mode == "fast":
-        vol, miss = integrate_fast_cuda(
-            vol, depth, camera, cap_weight=config.cap_weight
-        )
-    else:
-        return integrate_cuda(vol, depth, camera, cap_weight=config.cap_weight)
-    miss_log.append(miss)
+    if mode == "fast":
+        return integrate_fast_cuda(vol, depth, camera, cap_weight=cap_weight)
+    return integrate_cuda(vol, depth, camera, cap_weight=cap_weight), None
+
+
+def _integrate(vol, depth, camera, config: FusionConfig, miss_log, rgb=None):
+    """``integrate_frame`` in the config's mode; a miss count goes to
+    ``miss_log``, where ``_check_misses`` reads the run's counts once."""
+    vol, miss = integrate_frame(
+        vol, depth, camera, mode=config.integrate_mode,
+        cap_weight=config.cap_weight, rgb=rgb,
+    )
+    if miss is not None:
+        miss_log.append(miss)
     return vol
 
 

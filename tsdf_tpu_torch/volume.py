@@ -22,6 +22,14 @@ centres). A volume that has one is integrated at those centres
 (``ops.integrate.integrate``, ``kernels.integrate.integrate_warped_cuda``)
 and warps points through it (``ops.deform.deform_points``). ``deform_rot``
 is carried for the ``.tsdf`` file format only; nothing reads it.
+
+A :class:`SlabVolume` is a z-slab of a whole volume, the share of one rank
+of a mesh (``parallel.ops.shard_volume``): its arrays hold the planes
+``z0 .. z0 + Z - 1`` of a volume of ``full_z`` planes, and its metadata
+(physical size, offset, truncation) is the whole volume's. Every voxel
+centre it computes is the whole volume's centre of the same voxel, bit for
+bit: ``axis_centres`` and the kernels form it from the plane's index in the
+whole volume.
 """
 
 from __future__ import annotations
@@ -70,6 +78,11 @@ class TSDFVolume:
     deform: Optional[torch.Tensor] = None
     deform_rot: Optional[torch.Tensor] = None
 
+    # a whole volume: its first plane is plane 0 of itself (SlabVolume
+    # makes both fields)
+    z0 = 0
+    full_z = None
+
     def replace(self, **updates) -> "TSDFVolume":
         return dataclasses.replace(self, **updates)
 
@@ -84,12 +97,19 @@ class TSDFVolume:
         return (x, y, z)
 
     @property
+    def full_size(self) -> tuple[int, int, int]:
+        """(size_x, size_y, size_z) of the whole volume: ``size``, but the
+        z extent of the volume a slab belongs to."""
+        x, y, z = self.size
+        return (x, y, z if self.full_z is None else self.full_z)
+
+    @property
     def voxel_size(self) -> torch.Tensor:
-        """(3,) mm per voxel: physical_size / size. Divided by Python
+        """(3,) mm per voxel: physical_size / full_size. Divided by Python
         ints: a tensor of the sizes made on a card would be a blocking
         host-to-device copy, one per frame in the fuse loop."""
         ps = self.physical_size
-        return torch.stack([ps[a] / n for a, n in enumerate(self.size)])
+        return torch.stack([ps[a] / n for a, n in enumerate(self.full_size)])
 
     @property
     def space_min(self) -> torch.Tensor:
@@ -101,11 +121,13 @@ class TSDFVolume:
 
     def axis_centres(self):
         """Per-axis voxel-centre vectors (z, y, x):
-        centre = (idx + 0.5) * voxel_size + offset."""
+        centre = (idx + 0.5) * voxel_size + offset, idx the index in the
+        whole volume (a slab's z indices start at ``z0``)."""
         sz, sy, sx = self.tsdf.shape
         vs = self.voxel_size
         dev = self.device
-        cz = (torch.arange(sz, dtype=_F32, device=dev) + 0.5) * vs[2]
+        z = torch.arange(self.z0, self.z0 + sz, dtype=_F32, device=dev)
+        cz = (z + 0.5) * vs[2]
         cy = (torch.arange(sy, dtype=_F32, device=dev) + 0.5) * vs[1]
         cx = (torch.arange(sx, dtype=_F32, device=dev) + 0.5) * vs[0]
         return cz + self.offset[2], cy + self.offset[1], cx + self.offset[0]
@@ -181,6 +203,28 @@ class TSDFVolume:
             tsdf=self.tsdf.to(dtype), weight=self.weight.to(dtype)
         )
 
+    @classmethod
+    def for_geometry(
+        cls, tsdf, physical_size, offset, truncation_distance
+    ) -> "TSDFVolume":
+        """A render-only carrier: the distance field and the grid geometry,
+        no weight, colour or deformation. The raycasts read nothing else."""
+        dev = tsdf.device
+
+        def f32(v):
+            return torch.as_tensor(v, dtype=_F32, device=dev)
+
+        return cls(
+            tsdf=tsdf,
+            weight=None,
+            physical_size=f32(physical_size),
+            offset=f32(offset),
+            truncation_distance=f32(truncation_distance).reshape(()),
+            max_weight=f32(DEFAULT_MAX_WEIGHT),
+            global_rotation=torch.zeros(3, dtype=_F32, device=dev),
+            global_translation=torch.zeros(3, dtype=_F32, device=dev),
+        )
+
     # -- state carried across frameworks ---------------------------------
 
     @classmethod
@@ -233,9 +277,10 @@ class TSDFVolume:
         )
 
     def to_numpy(self) -> dict:
-        """Every field as a numpy array (None stays None); the keyword
-        arguments of :meth:`from_numpy`. numpy has no bfloat16: bf16
-        storage comes back widened to float32, which is exact."""
+        """Every tensor field as a numpy array (None stays None); the
+        keyword arguments of :meth:`from_numpy`. numpy has no bfloat16: bf16
+        storage comes back widened to float32, which is exact. A slab's
+        plane numbers are not arrays and are left out."""
 
         def arr(t):
             t = t.detach().cpu()
@@ -247,7 +292,17 @@ class TSDFVolume:
                 else arr(getattr(self, f.name))
             )
             for f in dataclasses.fields(self)
+            if f.name not in ("z0", "full_z")
         }
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabVolume(TSDFVolume):
+    """The planes ``z0 .. z0 + Z - 1`` of a whole volume of ``full_z``
+    planes, with the whole volume's metadata (module docstring)."""
+
+    z0: int = 0
+    full_z: int = 0
 
 
 def make_volume(
@@ -261,6 +316,7 @@ def make_volume(
     dtype=torch.float32,
     *,
     device,
+    slab: tuple[int, int] | None = None,
 ) -> TSDFVolume:
     """Create a cleared volume on ``device``.
 
@@ -274,6 +330,8 @@ def make_volume(
       with_color: allocate the (Z, Y, X, 3) uint8 colour field.
       dtype: the storage of tsdf and weight, torch.float32 or
         torch.bfloat16; every other field is float32 (colour uint8).
+      slab: (z0, planes): allocate only those planes of the volume, as a
+        cleared :class:`SlabVolume` with the whole volume's metadata.
     """
     if dtype not in STORAGE_DTYPES:
         raise TypeError(
@@ -293,15 +351,22 @@ def make_volume(
         trunc = 1.1 * torch.sqrt(vv[0] + vv[1] + vv[2])
     else:
         trunc = torch.tensor(truncation_distance, dtype=_F32, device=device)
-    vol = TSDFVolume(
-        tsdf=trunc.to(dtype).expand(sz, sy, sx).clone(),
-        weight=torch.zeros((sz, sy, sx), dtype=dtype, device=device),
+    nz, extra = sz, {}
+    if slab is not None:
+        z0, nz = slab
+        if not (0 <= z0 and nz > 0 and z0 + nz <= sz):
+            raise ValueError(f"slab {slab} is not inside {sz} planes")
+        extra = {"z0": z0, "full_z": sz}
+    vol = (SlabVolume if slab is not None else TSDFVolume)(
+        tsdf=trunc.to(dtype).expand(nz, sy, sx).clone(),
+        weight=torch.zeros((nz, sy, sx), dtype=dtype, device=device),
         physical_size=ps,
         offset=off,
         truncation_distance=trunc,
         max_weight=torch.tensor(max_weight, dtype=_F32, device=device),
         global_rotation=torch.zeros(3, dtype=_F32, device=device),
         global_translation=torch.zeros(3, dtype=_F32, device=device),
+        **extra,
     )
     if with_deformation:
         vol = vol.with_identity_deformation()
