@@ -3278,6 +3278,13 @@ PROBE_OPS_PER_GATHER = 4
 PROBE_ROWS = 64 * 512  # tools/probe_gather_roofline.py: N_PROG x S rows
 # dpinv: float64 sums of the same float32 terms in another order
 POSE_GRAD_DPINV_RTOL = 1e-6
+# the slab the adjoint's slab instance is timed on: a 4x1 mesh's second
+# slab of the 512^3 volume
+SLAB_Z0, SLAB_PLANES = SIZE // 4, SIZE // 4
+# the walk kernel of each slab instance, by the volume's dtype (its
+# registers are logged)
+SLAB_WALK = {torch.float32: "pose_grad_walk_kernelIfLb1EE",
+             torch.bfloat16: "pose_grad_walk_kernelI13__nv_bfloat16Lb1EE"}
 # config4b (tools/run_config4b.py)
 C4B_CAMERA = ((120.0, -80.0, -500.0), (0.0, 0.0, 1500.0))
 C4B_DELTA0 = (0.004, -0.003, 0.002, 12.0, -9.0, 8.0)
@@ -3450,7 +3457,9 @@ def compare_pose_grad(dev, frames) -> dict:
         ms2 = median_ms(lambda: pose_grad_cuda(vol, depth, cam, gd, gw), reps=20)
         parent2 = median_ms(parent_run, reps=20)
         log(f"pose adjoint 512^3 one frame, in turns: kernel {ms:.4f}, parent "
-            f"{parent:.4f}, kernel {ms2:.4f}, parent {parent2:.4f} ms")
+            f"{parent:.4f}, kernel {ms2:.4f}, parent {parent2:.4f} ms; the "
+            f"slab-free instance over the parent's adjoint "
+            f"{(ms + ms2) / (parent + parent2):.4f}")
     # a frame with no depth culls every brick: a copy of the cotangents
     no_depth = torch.zeros_like(depth)
     zd, zw, zp = pose_grad_cuda(vol, no_depth, cam, gd, gw)
@@ -3476,8 +3485,8 @@ def compare_pose_grad(dev, frames) -> dict:
 
     copy_ms = median_ms(copy_both, reps=20)
     del cd, cw
-    registers = kernel_registers(["pose_grad_copy_kernelIf",
-                                  "pose_grad_walk_kernelIfE"])
+    registers = kernel_registers(["pose_grad_copy_kernelIfLb1ELb0EE",
+                                  "pose_grad_walk_kernelIfLb0EE"])
     # device time by kernel: the copy of the culled bricks, the walk of the
     # live ones, the pre-passes and the wrapper's small launches
     split = {what: profile_and_log(
@@ -3499,14 +3508,90 @@ def compare_pose_grad(dev, frames) -> dict:
         f"{ms_text(parent_zero_depth_ms)}; bound {zero_bound:.4f} ms by bytes; "
         f"a device copy of gbar_d and gbar_w {copy_ms:.4f} ms); registers a "
         f"thread {registers}")
+    slab = slab_adjoint(vol, depth, cam, gd, gw)
     return dict(max_abs_err=err, dd_dw_voxels_differ=sum(same),
                 bit_equal_second_run=again, bit_equal_model_sums=as_model,
+                slab=slab,
                 ms=ms, plain_ms=plain_ms, updated=n_upd, in_band=in_band,
                 culled_share=culled, zero_depth_ms=zero_depth_ms,
                 zero_depth_bound_ms=zero_bound, copy_ms=copy_ms,
                 registers=registers, device_ms_by_kernel=split, parent_ms=parent,
                 parent_zero_depth_ms=parent_zero_depth_ms, **least,
                 library_ms=None)
+
+
+def slab_adjoint(vol, depth, cam, gd, gw) -> dict:
+    """The adjoint's slab instance on planes SLAB_Z0 .. SLAB_Z0 +
+    SLAB_PLANES - 1 of ``vol`` (a ``SlabVolume``, the instance of the
+    volume's dtype): dd, dw and each brick's row of partials bit-equal with
+    the twin on the slab (``integrate_pose_grad``, ``pose_grad_partials``)
+    and with the same planes and bricks of the whole-volume kernel, one
+    launch of the slab instance; its time, the twin's and the bound for the
+    slab's work."""
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels import integrate as kint
+    from tsdf_tpu_torch.ops.integrate_diff import (
+        integrate_pose_grad,
+        pose_inv_cotangent,
+        sample_frame,
+    )
+
+    planes = slice(SLAB_Z0, SLAB_Z0 + SLAB_PLANES)
+    slab = make_volume((SIZE,) * 3, PHYSICAL, dtype=vol.tsdf.dtype,
+                       device=vol.device, slab=(SLAB_Z0, SLAB_PLANES))
+    slab = slab.replace(tsdf=vol.tsdf[planes].contiguous(),
+                        weight=vol.weight[planes].contiguous())
+    sgd, sgw = gd[planes].contiguous(), gw[planes].contiguous()
+    kern = kint.instance(kint.KERNEL_POSE_GRAD_SLAB, slab)
+    before = kern.launches
+    dd, dw, parts = kint._pose_grad_kernel(slab, depth, cam, sgd, sgw, False,
+                                           True)
+    launched = kern.launches - before
+    wd, ww, wparts = kint._pose_grad_kernel(vol, depth, cam, gd, gw, False,
+                                            True)
+    rd, rw, rp = integrate_pose_grad(slab, depth, cam, sgd, sgw)
+    model = kint.pose_grad_partials(slab, depth, cam, sgd)
+    torch.cuda.synchronize()
+    per_z = parts.shape[0] // (SLAB_PLANES // kint.BRICK[0])
+    first = SLAB_Z0 // kint.BRICK[0] * per_z
+    equal = dict(
+        twin=bits_equal(dd, rd) and bits_equal(dw, rw),
+        model=torch.equal(parts.view(torch.int64), model.view(torch.int64)),
+        whole=bits_equal(dd, wd[planes]) and bits_equal(dw, ww[planes])
+        and torch.equal(parts.view(torch.int64),
+                        wparts[first:first + parts.shape[0]].view(torch.int64)))
+    err = float((pose_inv_cotangent(parts.sum(dim=0)) - rp).abs().max())
+    scale = float(rp.abs().max())
+    del wd, ww, wparts, rd, rw, model
+    what = f"pose adjoint's slab instance ({vol.tsdf.dtype}, planes " \
+           f"{SLAB_Z0}..{SLAB_Z0 + SLAB_PLANES - 1} of 512^3)"
+    log(f"{what}: bit-equal with the twin on the slab {equal['twin']}, per-brick "
+        f"partials with its model {equal['model']}, with the whole volume's "
+        f"planes and bricks {equal['whole']}; dpinv max |diff| {err:.4g} "
+        f"(largest entry {scale:.6g}); launches {launched}")
+    check(all(equal.values()) and launched == 1 and scale > 0
+          and err <= POSE_GRAD_DPINV_RTOL * scale,
+          f"{what} differs from its twin or the whole volume's kernel")
+    *_, sdf, updated = sample_frame(depth, slab, cam)
+    n_upd = int(updated.sum())
+    in_band = int((updated & (sdf < slab.truncation_distance)).sum())
+    del sdf, updated
+    ms = median_ms(lambda: kint.pose_grad_cuda(slab, depth, cam, sgd, sgw),
+                   reps=20)
+    plain_ms = median_ms(lambda: integrate_pose_grad(slab, depth, cam, sgd, sgw),
+                         reps=3)
+    word = slab.tsdf.element_size()
+    o = POSE_GRAD_OPS
+    n = slab.tsdf.numel()
+    least = bound(4 * word * n + 2 * word * n_upd + 3 * 4 * depth.numel(),
+                  o["voxel"] * n + o["in_front"] * voxels_in_front(slab, cam)
+                  + o["updated"] * n_upd + o["band"] * in_band)
+    log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{least['bound_ms']:.4f} ms by {least['bound_by']} ({n_upd} updated, "
+        f"{in_band} in the band); registers a thread "
+        f"{kernel_registers([SLAB_WALK[vol.tsdf.dtype]])}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, updated=n_upd,
+                in_band=in_band, **least, library_ms=None)
 
 
 def compare_probe(dev) -> dict:
@@ -3586,6 +3671,19 @@ def profile_and_log(fn, what: str, n: int = 3) -> dict:
     return prof
 
 
+def c4b_depth() -> np.ndarray:
+    """config4b's frame: a sphere and three bumps, so that all six degrees
+    of freedom are observable (tools/run_config4b.py)."""
+    from tsdf_tpu_torch.utils import fixtures
+
+    depth = fixtures.sphere_depth_map(W, H, 150.0, 1000.0, 2500.0)
+    ys, xs = np.mgrid[0:H, 0:W]
+    for cx_, cy_, r_ in ((160, 120, 90.0), (480, 120, 70.0), (480, 360, 110.0)):
+        rr = (xs - cx_) ** 2 + (ys - cy_) ** 2
+        depth = np.where(rr < r_ ** 2, 900.0 + 0.3 * np.sqrt(rr), depth)
+    return depth.astype(np.float32)
+
+
 def phase_config4b(dev) -> dict:
     """tools/run_config4b.py on the card: pose recovery THROUGH fusion at
     512^3 / 640x480. The target is the four-bump frame fused at the true
@@ -3602,17 +3700,10 @@ def phase_config4b(dev) -> dict:
         descend_through_fusion,
         fusion_loss_and_grad,
     )
-    from tsdf_tpu_torch.utils import fixtures
 
     vol = make_volume((SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET, device=dev)
     cam = default_camera(dev, *C4B_CAMERA)
-    # four spheres so all six degrees of freedom are observable
-    depth = fixtures.sphere_depth_map(W, H, 150.0, 1000.0, 2500.0)
-    ys, xs = np.mgrid[0:H, 0:W]
-    for cx_, cy_, r_ in ((160, 120, 90.0), (480, 120, 70.0), (480, 360, 110.0)):
-        rr = (xs - cx_) ** 2 + (ys - cy_) ** 2
-        depth = np.where(rr < r_ ** 2, 900.0 + 0.3 * np.sqrt(rr), depth)
-    depth = torch.from_numpy(depth.astype(np.float32)).to(dev)
+    depth = torch.from_numpy(c4b_depth()).to(dev)
     with torch.no_grad():
         target, miss = kint.integrate_pose(vol, depth, cam, torch.zeros(6, device=dev),
                                            mode="line")
@@ -4280,9 +4371,10 @@ def bf16_adjoint(dev, frames) -> dict:
         + ", ".join(f"{t:.4f}" for t in turns)
         + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']} (2 B cotangents and storage); registers "
-        f"{kernel_registers(['pose_grad_walk_kernelI13__nv_bfloat16E'])}")
+        f"{kernel_registers(['pose_grad_walk_kernelI13__nv_bfloat16Lb0EE'])}")
     result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
-                  library_ms=None, f32_ms=f32_ms)
+                  library_ms=None, f32_ms=f32_ms,
+                  slab=slab_adjoint(v16, depth, cam, *g16))
     del v16, v32, g16, g32, dd, dw
     torch.cuda.empty_cache()
 
@@ -4581,6 +4673,15 @@ def pose_gaps(poses, refs) -> tuple[float, float]:
 # frames of the runs that count host syncs and collectives (the first is
 # fused untracked, the rest tracked)
 SYNC_FRAMES = 5
+# SceneFusion on the mesh: the reference's 10 mm voxels in a volume whose
+# z extent divides both meshes' "b" axes (255 divides neither 4 nor 2)
+SF_MESH_SIZE = 256
+SF_MESH_PHYSICAL = 2560.0
+SF_MESH_OFFSET = (-1280.0, -1280.0, 0.0)
+# the sharded frame against the single card's (tests/test_parallel_extra.py:146)
+SF_MESH_DEFORM_MM, SF_MESH_TSDF_MM = 1e-4, 1e-3
+# the sharded pose gradient against the single card's, relative to its norm
+SHARDED_GRAD_REL = 1e-6
 
 
 def syncs_and_collectives(fn) -> tuple[int, int]:
@@ -4660,14 +4761,223 @@ def nccl_syncs_rank(dev, depths_np, poses_np):
     return sharded_loop_syncs(dev, mesh, depths, cams)
 
 
-def sharded_rank(dev, depths_np, poses_np, rgbs_np):
+def sharded_surface(mesh, slab, single) -> dict:
+    """The sharded surface of the fused slabs (dense layout, the smoke's
+    caps a brick), merged on every rank; the first rank holds it to the
+    single-card soup ``single`` (its vertices, in order): the same count,
+    the vertices bit-equal in order and as a sorted multiset."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.parallel import extract_surface_sharded, merge_brick_soups
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bricks = extract_surface_sharded(slab, mesh, max_cubes_per_brick=MAX_CUBES,
+                                     max_vertices_per_brick=MAX_VERTICES)
+    overflowed = bricks[3].tolist()
+    verts, _ = merge_brick_soups(bricks)
+    seconds = time.perf_counter() - t0
+    out = dict(seconds=seconds, vertices=len(verts), overflowed=overflowed,
+               counts=launch_counts(), per_brick=bricks[2].tolist())
+    del bricks
+    torch.cuda.empty_cache()
+    if single is not None:
+        def multiset(v):
+            """The vertices' bit patterns, sorted by x, then y, then z."""
+            bits = np.ascontiguousarray(v).view(np.int32)
+            return bits[np.lexsort(bits.T[::-1])].tobytes()
+
+        out["single_vertices"] = len(single)
+        out["in_order"] = verts.tobytes() == single.tobytes()
+        # equal in order, the sorted multisets are equal too
+        out["multiset"] = out["in_order"] or multiset(verts) == multiset(single)
+    return out
+
+
+def sharded_sfusion(dev, mesh, sf_depth_np, single: bool) -> dict:
+    """Six ``scenefusion_frame_sharded`` frames at 256^3 over 2560 mm (the
+    SceneFusion sequence: one depth frame, uniform +x flows of whole
+    millimetres), twice. After every frame of the first run the slabs are
+    gathered, and with ``single`` (the mesh's first rank) held to six
+    ``scenefusion_step``s of one volume: n_corr equal, deform within
+    SF_MESH_DEFORM_MM, tsdf within SF_MESH_TSDF_MM, weights equal (and
+    whether each is bit-equal). The second run must equal the first on
+    every rank bit for bit; it is timed, with the launches of its six
+    frames, and one ``update_deformation_sharded`` of its final state."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.parallel import (
+        scenefusion_frame_sharded,
+        update_deformation_sharded,
+    )
+    from tsdf_tpu_torch.parallel.ops import make_sharded_volume, unshard_volume
+    from tsdf_tpu_torch.pipelines.scenefusion import scenefusion_step
+
+    depth = torch.from_numpy(sf_depth_np).to(dev)
+    flows = []
+    for mm in SF_FLOW_MM:
+        f = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+        f[..., 0] = mm
+        flows.append(f)
+    cam = sf_camera(dev)
+    geometry = dict(offset=SF_MESH_OFFSET, with_deformation=True)
+
+    def fresh():
+        vol = make_sharded_volume(mesh, (SF_MESH_SIZE,) * 3, SF_MESH_PHYSICAL,
+                                  **geometry)
+        return vol.replace(deform_rot=None)  # file-format state only
+
+    ref = None
+    if single:
+        ref = make_volume((SF_MESH_SIZE,) * 3, SF_MESH_PHYSICAL, device=dev,
+                          **geometry).replace(deform_rot=None)
+    vol = fresh()
+    frames = []
+    for flow in flows:
+        vol, n_corr = scenefusion_frame_sharded(
+            vol, depth, cam, flow, mesh, max_cubes_per_brick=SF_MAX_CUBES)
+        whole = unshard_volume(vol, mesh)
+        if ref is None:
+            continue
+        ref, n_ref, _ = scenefusion_step(ref, depth, flow, cam,
+                                         max_cubes=SF_MAX_CUBES)
+        frames.append(dict(
+            n_corr=int(n_corr), n_single=int(n_ref),
+            deform_mm=float((whole.deform - ref.deform).abs().max()),
+            tsdf_mm=float((whole.tsdf - ref.tsdf).abs().max()),
+            weights_equal=torch.equal(whole.weight, ref.weight),
+            bit_equal=all(bits_equal(getattr(whole, f), getattr(ref, f))
+                          for f in ("tsdf", "weight", "deform"))))
+        del whole
+    del ref
+    first = vol
+    vol = fresh()
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for flow in flows:
+        vol, _ = scenefusion_frame_sharded(
+            vol, depth, cam, flow, mesh, max_cubes_per_brick=SF_MAX_CUBES)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(flows)
+    counts = launch_counts()
+    again = all(bits_equal(getattr(vol, f), getattr(first, f))
+                for f in ("tsdf", "weight", "deform"))
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update_deformation_sharded(vol, depth, cam, flows[-1], mesh,
+                               max_cubes_per_brick=SF_MAX_CUBES)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    del vol, first
+    torch.cuda.empty_cache()
+    return dict(frames=frames, ms_per_frame=ms, update_ms=update_ms,
+                again=again, counts=counts)
+
+
+def sharded_pose(dev, mesh, dtype, single: bool) -> dict:
+    """One ``integrate_pose_sharded`` value-and-grad at 512^3 on config4b's
+    frame and pose (``C4B_DELTA0``), into the slabs that frame fused at
+    the identity, with a seeded cotangent (each rank's loss its slab's
+    share); then the slab adjoint alone at the step's pose. The fused slabs
+    and the adjoint's dd and dw are gathered, and with ``single`` (the
+    mesh's first rank) held to ``integrate_pose`` and ``pose_grad_cuda`` on
+    the whole volume: bit for bit, and the gradient within
+    SHARDED_GRAD_REL of the single card's, relative to its norm."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.kernels.integrate import (
+        integrate_cuda,
+        integrate_pose,
+        pose_grad_cuda,
+    )
+    from tsdf_tpu_torch.parallel import integrate_pose_sharded
+    from tsdf_tpu_torch.parallel.mesh import gather
+    from tsdf_tpu_torch.parallel.ops import (
+        integrate_sharded,
+        make_sharded_volume,
+        unshard_volume,
+    )
+    from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
+
+    cam = default_camera(dev, *C4B_CAMERA)
+    depth = torch.from_numpy(c4b_depth()).to(dev)
+    delta0 = torch.tensor(C4B_DELTA0, dtype=torch.float32, device=dev)
+    slab = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET)
+    integrate_sharded(slab, depth, cam, mesh, mode="exact")
+    slab = slab.astype(dtype)
+    planes = slice(slab.z0, slab.z0 + slab.tsdf.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    gd, gw = (torch.randn((SIZE,) * 3, generator=gen, device=dev)[planes]
+              .to(dtype).contiguous() for _ in range(2))
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    delta = delta0.clone().requires_grad_(True)
+    fused, miss = integrate_pose_sharded(slab, depth, cam, delta, mesh)
+    (gd.float() * fused.tsdf.float()).sum().backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    grad = delta.grad.clone()
+    at = cam.set_pose(matmul_small(se3_exp(delta0), cam.pose))
+    dd, dw, _ = pose_grad_cuda(slab, depth, at, gd, gw)
+    fused = fused.replace(tsdf=fused.tsdf.detach(), weight=fused.weight.detach())
+    whole = unshard_volume(fused, mesh)
+    b_group = mesh.get_group("b")
+    dds = gather(dd, mesh.ranks[0], b_group) if mesh.get_coordinate()[1] == 0 else None
+    dws = gather(dw, mesh.ranks[0], b_group) if mesh.get_coordinate()[1] == 0 else None
+    out = dict(seconds=seconds, counts=counts, miss=int(miss),
+               grad=grad.cpu().numpy().tolist())
+    del fused, dd, dw, slab
+    torch.cuda.empty_cache()
+    if single:
+        vol = make_volume((SIZE,) * 3, PHYSICAL, offset=POSE_OFFSET, device=dev)
+        integrate_cuda(vol, depth, cam)
+        vol = vol.astype(dtype)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        wgd, wgw = (torch.randn((SIZE,) * 3, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+        d1 = delta0.clone().requires_grad_(True)
+        ref, _ = integrate_pose(vol, depth, cam, d1)
+        (wgd.float() * ref.tsdf.float()).sum().backward()
+        rd, rw, _ = pose_grad_cuda(vol, depth, at, wgd, wgw)
+        torch.cuda.synchronize()
+        g1 = d1.grad
+        out.update(
+            fused_equal=bits_equal(whole.tsdf, ref.tsdf.detach())
+            and bits_equal(whole.weight, ref.weight.detach()),
+            adjoint_equal=bits_equal(torch.cat(dds), rd)
+            and bits_equal(torch.cat(dws), rw),
+            grad_rel=float((grad - g1).norm() / g1.norm()),
+            single_grad=g1.cpu().numpy().tolist())
+        del vol, ref, rd, rw, wgd, wgw
+    del whole, dds, dws
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np):
     """One of four ranks that share the card (gloo, CUDA tensors staged
     through the host), on each mesh of ``SHARDED_MESHES``: the GT-pose fuse
     of the frames (float32; bf16 and colour on the first mesh), the
-    replicated and the bricked raycast from the first pose, the tracked
-    loop. The mesh's first rank also runs the single-card references and
-    holds the results to them; every rank returns its times, its peaks,
-    its launch counts and the seconds of each step."""
+    replicated and the bricked raycast from the first pose, the surface of
+    the fused float32 slabs, the tracked loop, six SceneFusion frames at
+    256^3 (``sharded_sfusion``), the pose gradient at 512^3 (float32; bf16
+    too on the first mesh, ``sharded_pose``). The mesh's first rank also
+    runs the single-card references and holds the results to them; every
+    rank returns its times, its peaks, its launch counts and the seconds
+    of each step."""
     import torch.distributed as dist
 
     from tsdf_tpu_torch import Camera, make_volume
@@ -4685,6 +4995,7 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np):
         make_sharded_volume,
         unshard_volume,
     )
+    from tsdf_tpu_torch.ops.marching_cubes import extract_surface, soup_to_numpy
     from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
     from tsdf_tpu_torch.utils.trajectory import ate
 
@@ -4700,6 +5011,7 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np):
     torch.cuda.synchronize()
     first_pose_render = None
     single_poses = None
+    single_soup = None
     results = {}
     for nb, nr in SHARDED_MESHES:
         mesh = make_mesh(nb, nr, device=dev)
@@ -4756,6 +5068,8 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np):
                     and (not color or torch.equal(whole.color, ref.color)))
                 if name == "float32" and first_pose_render is None:
                     first_pose_render = raycast_vertices_cuda(ref, cams[0], W, H)
+                    single_soup = soup_to_numpy(extract_surface(
+                        ref, max_cubes=MAX_CUBES, max_vertices=MAX_VERTICES))[0]
                 del ref
             del whole
             if name == "float32":
@@ -4777,9 +5091,14 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np):
         if first:
             out["replicated_equal"] = vertices_equal(rep, first_pose_render)
             out["bricked"] = bricked_agreement(brk, first_pose_render)
-        del slab32, rep, brk
+        del rep, brk
         torch.cuda.empty_cache()
         lap("raycast_sharded_bricked")
+        out["surface"] = sharded_surface(mesh, slab32,
+                                         single_soup if first else None)
+        del slab32
+        torch.cuda.empty_cache()
+        lap("surface")
 
         # the tracked loop (bilateral filter, the bricked model render, the
         # banded sharded pyramid, the sharded integrate)
@@ -4813,6 +5132,14 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np):
         if (nb, nr) == SHARDED_MESHES[0]:
             out["syncs"] = sharded_loop_syncs(dev, mesh, depths, cams)
             lap("syncs")
+        out["sfusion"] = sharded_sfusion(dev, mesh, sf_depth_np, first)
+        lap("sfusion")
+        pose_kinds = [("pose", torch.float32)]
+        if (nb, nr) == SHARDED_MESHES[0]:
+            pose_kinds.append(("pose_bf16", BF16))
+        for key, dtype in pose_kinds:
+            out[key] = sharded_pose(dev, mesh, dtype, first)
+            lap(key)
         results[f"{nb}x{nr}"] = out
     results["clock"] = (entered, time.time())
     return results
@@ -4898,6 +5225,66 @@ def hold_sharded_mesh(shape: str, ranks: list) -> dict:
         check_counts(c["tracked"], f"{shape} tracked",
                      at_least=dict(lane_gather=19 * tracked),
                      bilateral=tracked, raycast=tracked, integrate=N_FRAMES)
+    surf = r0["surface"]
+    check(surf["vertices"] == surf["single_vertices"] and surf["in_order"]
+          and surf["multiset"] and not any(surf["overflowed"]),
+          f"{shape}: the sharded surface differs from the single card's "
+          f"({surf['vertices']} / {surf['single_vertices']} vertices, in order "
+          f"{surf['in_order']}, multiset {surf['multiset']}, overflowed "
+          f"{surf['overflowed']})")
+    sf = r0["sfusion"]
+    for i, f in enumerate(sf["frames"]):
+        check(f["n_corr"] == f["n_single"],
+              f"{shape}: SceneFusion frame {i}: n_corr {f['n_corr']} against "
+              f"the single card's {f['n_single']}")
+        check(f["deform_mm"] <= SF_MESH_DEFORM_MM
+              and f["tsdf_mm"] <= SF_MESH_TSDF_MM and f["weights_equal"],
+              f"{shape}: SceneFusion frame {i} off the single card's {f}")
+    check(sf["frames"][-1]["n_corr"] > 0, f"{shape}: SceneFusion found no surface")
+    check(all(r["sfusion"]["again"] for r in outs),
+          f"{shape}: two sharded SceneFusion runs differ")
+    poses = [k for k in ("pose", "pose_bf16") if k in r0]
+    for key in poses:
+        p = r0[key]
+        check(p["fused_equal"] and p["adjoint_equal"] and p["miss"] == 0
+              and p["grad_rel"] <= SHARDED_GRAD_REL,
+              f"{shape}: the sharded pose gradient ({key}) is off the single "
+              f"card's: fused slabs {p['fused_equal']}, adjoint dd/dw "
+              f"{p['adjoint_equal']}, gradient {p['grad_rel']:.3g} of its norm")
+    for r in outs:
+        check_counts(r["surface"]["counts"], f"{shape} surface",
+                     at_least=dict(lane_gather=1))
+        check_counts(r["sfusion"]["counts"], f"{shape} sfusion",
+                     at_least=dict(lane_gather=SF_FRAMES),
+                     integrate_warped=SF_FRAMES, row_gather=SF_FRAMES)
+        for key in poses:
+            tag = "" if key == "pose" else "_bf16"
+            check_counts(r[key]["counts"], f"{shape} {key}",
+                         **{f"integrate{tag}": 1,
+                            f"integrate_pose_grad_slab{tag}": 1})
+    surface_s = max(r["surface"]["seconds"] for r in outs)
+    sf_ms = max(r["sfusion"]["ms_per_frame"] for r in outs)
+    update_ms = max(r["sfusion"]["update_ms"] for r in outs)
+    pose_s = {k: max(r[k]["seconds"] for r in outs) for k in poses}
+    log(f"sharded {shape}, four ranks sharing one card over gloo (a "
+        f"correctness configuration): the surface of the 20-frame 512^3 "
+        f"slabs {surf['vertices']} vertices (bricks {surf['per_brick']}), "
+        f"bit-equal with the single card's in order {surf['in_order']} and as "
+        f"a sorted multiset {surf['multiset']}, {surface_s:.3f} s (slowest "
+        f"rank, extraction, gathers and merge); SceneFusion 256^3 over "
+        f"{SF_MESH_PHYSICAL:.0f} mm, {SF_FRAMES} frames: n_corr "
+        f"{[f['n_corr'] for f in sf['frames']]} (single card "
+        f"{[f['n_single'] for f in sf['frames']]}), deform within "
+        f"{max(f['deform_mm'] for f in sf['frames']):.3g} mm, tsdf within "
+        f"{max(f['tsdf_mm'] for f in sf['frames']):.3g} mm, bit-equal frames "
+        f"{[f['bit_equal'] for f in sf['frames']]}, a second run bit-equal; "
+        f"{sf_ms:.4f} ms/frame (slowest rank), one update_deformation_sharded "
+        f"{update_ms:.4f} ms; pose value-and-grad at 512^3 "
+        + ", ".join(f"{k}: {pose_s[k]:.4f} s (slowest rank), gradient "
+                    f"{r0[k]['grad_rel']:.3g} of its norm from the single "
+                    f"card's {r0[k]['single_grad']}" for k in poses)
+        + "; fused slabs and the slab adjoint's dd/dw bit-equal with the single "
+        "card's")
     worst = {k: max(r["fuse_ms"][k] for r in outs) for k in r0["fuse_ms"]}
     tracked_ms = max(r["tracked_ms"] for r in outs)
     log(f"sharded {shape}, four ranks sharing one card over gloo (a "
@@ -4920,11 +5307,13 @@ def hold_sharded_mesh(shape: str, ranks: list) -> dict:
                 pose_gap=(dt, dr), ate_mm=r0["ate_mm"],
                 ate_single_mm=r0["ate_single_mm"],
                 peaks_gib=[r["peak_gib"] for r in outs], counts=r0["counts"],
-                seconds=r0["seconds"])
+                seconds=r0["seconds"], surface_s=surface_s, sf_ms=sf_ms,
+                update_ms=update_ms, pose_s=pose_s,
+                pose_counts={k: r0[k]["counts"] for k in poses})
 
 
 def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
-                  single: dict) -> dict:
+                  single: dict, sf_depth) -> dict:
     """The mesh path (``tsdf_tpu_torch/parallel``) at 512^3 / 640x480 on the
     20 frames.
 
@@ -4950,7 +5339,8 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     rgbs_np = [c.cpu().numpy() for c in rgbs]
     torch.cuda.empty_cache()
     t0 = time.time()
-    ranks = launch(sharded_rank, 4, (depths_np, poses_np, rgbs_np),
+    ranks = launch(sharded_rank, 4, (depths_np, poses_np, rgbs_np,
+                                     sf_depth.cpu().numpy()),
                    backend="gloo", device="cuda:0")
     t1 = time.time()
     result = {f"{nb}x{nr}": hold_sharded_mesh(f"{nb}x{nr}", ranks)
@@ -5053,6 +5443,77 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     return result
 
 
+# the NCCL all-gather timed between four cards: the 44 floats of one ICP
+# iteration's sums, this many times after the communicator's first call
+ALLGATHER_CALLS = 200
+
+
+def nccl_allgather_rank(dev, n_calls):
+    """A rank of a 4x1 mesh of cards (NCCL): one all-gather of 44 floats
+    over the whole mesh and over "b", each first alone (the group's
+    communicator is made at its first collective), then ``n_calls`` times;
+    the first rank returns the seconds of the first and the ms of one."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch.parallel import make_mesh
+    from tsdf_tpu_torch.parallel.mesh import AXES, all_gather
+
+    mesh = make_mesh(4, 1, device=dev)
+    rank = dist.get_rank()
+    x = torch.arange(44, dtype=torch.float32, device=dev) + rank
+    out = {}
+    for axis in (AXES, "b"):
+        group = mesh.get_group(axis)
+        t0 = time.perf_counter()
+        all_gather(x, group)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            parts = all_gather(x, group)
+        torch.cuda.synchronize()
+        out["mesh" if axis == AXES else axis] = dict(
+            first_s=first, ms=(time.perf_counter() - t0) * 1e3 / n_calls,
+            ok=bool(torch.equal(parts[3], x - rank + 3)))
+    return out if rank == mesh.ranks[0] else None
+
+
+def run_four_cards(dev) -> dict:
+    """The smoke's four-card tracked loop alone (``sharded_tracked_rank``
+    on meshes 4x1 and 2x2 of cards, NCCL, timed after its two-frame
+    warm-up), then one NCCL all-gather of 44 floats between the four cards
+    (``nccl_allgather_rank``). Needs four cards."""
+    from tsdf_tpu_torch.parallel.distributed import launch
+
+    cards = torch.cuda.device_count()
+    check(cards >= 4, f"--four-cards needs four cards; {cards} visible")
+    with tempfile.TemporaryDirectory(prefix="tsdf_smoke_") as tmp:
+        tum = os.path.join(tmp, "tum")
+        gt = write_tum_dir(tum)
+        frames = load_frames(dev, tum)
+    depths_np = [d.cpu().numpy() for d, _ in frames]
+    poses_np = [p.cpu().numpy() for _, p in frames]
+    found = {}
+    for nb, nr in SHARDED_MESHES:
+        poses, ms, first_s = launch(sharded_tracked_rank, nb * nr,
+                                    (nb, nr, depths_np, poses_np),
+                                    device="cuda")[0]
+        dt, dr = pose_gaps(poses, gt)
+        log(f"tracked loop on {nb * nr} cards, mesh {nb}x{nr} (NCCL): "
+            f"{ms:.4f} ms/frame after a run of the first two frames in "
+            f"{first_s:.2f} s; poses within {dt:.4f} mm / {dr:.2e} of the "
+            f"ground truth")
+        found[f"{nb}x{nr}"] = dict(ms_per_frame=ms, warmup_s=first_s,
+                                   gt_gap=(dt, dr))
+    gathers = launch(nccl_allgather_rank, 4, (ALLGATHER_CALLS,),
+                     device="cuda")[0]
+    check(all(g["ok"] for g in gathers.values()), "the NCCL all-gather is wrong")
+    log(f"NCCL all-gather of 44 floats between the four cards: {gathers}")
+    found["allgather_44"] = gathers
+    return found
+
+
 def run_config3(dev, n_frames: int, noise: bool, eps: float) -> dict:
     """The workload of tools/run_config3.py: a sphere (r = 600 mm, at the
     volume's centre) in front of a wall (z = 2500 mm) seen from a smooth
@@ -5143,6 +5604,12 @@ def main() -> int:
              "guarded-fallback and probe entry points beside this tree's on "
              "the same inputs",
     )
+    parser.add_argument(
+        "--four-cards", action="store_true",
+        help="instead of the smoke, on four cards: the tracked loop on "
+             "meshes 4x1 and 2x2 of cards after its warm-up, and one NCCL "
+             "all-gather of 44 floats between them",
+    )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")
     parser.add_argument("--noise", action="store_true",
@@ -5163,9 +5630,9 @@ def main() -> int:
         global PARENT_LIB, PARENT_DIR
         PARENT_LIB = load_parent(args.parent)
         PARENT_DIR = args.parent
-    if args.config3:
-        found = run_config3(dev, args.frames, args.noise,
-                            0.02 if args.eps else 0.0)
+    if args.config3 or args.four_cards:
+        found = (run_four_cards(dev) if args.four_cards else run_config3(
+            dev, args.frames, args.noise, 0.02 if args.eps else 0.0))
         log(smi)
         print(json.dumps(found))
         return 0
@@ -5255,7 +5722,8 @@ def main() -> int:
         fast = phase_fast(dev, frames, rgbs, poses)
         torch.cuda.empty_cache()
         sharded = phase_sharded(dev, tum, out_dir, frames, rgbs, poses, {
-            "gt": gt_path, "color": color_path, "tracked": tracked_path})
+            "gt": gt_path, "color": color_path, "tracked": tracked_path},
+            sf_depth)
         torch.cuda.empty_cache()
         bf16 = phase_bf16(dev, frames, rgbs, poses, sf_depth, sf_flows)
         del frames, rgbs
@@ -5264,6 +5732,9 @@ def main() -> int:
         sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth, sf_flows)
         warped_color = phase_warped_color(dev, sf_depth)
 
+    # the adjoint's slab instances get lines of their own (below)
+    slab_timed = (results["integrate_pose_grad"].pop("slab"),
+                  bf16["integrate_pose_grad_bf16"].pop("slab"))
     meta = {
         "integrate": ("tsdf_tpu_torch/csrc/integrate.cu",
                       "tsdf_tpu/kernels/integrate.py:289"),
@@ -5374,6 +5845,19 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda",
                         "source": f"tsdf_tpu_torch/csrc/{src}", "replaces": rep,
                         "launches_on": path, **bf16[k]})
+    # the adjoint's slab instances, with their launches on one rank of the
+    # sharded value-and-grad on the 4x1 mesh (four ranks sharing the card)
+    pose_counts = sharded["4x1"]["pose_counts"]
+    for k, counts, timed in (
+        ("integrate_pose_grad_slab", pose_counts["pose"], slab_timed[0]),
+        ("integrate_pose_grad_slab_bf16", pose_counts["pose_bf16"],
+         slab_timed[1]),
+    ):
+        kernels.append({"name": k, "route": "cuda",
+                        "source": "tsdf_tpu_torch/csrc/integrate_pose_grad.cu",
+                        "replaces": f"{integ}:1378", "launches": counts[k],
+                        "launches_on": "integrate_pose_sharded value-and-grad, "
+                        "4x1 mesh (one rank's count)", **timed})
     for entry in kernels:
         check(entry["launches"] > 0 or entry["launches_on"] in (no_path, probe),
               f"{entry['name']} was never launched")

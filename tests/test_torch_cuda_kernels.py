@@ -17,7 +17,8 @@ bit. The
 pose adjoint's dd and dw are bit-equal; its pose_inv cotangent, float64
 sums of the same float32 terms in another order, is within 1e-6 of its
 largest entry, and equals bit for bit the plain model of its reduction
-order (``kernels.integrate.pose_grad_partials``) summed on the card.
+order (``kernels.integrate.pose_grad_partials``) summed on the card; its
+slab instance's per-brick partials equal that model's rows bit for bit.
 Each kernel's bf16-storage instance (a bf16 volume, ``TSDFVolume.astype``)
 is held bit for bit to the twin on the same bf16 volume in the same way.
 """
@@ -896,6 +897,58 @@ def test_pose_grad_kernel_gates_at_slivers(dev):
                                                                 float("nan")))
     dd, dp = _assert_adjoint_equals_twin(vol, depth, nan_cam, g, g)
     assert torch.equal(dd, g) and float(dp.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("z0,n", [(0, 24), (8, 16), (12, 13), (16, 24)])
+def test_pose_grad_slab_kernel_matches_twin(dev, z0, n, dtype):
+    """The adjoint's slab instance on planes z0 .. z0 + n - 1 of a
+    40-plane volume (a ``SlabVolume``; its box starts 600 mm lower than
+    ``_adjoint_inputs``' so that the frame updates planes 0-25, those in
+    its band 19-25, and every slab holds pose terms, the last one ending
+    the volume), float32 and bf16: dd, dw and each
+    brick's row of partials bit-equal with the twin on the same slab
+    (``integrate_pose_grad``, ``pose_grad_partials``), one launch of the
+    slab instance and none of the whole-volume one; against the
+    whole-volume kernel, the same planes of dd and dw and, where z0 starts
+    a brick, the same bricks' rows of partials."""
+    from tsdf_tpu_torch.ops.integrate_diff import integrate_pose_grad
+
+    storage = getattr(torch, dtype)
+    size, offset = (64, 48, 40), (-1000.0, -800.0, -600.0)
+    vol, depth, gd, gw = _adjoint_inputs(dev, size, seed=13)
+    vol = vol.replace(offset=torch.tensor(offset, device=dev))
+    vol, gd, gw = vol.astype(storage), gd.to(storage), gw.to(storage)
+    cam = _camera(dev, [400.0, -250.0, -600.0], [-100.0, 150.0, 1200.0])
+    planes = slice(z0, z0 + n)
+    slab = make_volume(size, 2000.0, offset=offset,
+                       dtype=storage, device=dev, slab=(z0, n)).replace(
+        tsdf=vol.tsdf[planes].contiguous(), weight=vol.weight[planes].contiguous())
+    sgd, sgw = gd[planes].contiguous(), gw[planes].contiguous()
+    kern = integrate.instance(integrate.KERNEL_POSE_GRAD_SLAB, slab)
+    whole_kern = integrate.instance(integrate.KERNEL_POSE_GRAD, vol)
+    before = kern.launches, whole_kern.launches
+    dd, dw, parts = integrate._pose_grad_kernel(slab, depth, cam, sgd, sgw,
+                                                False, True)
+    assert (kern.launches, whole_kern.launches) == (before[0] + 1, before[1])
+    rd, rw, _ = integrate_pose_grad(slab, depth, cam, sgd, sgw)
+    model = integrate.pose_grad_partials(slab, depth, cam, sgd)
+    wd, ww, whole_parts = integrate._pose_grad_kernel(vol, depth, cam, gd, gw,
+                                                      False, True)
+    torch.cuda.synchronize()
+    assert _bits_equal(dd, rd) and _bits_equal(dw, rw)
+    assert torch.equal(parts.view(torch.int64), model.view(torch.int64))
+    assert _bits_equal(dd, wd[planes]) and _bits_equal(dw, ww[planes])
+    if z0 % integrate.BRICK[0] == 0:
+        per_z = parts.shape[0] // -(-n // integrate.BRICK[0])
+        first = z0 // integrate.BRICK[0] * per_z
+        rows = whole_parts[first:first + parts.shape[0]]
+        assert torch.equal(parts.view(torch.int64), rows.view(torch.int64))
+    assert (dd != sgd).any() and float(parts.abs().max()) > 0
+    # the wrapper sums the same partials
+    _, _, dp = integrate.pose_grad_cuda(slab, depth, cam, sgd, sgw)
+    want = parts.sum(dim=0).to(torch.float32).reshape(3, 4)
+    assert torch.equal(dp[:3].view(torch.int32), want.view(torch.int32))
 
 
 def test_integrate_pose_on_the_card_matches_the_cpu(dev):

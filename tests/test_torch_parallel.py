@@ -24,7 +24,9 @@ single-volume twin's tsdf, weight and colour bit for bit in every mode,
 with colour, in bfloat16 and on a deformed volume, after two frames; the
 rows of ``raycast_sharded`` equal the single-card render's bit for bit.
 The gradient through the sharded integrate (tests/test_parallel.py:110)
-waits for the sharded pose adjoint (ROADMAP Queue 1 item 6b).
+is held in tests/test_torch_parallel_surface.py. The entry points take the
+card unless asked for the CPU: with no card, ``make_mesh()``, ``launch`` and
+``initialize`` raise.
 """
 
 import numpy as np
@@ -270,7 +272,8 @@ def _rank_body(dev, nb, nr, inp):
 def ranks(request, inputs):
     """(shape, rank 0's results) of the four ranks on one mesh shape."""
     nb, nr = SHAPES[request.param]
-    out = launch(_rank_body, 4, (nb, nr, inputs))
+    out = launch(_rank_body, 4, (nb, nr, inputs), backend="gloo",
+                 device="cpu")
     return request.param, out[0]
 
 
@@ -512,6 +515,27 @@ def test_halo_exchange_of_jax_matches(ranks):
     out = np.asarray(halo_exchange_z(
         jax.device_put(x, volume_sharding(mesh)), mesh, halo=1))
     np.testing.assert_array_equal(np.concatenate(got["halo"]), out)
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "launch", "initialize"])
+def test_entry_points_take_the_card_unless_asked_for_the_cpu(entry, monkeypatch):
+    """With no card visible, ``make_mesh()`` without a ``device``, ``launch``
+    without one and ``initialize`` without a backend raise, before any
+    process group or rank is made: the CPU is taken only when asked for
+    (``device="cpu"``, ``backend="gloo"``)."""
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch.parallel import distributed, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "make_mesh": lambda: make_mesh(),
+        "launch": lambda: distributed.launch(print, 2),
+        "initialize": lambda: distributed.initialize("localhost:1", 2, 0),
+    }
+    with pytest.raises(RuntimeError, match="(no CUDA card|needs a CUDA card)"):
+        calls[entry]()
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("fast", [False, True])

@@ -150,7 +150,8 @@ def _rank_body(dev, nb, nr, inp):
 @pytest.fixture(scope="module", params=list(SHAPES))
 def ranks(request, inputs):
     nb, nr = SHAPES[request.param]
-    out = launch(_rank_body, 4, (nb, nr, inputs))
+    out = launch(_rank_body, 4, (nb, nr, inputs), backend="gloo",
+                 device="cpu")
     return request.param, out[0]
 
 

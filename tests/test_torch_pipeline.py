@@ -173,6 +173,30 @@ def test_render_and_mesh_verbs_match_jax(tum_dir, tmp_path):
     np.testing.assert_array_equal(ft, fj)
 
 
+@pytest.mark.parametrize("verb", ["fuse", "render"])
+def test_pallas_flag_writes_the_same_bytes(tum_dir, tmp_path, verb):
+    """``--pallas``, which selects the TPU kernels in the JAX CLI, is
+    accepted by ``fuse`` and ``render`` and changes nothing: a JAX command
+    line with it writes the same bytes as without it."""
+    src = _fuse(torch_main, tum_dir, str(tmp_path / "src"), ["--device", "cpu"])
+    outs = {}
+    for tag, extra in (("without", []), ("with", ["--pallas"])):
+        d = tmp_path / tag
+        if verb == "fuse":
+            _fuse(torch_main, tum_dir, str(d), ["--device", "cpu"] + extra)
+        else:
+            d.mkdir()
+            assert torch_main(["render", "-f", src["tsdf"],
+                               "--scene", str(d / "scene.png"),
+                               "--normals", str(d / "normals.png"),
+                               "--look-from", "0,0,-400", "--look-at",
+                               "0,0,1000", "--device", "cpu"]
+                              + CAM_ARGS + extra) == 0
+        outs[tag] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert len(outs["with"]) == (4 if verb == "fuse" else 2)
+    assert outs["with"] == outs["without"]
+
+
 @pytest.mark.parametrize("flag", [["--fuse-color"], []])
 def test_fuse_devices_writes_the_single_device_bytes(tum_dir, tmp_path, flag):
     """``fuse --devices 2x1`` (two gloo ranks on the CPU, each fusing its

@@ -5,9 +5,8 @@ For every module ``tsdf_tpu/<path>.py``, each public name it defines at
 the top level (a function, a class, an alias such as ``compute_normals =
 compute_normals_from_vertices``) and each public method of its classes
 must be defined in ``tsdf_tpu_torch/<path>.py`` too, unless it is written
-below: still to port (with its ROADMAP.md Queue 1 item), or TPU plumbing
-that gets no port (ROADMAP.md Queue 2). What is missing must be exactly
-that list: a change that ports one of its names takes it off the list.
+below as TPU plumbing that gets no port (ROADMAP.md Queue 2). What is
+missing must be exactly that list: every other name is ported.
 """
 
 import ast
@@ -19,16 +18,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX = ROOT / "tsdf_tpu"
 PORT = ROOT / "tsdf_tpu_torch"
 
-# module -> names still missing from the port, by reason
-QUEUE1_ITEM6 = "to port: ROADMAP Queue 1 item 6b (multi-GPU surface, non-rigid, gradient)"
+# module -> names missing from the port, by reason
 NO_PORT = "no port: TPU plumbing (ROADMAP Queue 2)"
 
 REMAINING = {
-    "parallel/ops.py": (QUEUE1_ITEM6, {
-        "extract_surface_sharded", "integrate_pose_sharded",
-        "merge_brick_soups", "scenefusion_frame_sharded",
-        "update_deformation_sharded", "warped_topup_sharded",
-    }),
     "struct.py": (NO_PORT, {"field", "pytree_dataclass"}),
     "ops/scatter.py": (NO_PORT, {
         "gather_flat", "scatter_add_flat", "scatter_set_int", "take_flat",
@@ -90,7 +83,7 @@ def test_what_remains_to_port_is_exactly_the_written_list():
     "io/depth_image.py", "io/file_utils.py", "io/pgm.py", "io/tum.py",
     "native/__init__.py", "ops/shading.py", "tracking/icp.py", "utils/checkpoint.py",
     "utils/profiling.py", "parallel/distributed.py", "parallel/halo.py",
-    "parallel/mesh.py", "volume.py",
+    "parallel/mesh.py", "parallel/ops.py", "volume.py",
 ])
 def test_module_has_every_jax_name(module):
     """The modules this comparison found short, each complete now."""

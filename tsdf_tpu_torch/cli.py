@@ -101,6 +101,14 @@ def _add_device_arg(p):
     )
 
 
+def _add_pallas_arg(p):
+    p.add_argument(
+        "--pallas", action="store_true",
+        help="no effect: accepted for the JAX CLI's command lines, where it "
+        "selects the TPU kernels; here the device picks kernel or twin",
+    )
+
+
 def _render_outputs(vol, camera, args):
     from .io.png import save_png
     from .kernels.raycast import raycast_cuda
@@ -565,6 +573,7 @@ def main(argv=None):
         help="bilateral prefilter (the tracker's input with --track, the "
         "fused depth without)",
     )
+    _add_pallas_arg(p)
     p.add_argument(
         "--icp-eps", type=float, default=0.0,
         help="ICP early-exit threshold on the per-iteration update "
@@ -598,6 +607,7 @@ def main(argv=None):
     p.add_argument("--color", help="colour render PNG (needs a colour volume)")
     p.add_argument("--look-from", help="x,y,z mm")
     p.add_argument("--look-at", help="x,y,z mm")
+    _add_pallas_arg(p)
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_render)

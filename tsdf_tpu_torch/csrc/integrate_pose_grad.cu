@@ -60,6 +60,14 @@
 // bf16 cotangents and casts them to the volume's dtype, which gives the
 // same bits. The culled bricks' copy moves T words (8 a 16-byte vector in
 // bf16) and the 12 float64 sums are the float instance's arithmetic.
+//
+// Slabs: a rank of a mesh (parallel/ops.py:integrate_pose_sharded) runs the
+// adjoint on its z-slab of the volume. The _slab entry points take the
+// slab's first plane zg and form every centre, in the cull, the copy and
+// the walk, from the voxel's plane in the whole volume, so a slab's dd, dw
+// and per-brick partials are the whole volume's for the same planes (and
+// bricks, where zg is a multiple of kBZ). A whole volume keeps instances
+// without the plane, whose code is the form before slabs.
 
 #include <type_traits>
 
@@ -101,8 +109,10 @@ __device__ __forceinline__ float depth_gradient(const float* __restrict__ depth,
 // stream each z slice of the row, kBY whole lines along x that lie
 // together in memory, 16 B a thread (VEC: x a multiple of the 4 floats or
 // 8 bf16 of 16 B and the four arrays 16-byte aligned; else one word),
-// copying where the brick is culled.
-template <typename T, bool VEC>
+// copying where the brick is culled. SLAB: the volume is a z-slab whose
+// planes start at the whole volume's zg (the cull tests the whole volume's
+// centres).
+template <typename T, bool VEC, bool SLAB>
 __global__ void __launch_bounds__(kCopyThreads, kCopyBlocksPerSM)
 pose_grad_copy_kernel(const T* __restrict__ gbar_d,
                       const T* __restrict__ gbar_w,
@@ -110,7 +120,8 @@ pose_grad_copy_kernel(const T* __restrict__ gbar_d,
                       double* __restrict__ partials,
                       const float* __restrict__ params, int sx, int sy,
                       int sz, int nbx, int nby, int nbz, int width,
-                      int height) {
+                      int height, int zg) {
+  const int zs = SLAB ? zg : 0;
   // a 16-byte vector holds 4 floats or 8 bf16; the copy moves bits only
   using V = typename std::conditional<VEC, float4, T>::type;
   constexpr int kLanes = VEC ? (int)(sizeof(float4) / sizeof(T)) : 1;
@@ -123,8 +134,8 @@ pose_grad_copy_kernel(const T* __restrict__ gbar_d,
     const int y0 = by * kBY, z0 = bz * kBZ;
     bool any = false;
     for (int bx = threadIdx.x; bx < nbx; bx += blockDim.x) {
-      const bool c = tsdf_bricks::brick_culled<false>(params, dmax, bx * kBX,
-                                                      y0, z0, width, height);
+      const bool c = tsdf_bricks::brick_culled<false>(
+          params, dmax, bx * kBX, y0, zs + z0, width, height);
       culled[bx] = c;
       any |= c;
       if (c) {
@@ -150,8 +161,12 @@ pose_grad_copy_kernel(const T* __restrict__ gbar_d,
   }
 }
 
-// The live bricks, from the cull's list.
-template <typename T>
+// The live bricks, from the cull's list. SLAB: the volume is a z-slab
+// whose planes start at the whole volume's zg; a voxel's centre is formed
+// from its plane in the whole volume, so its terms are the whole volume's
+// bits. A whole volume takes the instance without it (integrate_bricks.cuh
+// says why the brick walks keep one).
+template <typename T, bool SLAB>
 __global__ void __launch_bounds__(kBX * kBY, kWalkBlocksPerSM)
 pose_grad_walk_kernel(const T* __restrict__ tsdf,
                       const T* __restrict__ weight,
@@ -162,7 +177,8 @@ pose_grad_walk_kernel(const T* __restrict__ tsdf,
                       double* __restrict__ partials,
                       const float* __restrict__ params, int sx, int sy,
                       int sz, int nbx, int nby, int width, int height,
-                      int cap_weight, int image_term) {
+                      int cap_weight, int image_term, int zg) {
+  const int zs = SLAB ? zg : 0;
   const float* p = params;
   const unsigned* head = reinterpret_cast<const unsigned*>(params);
   const unsigned live = head[kLiveCount];
@@ -208,7 +224,7 @@ pose_grad_walk_kernel(const T* __restrict__ tsdf,
       bool upd[kBZ];
 #pragma unroll
       for (int k = 0; k < kBZ; ++k) {
-        const float wz = ((float)(z0 + k) + 0.5f) * p[21] + p[18];
+        const float wz = ((float)(zs + z0 + k) + 0.5f) * p[21] + p[18];
         const float cx = ax + p[2] * wz + p[3];
         const float cy = ay + p[6] * wz + p[7];
         cz[k] = az + p[10] * wz + p[11];
@@ -259,7 +275,7 @@ pose_grad_walk_kernel(const T* __restrict__ tsdf,
         in_band = true;
 
         // dL/dx_c, with the voxel's centre and camera point again
-        const float wz = ((float)(z0 + k) + 0.5f) * p[21] + p[18];
+        const float wz = ((float)(zs + z0 + k) + 0.5f) * p[21] + p[18];
         const float coef = gd[k] / new_w;
         float dxc, dyc, dzc;
         if (image_term) {
@@ -327,12 +343,12 @@ pose_grad_walk_kernel(const T* __restrict__ tsdf,
 
 namespace {
 
-template <typename T>
+template <typename T, bool SLAB>
 int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
               const void* gbar_w, const void* depth, void* dd, void* dw,
               void* partials, long long n_blocks, const void* params, int sx,
               int sy, int sz, int width, int height, int cap_weight,
-              int image_term, void* stream) {
+              int image_term, void* stream, int zg) {
   if (sx <= 0 || sy <= 0 || sz <= 0) {
     return n_blocks == 0 ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
   }
@@ -357,7 +373,7 @@ int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
   if (err != 0) return err;
   tsdf_bricks::brick_cull_kernel<false>
       <<<(unsigned)((bricks + kMaxThreads - 1) / kMaxThreads), kMaxThreads, 0,
-         st>>>(scratch, nbx, nby, nbz, width, height, 0);
+         st>>>(scratch, nbx, nby, nbz, width, height, SLAB ? zg : 0);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   int dev = 0, sms = 0;
@@ -372,25 +388,25 @@ int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
       ((uintptr_t)gbar_d | (uintptr_t)gbar_w | (uintptr_t)dd |
        (uintptr_t)dw) % 16 == 0;
   if (vec) {
-    pose_grad_copy_kernel<T, true><<<copy_grid, kCopyThreads, 0, st>>>(
+    pose_grad_copy_kernel<T, true, SLAB><<<copy_grid, kCopyThreads, 0, st>>>(
         (const T*)gbar_d, (const T*)gbar_w, (T*)dd, (T*)dw,
         (double*)partials, scratch, sx, sy, sz, nbx, nby, nbz, width,
-        height);
+        height, zg);
   } else {
-    pose_grad_copy_kernel<T, false><<<copy_grid, kCopyThreads, 0, st>>>(
+    pose_grad_copy_kernel<T, false, SLAB><<<copy_grid, kCopyThreads, 0, st>>>(
         (const T*)gbar_d, (const T*)gbar_w, (T*)dd, (T*)dw,
         (double*)partials, scratch, sx, sy, sz, nbx, nby, nbz, width,
-        height);
+        height, zg);
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long walk_grid = (long long)sms * kWalkBlocksPerSM * kWalkWaves;
-  pose_grad_walk_kernel<T>
+  pose_grad_walk_kernel<T, SLAB>
       <<<(unsigned)(walk_grid < bricks ? walk_grid : bricks), dim3(kBX, kBY),
          0, st>>>((const T*)tsdf, (const T*)weight, (const T*)gbar_d,
                   (const T*)gbar_w, (const float*)depth, (T*)dd, (T*)dw,
                   (double*)partials, scratch, sx, sy, sz, nbx, nby, width,
-                  height, cap_weight, image_term);
+                  height, cap_weight, image_term, zg);
   return (int)cudaGetLastError();
 }
 
@@ -403,16 +419,17 @@ int pose_grad(const void* tsdf, const void* weight, const void* gbar_d,
 // depth maximum, the brick cull, the copy of the culled bricks, the walk of
 // the live ones.
 // tsdf, weight, gbar_d, gbar_w, dd and dw are float32 here, bfloat16 in
-// tsdf_integrate_pose_grad_bf16.
+// tsdf_integrate_pose_grad_bf16. The _slab entry points take a z-slab of a
+// volume, whose first plane in the whole volume is zg, after the stream.
 extern "C" int tsdf_integrate_pose_grad(
     const void* tsdf, const void* weight, const void* gbar_d,
     const void* gbar_w, const void* depth,
     void* dd, void* dw, void* partials, long long n_blocks, const void* params,
     int sx, int sy, int sz, int width, int height, int cap_weight,
     int image_term, void* stream) {
-  return pose_grad<float>(tsdf, weight, gbar_d, gbar_w, depth, dd, dw,
-                          partials, n_blocks, params, sx, sy, sz, width,
-                          height, cap_weight, image_term, stream);
+  return pose_grad<float, false>(tsdf, weight, gbar_d, gbar_w, depth, dd, dw,
+                                 partials, n_blocks, params, sx, sy, sz, width,
+                                 height, cap_weight, image_term, stream, 0);
 }
 
 extern "C" int tsdf_integrate_pose_grad_bf16(
@@ -421,8 +438,29 @@ extern "C" int tsdf_integrate_pose_grad_bf16(
     void* dd, void* dw, void* partials, long long n_blocks, const void* params,
     int sx, int sy, int sz, int width, int height, int cap_weight,
     int image_term, void* stream) {
-  return pose_grad<tsdf_storage::bf16>(tsdf, weight, gbar_d, gbar_w, depth,
-                                       dd, dw, partials, n_blocks, params, sx,
-                                       sy, sz, width, height, cap_weight,
-                                       image_term, stream);
+  return pose_grad<tsdf_storage::bf16, false>(
+      tsdf, weight, gbar_d, gbar_w, depth, dd, dw, partials, n_blocks, params,
+      sx, sy, sz, width, height, cap_weight, image_term, stream, 0);
+}
+
+extern "C" int tsdf_integrate_pose_grad_slab(
+    const void* tsdf, const void* weight, const void* gbar_d,
+    const void* gbar_w, const void* depth,
+    void* dd, void* dw, void* partials, long long n_blocks, const void* params,
+    int sx, int sy, int sz, int width, int height, int cap_weight,
+    int image_term, void* stream, int zg) {
+  return pose_grad<float, true>(tsdf, weight, gbar_d, gbar_w, depth, dd, dw,
+                                partials, n_blocks, params, sx, sy, sz, width,
+                                height, cap_weight, image_term, stream, zg);
+}
+
+extern "C" int tsdf_integrate_pose_grad_slab_bf16(
+    const void* tsdf, const void* weight, const void* gbar_d,
+    const void* gbar_w, const void* depth,
+    void* dd, void* dw, void* partials, long long n_blocks, const void* params,
+    int sx, int sy, int sz, int width, int height, int cap_weight,
+    int image_term, void* stream, int zg) {
+  return pose_grad<tsdf_storage::bf16, true>(
+      tsdf, weight, gbar_d, gbar_w, depth, dd, dw, partials, n_blocks, params,
+      sx, sy, sz, width, height, cap_weight, image_term, stream, zg);
 }

@@ -18,6 +18,7 @@ KERNELS = {
     "integrate_warped": integrate.KERNEL_WARPED,
     "integrate_warped_color": integrate.KERNEL_WARPED_COLOR,
     "integrate_pose_grad": integrate.KERNEL_POSE_GRAD,
+    "integrate_pose_grad_slab": integrate.KERNEL_POSE_GRAD_SLAB,
     "lane_gather": gather.KERNEL,
     "row_gather": gather.KERNEL_ROWS,
     "lane_gather_windowed": gather.KERNEL_WINDOWED,
@@ -33,6 +34,7 @@ KERNELS = {
     "integrate_warped_bf16": integrate.KERNEL_WARPED_BF16,
     "integrate_warped_color_bf16": integrate.KERNEL_WARPED_COLOR_BF16,
     "integrate_pose_grad_bf16": integrate.KERNEL_POSE_GRAD_BF16,
+    "integrate_pose_grad_slab_bf16": integrate.KERNEL_POSE_GRAD_SLAB_BF16,
 }
 
 

@@ -27,10 +27,12 @@ count and no miss mask to return, and nothing to top up.
 volume cotangents and the pose_inv cotangent. Its kernel walks the same
 bricks: a culled brick is a copy of the cotangents, and each live brick
 sums its pose terms into its own row of partials (``pose_grad_partials``
-is that order in plain PyTorch). ``integrate_pose`` is the
-differentiable fusion built on it, a ``torch.autograd.Function`` whose
-forward is ``integrate_cuda`` (or ``integrate_fast_cuda``) and whose
-backward is one ``pose_grad_cuda`` launch.
+is that order in plain PyTorch). A z-slab of a mesh takes the kernel's
+slab instance, which forms the centres from the whole volume's planes.
+``integrate_pose`` is the differentiable fusion built on it, a
+``torch.autograd.Function`` whose forward is ``integrate_cuda`` (or
+``integrate_fast_cuda``) and whose backward is one ``pose_grad_cuda``
+launch.
 
 Every kernel has two instances, one for each storage dtype of the volume's
 tsdf and weight: float32, and bfloat16 (``TSDFVolume.astype``), which
@@ -52,7 +54,11 @@ from ..ops.integrate import check_frame, check_rigid
 from ..ops.integrate import integrate as integrate_plain
 from ..ops.integrate import fit_column_lines
 from ..ops.integrate import integrate_fast as integrate_fast_plain
-from ..ops.integrate_diff import integrate_pose_grad, pose_grad_terms
+from ..ops.integrate_diff import (
+    integrate_pose_grad_sums,
+    pose_grad_terms,
+    pose_inv_cotangent,
+)
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
 from ._build import (
@@ -108,6 +114,10 @@ KERNEL_POSE_GRAD = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
 )
+# its instance for a z-slab: the slab's first plane in the whole volume
+# after the stream
+KERNEL_POSE_GRAD_SLAB = Kernel(
+    "tsdf_integrate_pose_grad_slab", KERNEL_POSE_GRAD.argtypes + [_I])
 # the pose adjoint's sums a brick: the rows R_wc | t_wc of dL/dpose_inv
 POSE_GRAD_SUMS = 12
 
@@ -125,6 +135,7 @@ KERNEL_COLOR_FAST_BF16 = _bf16(KERNEL_COLOR_FAST)
 KERNEL_WARPED_BF16 = _bf16(KERNEL_WARPED)
 KERNEL_WARPED_COLOR_BF16 = _bf16(KERNEL_WARPED_COLOR)
 KERNEL_POSE_GRAD_BF16 = _bf16(KERNEL_POSE_GRAD)
+KERNEL_POSE_GRAD_SLAB_BF16 = _bf16(KERNEL_POSE_GRAD_SLAB)
 # the instance a launch takes, by the volume's storage dtype
 _INSTANCES = {
     k: {torch.float32: k, torch.bfloat16: b}
@@ -135,6 +146,7 @@ _INSTANCES = {
         (KERNEL_WARPED, KERNEL_WARPED_BF16),
         (KERNEL_WARPED_COLOR, KERNEL_WARPED_COLOR_BF16),
         (KERNEL_POSE_GRAD, KERNEL_POSE_GRAD_BF16),
+        (KERNEL_POSE_GRAD_SLAB, KERNEL_POSE_GRAD_SLAB_BF16),
     )
 }
 
@@ -598,23 +610,51 @@ def pose_grad_cuda(
     ``vol`` is the volume the frame was fused into. The cotangents gbar_d
     and gbar_w are of the volume's dtype, and so are dd and dw: a bfloat16
     volume launches the bf16 instance, which reads them into float32 and
-    rounds dd and dw once, as the JAX backward does. A z-slab raises: the
-    adjoint of the sharded integrate is not ported yet.
+    rounds dd and dw once, as the JAX backward does. A z-slab
+    (``SlabVolume``) launches the slab instance, which forms each voxel's
+    centre from its plane in the whole volume: its dd, dw and partials are
+    the whole volume's for the same planes.
     """
+    dd, dw, sums = pose_grad_sums(vol, depth, camera, gbar_d, gbar_w,
+                                  cap_weight, image_term)
+    return dd, dw, pose_inv_cotangent(sums)
+
+
+def pose_grad_sums(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    gbar_d: torch.Tensor,
+    gbar_w: torch.Tensor,
+    cap_weight: bool = False,
+    image_term: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pose_grad_cuda`` with the pose_inv cotangent left as its 12
+    float64 sums, (12,), before their cast to float32: the sharded adjoint
+    adds the slabs' sums before it rounds."""
     check_rigid(vol, "pose_grad_cuda")
-    if vol.full_z is not None:
-        raise ValueError("pose_grad_cuda takes a whole volume, not a z-slab")
     dev = _check_frame(vol, depth, camera)
     shape = tuple(vol.tsdf.shape)
     check_same_device(dev, gbar_d=gbar_d, gbar_w=gbar_w)
     check_tensor("gbar_d", gbar_d, vol.tsdf.dtype, shape=shape)
     check_tensor("gbar_w", gbar_w, vol.tsdf.dtype, shape=shape)
     if dev.type == "cpu":
-        return integrate_pose_grad(
+        return integrate_pose_grad_sums(
             vol, depth, camera, gbar_d, gbar_w, cap_weight=cap_weight,
             image_term=image_term,
         )
+    dd, dw, partials = _pose_grad_kernel(vol, depth, camera, gbar_d, gbar_w,
+                                         cap_weight, image_term)
+    return dd, dw, partials.sum(dim=0)
 
+
+def _pose_grad_kernel(vol, depth, camera, gbar_d, gbar_w, cap_weight,
+                      image_term):
+    """One launch of the adjoint kernel on CUDA tensors that
+    ``pose_grad_sums`` has checked: (dd, dw, the (bricks, 12) float64
+    partials, one row a brick as ``pose_grad_partials`` orders them)."""
+    dev = vol.tsdf.device
+    shape = tuple(vol.tsdf.shape)
     params = _brick_params(vol, camera)
     sz, sy, sx = shape
     h, w = depth.shape
@@ -625,19 +665,17 @@ def pose_grad_cuda(
     )
     dd = torch.empty_like(vol.tsdf)
     dw = torch.empty_like(vol.weight)
+    slab = vol.full_z is not None
+    kernel = KERNEL_POSE_GRAD_SLAB if slab else KERNEL_POSE_GRAD
     with torch.cuda.device(dev):
-        instance(KERNEL_POSE_GRAD, vol)(
+        instance(kernel, vol)(
             vol.tsdf.data_ptr(), vol.weight.data_ptr(), gbar_d.data_ptr(),
             gbar_w.data_ptr(), depth.data_ptr(), dd.data_ptr(), dw.data_ptr(),
             partials.data_ptr(), n_bricks, params.data_ptr(), sx, sy, sz, w, h,
             int(bool(cap_weight)), int(bool(image_term)), stream_handle(dev),
+            *((vol.z0,) if slab else ()),
         )
-    sums = partials.sum(dim=0).to(torch.float32)
-    dpinv = torch.cat(
-        [sums.reshape(3, 4), torch.zeros((1, 4), dtype=torch.float32,
-                                         device=dev)]
-    )
-    return dd, dw, dpinv
+    return dd, dw, partials
 
 
 class _IntegrateCore(torch.autograd.Function):
@@ -645,11 +683,18 @@ class _IntegrateCore(torch.autograd.Function):
     arguments are observed data: depth, the intrinsics and the volume's
     geometry get no gradient through the fusion (the volume's other fields
     are not outputs of this Function; ``integrate_pose`` passes them
-    through, so their cotangents flow by themselves)."""
+    through, so their cotangents flow by themselves).
+
+    ``over_slabs``: None for a whole volume; for a rank's z-slab of a mesh
+    (``parallel.ops.integrate_pose_sharded``), the function that sums a
+    tensor over the slabs in a fixed order, the same on every rank. It sums
+    the forward's miss count and the backward's 12 float64 pose sums before
+    they are rounded, so every rank's pose cotangent is that of the sum of
+    the slabs' shares of the loss."""
 
     @staticmethod
     def forward(ctx, tsdf, weight, pose_inv, vol, depth, camera,
-                cap_weight, image_term, fast):
+                cap_weight, image_term, fast, over_slabs=None):
         cam = dataclasses.replace(camera, pose_inv=pose_inv)
         # a functional op: the kernel updates in place, so it runs on
         # copies, and the backward keeps the inputs (1 GiB at 512^3)
@@ -659,9 +704,12 @@ class _IntegrateCore(torch.autograd.Function):
         else:
             out = integrate_cuda(out, depth, cam, cap_weight)
             miss = torch.zeros((), dtype=torch.int32, device=tsdf.device)
+        if over_slabs is not None:
+            miss = over_slabs(miss)
         ctx.save_for_backward(tsdf, weight, pose_inv)
         ctx.vol, ctx.depth, ctx.camera = vol, depth, camera
         ctx.cap_weight, ctx.image_term = cap_weight, image_term
+        ctx.over_slabs = over_slabs
         ctx.mark_non_differentiable(miss)
         return out.tsdf, out.weight, miss
 
@@ -673,13 +721,16 @@ class _IntegrateCore(torch.autograd.Function):
         g_weight = torch.zeros_like(weight) if g_weight is None else g_weight
         # autograd gives the outputs' cotangents in their dtype, the
         # volume's; dd and dw come back in it
-        dd, dw, dpinv = pose_grad_cuda(
-            ctx.vol.replace(tsdf=tsdf, weight=weight), ctx.depth,
-            dataclasses.replace(ctx.camera, pose_inv=pose_inv),
-            g_tsdf.contiguous(), g_weight.contiguous(),
-            cap_weight=ctx.cap_weight, image_term=ctx.image_term,
-        )
-        return dd, dw, dpinv, None, None, None, None, None, None
+        args = (ctx.vol.replace(tsdf=tsdf, weight=weight), ctx.depth,
+                dataclasses.replace(ctx.camera, pose_inv=pose_inv),
+                g_tsdf.contiguous(), g_weight.contiguous())
+        kw = dict(cap_weight=ctx.cap_weight, image_term=ctx.image_term)
+        if ctx.over_slabs is None:
+            dd, dw, dpinv = pose_grad_cuda(*args, **kw)
+        else:
+            dd, dw, sums = pose_grad_sums(*args, **kw)
+            dpinv = pose_inv_cotangent(ctx.over_slabs(sums))
+        return dd, dw, dpinv, None, None, None, None, None, None, None
 
 
 def integrate_pose(
@@ -726,14 +777,22 @@ def integrate_pose(
       image_term: include the image-space term in the pose gradient.
       mode: "exact", "line" or "fast".
     """
-    _check_mode(mode)
     check_rigid(vol, "integrate_pose")
+    return pose_fusion(vol, depth, camera, delta, cap_weight, image_term,
+                       mode)
+
+
+def pose_fusion(vol, depth, camera, delta, cap_weight, image_term, mode,
+                over_slabs=None):
+    """``integrate_pose`` on a rigid volume, or with ``over_slabs`` (see
+    ``_IntegrateCore``) on a rank's z-slab of a mesh."""
+    _check_mode(mode)
     dev = vol.tsdf.device
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
     depth = depth.to(torch.float32).contiguous()
     cam = camera.set_pose(matmul_small(se3_exp(delta), camera.pose))
     new_tsdf, new_weight, miss = _IntegrateCore.apply(
         vol.tsdf, vol.weight, cam.pose_inv, vol, depth, cam, cap_weight,
-        image_term, mode == "fast",
+        image_term, mode == "fast", over_slabs,
     )
     return vol.replace(tsdf=new_tsdf, weight=new_weight), miss

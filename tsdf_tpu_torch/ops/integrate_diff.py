@@ -180,6 +180,15 @@ def pose_grad_terms(
     )
 
 
+def pose_inv_cotangent(sums: torch.Tensor) -> torch.Tensor:
+    """The (4, 4) float32 cotangent of pose_inv from its 12 float64 sums
+    (rows R_wc | t_wc), rounded once; the bottom row is zero."""
+    return torch.cat([
+        sums.to(_F32).reshape(3, 4),
+        torch.zeros((1, 4), dtype=_F32, device=sums.device),
+    ])
+
+
 def integrate_pose_grad(
     vol: TSDFVolume,
     depth: torch.Tensor,
@@ -206,8 +215,27 @@ def integrate_pose_grad(
     the volume's dtype (computed in float32 and rounded once, as the JAX
     backward casts them), and the (4, 4) f32 cotangent of pose_inv (rows
     R_wc | t_wc; the bottom row is zero). Its 12 sums are taken in float64
-    over float32 terms.
+    over float32 terms. A z-slab's centres are the whole volume's
+    (``vol.axis_centres``), so its dd, dw and terms are the whole volume's
+    for the same planes.
     """
+    dd, dw, sums = integrate_pose_grad_sums(
+        vol, depth, camera, gbar_d, gbar_w, cap_weight, image_term)
+    return dd, dw, pose_inv_cotangent(sums)
+
+
+def integrate_pose_grad_sums(
+    vol: TSDFVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    gbar_d: torch.Tensor,
+    gbar_w: torch.Tensor,
+    cap_weight: bool = False,
+    image_term: bool = True,
+):
+    """``integrate_pose_grad`` with the pose_inv cotangent left as its 12
+    float64 sums, (12,), before their cast: the sharded adjoint adds the
+    slabs' sums before it rounds."""
     check_rigid(vol, "integrate_pose_grad")
     frame = sample_frame(depth, vol, camera)
     centre, _cam, _gxv, _gyv, sdf, update = frame
@@ -218,11 +246,8 @@ def integrate_pose_grad(
 
     cotangent = _camera_point_cotangent(vol, camera, frame, gbar_d,
                                         image_term)
-    sums = [t.to(torch.float64).sum() for t in _terms(*cotangent, centre)]
-    dpinv = torch.cat([
-        torch.stack(sums).to(_F32).reshape(3, 4),
-        torch.zeros((1, 4), dtype=_F32, device=d.device),
-    ])
+    sums = torch.stack(
+        [t.to(torch.float64).sum() for t in _terms(*cotangent, centre)])
 
     dd = gbar_d * torch.where(update, w / new_w, 1.0)
     o = torch.minimum(sdf, trunc)
@@ -237,4 +262,4 @@ def integrate_pose_grad(
         dw = dnewd_dw + gbar_w * capfac
     else:
         dw = dnewd_dw + gbar_w
-    return dd.to(vol.tsdf.dtype), dw.to(vol.weight.dtype), dpinv
+    return dd.to(vol.tsdf.dtype), dw.to(vol.weight.dtype), sums

@@ -106,9 +106,10 @@ def extract_surface(
     )
 
 
-def _classify(d):
+def _classify(d, n_cube_z=None):
     """Phase 1: the 8-bit corner-sign type of every cube, flat in cube-id
-    order, and which cubes the surface crosses."""
+    order, and which cubes the surface crosses (none in the cube z-rows at
+    or past ``n_cube_z``)."""
     Z, Y, X = d.shape
     cz, cy, cx = Z - 1, Y - 1, X - 1
     inside = (d < 0.0).to(torch.uint8)
@@ -116,8 +117,10 @@ def _classify(d):
     for k in range(8):
         dx, dy, dz = (int(v) for v in CORNER_OFFSETS[k])
         cube_type |= inside[dz : dz + cz, dy : dy + cy, dx : dx + cx] << k
-    cube_type = cube_type.reshape(-1)
-    return cube_type, (cube_type != 0) & (cube_type != 255)
+    occupied = (cube_type != 0) & (cube_type != 255)
+    if n_cube_z is not None:
+        occupied[n_cube_z:] = False
+    return cube_type.reshape(-1), occupied.reshape(-1)
 
 
 def _compact_on_host_counts(cube_type, occupied, max_cubes):
@@ -165,9 +168,14 @@ def _compact_on_device(cube_type, occupied, max_cubes):
     return cid, types, cube_valid, n_occ, n_verts
 
 
-def _sweep(d, voxel_size, offset, cid, types, cube_valid):
+def _sweep(d, voxel_size, offset, cid, types, cube_valid, z0=0,
+           voxel_index_base=0):
     """Phase 3: per compacted cube, the vertex and the bracketing voxel
     pair of each of its 24 triangle slots, and which slots are live.
+
+    ``d`` may be planes ``z0 ..`` of a volume: the centres are formed from
+    the plane's index in the whole volume (the single volume's bits), and
+    ``voxel_index_base`` is added to the voxel indices.
     Returns (vert (C, 24, 3) f32, vvox (C, 24, 2) i32, slot_valid (C, 24))."""
     dev = d.device
     Z, Y, X = d.shape
@@ -191,14 +199,14 @@ def _sweep(d, voxel_size, offset, cid, types, cube_valid):
                 [
                     vx.to(torch.float32) + 0.5,
                     vy.to(torch.float32) + 0.5,
-                    vz.to(torch.float32) + 0.5,
+                    (vz + z0).to(torch.float32) + 0.5,
                 ],
                 dim=-1,
             )
             * vs[None, :]
             + offset[None, :]
         )
-        lins.append(lin)
+        lins.append(lin + voxel_index_base)
     ws = torch.stack(ws, dim=-1)  # (max_cubes, 8)
     centres = torch.stack(centres, dim=-2)  # (max_cubes, 8, 3)
     lins = torch.stack(lins, dim=-1).to(torch.int32)  # (max_cubes, 8)
@@ -237,19 +245,25 @@ def _sweep(d, voxel_size, offset, cid, types, cube_valid):
 
 
 def _extract(
-    d, voxel_size, offset, max_cubes, max_vertices, layout="dense"
+    d, voxel_size, offset, max_cubes, max_vertices, layout="dense",
+    n_cube_z=None, voxel_index_base=0, z0=0,
 ) -> TriangleSoup:
+    """``extract_surface`` on the float32 planes ``d``; for a z-slab (the
+    sharded extraction) the cube z-rows at or past ``n_cube_z`` emit
+    nothing, ``voxel_index_base`` is added to the emitted voxel indices
+    and the planes start at the whole volume's plane ``z0``."""
     if layout not in ("dense", "masked"):
         raise ValueError(f"layout must be 'dense' or 'masked', got {layout!r}")
     dev = d.device
-    cube_type, occupied = _classify(d)
+    cube_type, occupied = _classify(d, n_cube_z)
+    where = dict(z0=z0, voxel_index_base=voxel_index_base)
 
     if layout == "masked":
         cid, types, cube_valid, n_occ, n_verts = _compact_on_device(
             cube_type, occupied, max_cubes
         )
         vert, vvox, slot_valid = _sweep(
-            d, voxel_size, offset, cid, types, cube_valid
+            d, voxel_size, offset, cid, types, cube_valid, **where
         )
         n_slots = max_cubes * _MAX_V
         return TriangleSoup(
@@ -263,7 +277,9 @@ def _extract(
     cid, types, cube_valid, cube_offsets, n_occ, n_verts = (
         _compact_on_host_counts(cube_type, occupied, max_cubes)
     )
-    vert, vvox, slot_valid = _sweep(d, voxel_size, offset, cid, types, cube_valid)
+    vert, vvox, slot_valid = _sweep(
+        d, voxel_size, offset, cid, types, cube_valid, **where
+    )
 
     # dense compaction: slot j of cube i goes to cube_offsets[i] + j
     slot = torch.arange(_MAX_V, dtype=torch.int64, device=dev)

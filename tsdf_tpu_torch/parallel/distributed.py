@@ -29,10 +29,6 @@ from .mesh import GROUP_TIMEOUT, make_mesh
 JOIN_TIMEOUT_S = 600.0
 
 
-def _backend() -> str:
-    return "nccl" if torch.cuda.is_available() else "gloo"
-
-
 def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -44,9 +40,10 @@ def initialize(
 
     Arguments default from ``torchrun``'s environment: ``MASTER_ADDR`` and
     ``MASTER_PORT`` (the coordinator, ``host:port`` or an init-method URL),
-    ``WORLD_SIZE`` and ``RANK``. The backend defaults to NCCL where there
-    is a card and gloo elsewhere; under NCCL the rank takes the card
-    ``LOCAL_RANK`` (or its rank) first.
+    ``WORLD_SIZE`` and ``RANK``. The backend defaults to NCCL, under which
+    the rank takes the card ``LOCAL_RANK`` (or its rank) first; with no
+    card visible that raises, and a group on the CPU needs
+    ``backend="gloo"``.
     """
     if dist.is_initialized():
         return
@@ -60,8 +57,9 @@ def initialize(
         coordinator_address = "env://"
     elif "://" not in coordinator_address:
         coordinator_address = "tcp://" + coordinator_address
-    backend = backend or _backend()
+    backend = backend or "nccl"
     if backend == "nccl":
+        _need_card("initialize(backend='nccl')", "backend='gloo'")
         local = int(os.environ.get("LOCAL_RANK", process_id))
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(
@@ -77,6 +75,13 @@ def global_mesh(n_rays: int = 1):
 def is_coordinator() -> bool:
     """True on rank 0, and in a run without a process group."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _need_card(what: str, instead: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} needs a CUDA card and none is visible; pass {instead} "
+            "to run on the CPU")
 
 
 def _rank_device(device: str, rank: int) -> torch.device:
@@ -110,7 +115,7 @@ def _rank_main(fn, rank, world, store_path, backend, device, args, results):
 
 
 def launch(fn, world_size: int, args=(), *, backend: Optional[str] = None,
-           device: str = "cpu") -> list:
+           device: str = "cuda") -> list:
     """Run ``fn(device, *args)`` on ``world_size`` ranks of a new process
     group and return the ranks' results, in rank order.
 
@@ -118,11 +123,14 @@ def launch(fn, world_size: int, args=(), *, backend: Optional[str] = None,
     ``args`` must pickle, and ``fn`` must be importable by name) that join
     through a ``FileStore`` in a temporary directory. ``backend`` defaults
     to NCCL on CUDA devices and gloo on the CPU; ``device`` as in
-    :func:`_rank_device`. A rank that raises, or a run that takes more than
-    ``JOIN_TIMEOUT_S``, kills every rank and raises RuntimeError with the
-    rank's traceback; ``GROUP_TIMEOUT`` turns a collective that some rank
-    never joins into such a failure.
+    :func:`_rank_device`, the cards by default: with no card visible that
+    raises, and ranks on the CPU need ``device="cpu"``. A rank that raises,
+    or a run that takes more than ``JOIN_TIMEOUT_S``, kills every rank and
+    raises RuntimeError with the rank's traceback; ``GROUP_TIMEOUT`` turns
+    a collective that some rank never joins into such a failure.
     """
+    if torch.device(device).type == "cuda":
+        _need_card(f"launch(device={device!r})", "device='cpu'")
     backend = backend or (
         "nccl" if torch.device(device).type == "cuda" else "gloo")
     if world_size == 1:

@@ -89,9 +89,13 @@ class Mesh:
 
 
 def _default_device() -> torch.device:
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    """This process's current card; with none visible, an error (the CPU is
+    taken only when asked for)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: no CUDA card is visible; pass device='cpu' to keep "
+            "this rank's tensors on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def make_mesh(
@@ -107,9 +111,11 @@ def make_mesh(
     ``n_bricks * n_rays`` form the mesh, row-major. ``n_bricks`` defaults
     to all of them over ``n_rays``. Every rank of the process group calls
     this, in the same order as its other collective calls. ``device`` is
-    where this rank's tensors live (default its current card, else the
-    CPU). With no process group a one-rank group is made here (gloo).
+    where this rank's tensors live: by default its current card, and with
+    no card visible an error unless ``device="cpu"`` is given. With no
+    process group a one-rank group is made here (gloo).
     """
+    device = _default_device() if device is None else device
     if not dist.is_initialized():
         dist.init_process_group(
             "gloo", store=dist.HashStore(), rank=0, world_size=1,
@@ -121,8 +127,7 @@ def make_mesh(
         raise ValueError(
             f"a {n_bricks}x{n_rays} mesh needs {n_bricks * n_rays} ranks; "
             f"the group has {len(ranks)}")
-    return Mesh(n_bricks, n_rays, ranks[:n_bricks * n_rays],
-                _default_device() if device is None else device)
+    return Mesh(n_bricks, n_rays, ranks[:n_bricks * n_rays], device)
 
 
 def volume_sharding(mesh: Mesh):

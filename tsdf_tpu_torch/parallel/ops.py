@@ -1,11 +1,13 @@
 """Sharded fusion on a ("b", "r") mesh of ranks: z-slab integrate, the two
-sharded raycasts, the sharded ICP pyramid and tracked fusion.
+sharded raycasts, the sharded ICP pyramid and tracked fusion, the sharded
+surface, the sharded SceneFusion frame and the sharded pose gradient.
 
-Port of ``tsdf_tpu/parallel/ops.py``, its rigid half. Every rank runs the
-single-card kernels on its own share: its z-slab of the volume (a
-``SlabVolume``) for the integrate and for the march of the bricked
-raycast, its row tile of the image for the replicated raycast and for the
-ICP residuals. The collectives are those of ``mesh.py``:
+Port of ``tsdf_tpu/parallel/ops.py``. Every rank runs the single-card
+kernels on its own share: its z-slab of the volume (a ``SlabVolume``) for
+the integrates, the pose adjoint, the surface extraction and the
+deformation update, and for the march of the bricked raycast; its row
+tile of the image for the replicated raycast and for the ICP residuals.
+The collectives are those of ``mesh.py`` (none an all-to-all):
 
   * integrate: none (each slab projects into the replicated frame); the
     miss count, when asked for, is one all-reduce over "b";
@@ -16,7 +18,14 @@ ICP residuals. The collectives are those of ``mesh.py``:
     volume on every rank, by the caller's leave), one over the mesh of the
     row tiles;
   * ICP: one all-gather over the mesh of each iteration's 44 partial sums,
-    added in rank order on every rank.
+    added in rank order on every rank;
+  * the surface: the halo, then one all-gather over "b" of the counts and
+    one of each buffer's filled rows;
+  * the deformation update: the halo, one all-gather over "b" of the
+    sums that land on the next slab's first plane, one all-reduce of the
+    correspondence count and the overflow flag;
+  * the pose gradient: one all-gather over "b" of the forward's miss count
+    and one of the backward's 12 float64 pose sums, added in rank order.
 
 The TPU sweeps slabs through its raycast kernel, which is why the JAX
 bricked raycast streams every brick through every device in six sweep
@@ -35,6 +44,7 @@ from ..api import _vertices
 from ..camera import Camera
 from ..kernels.bilateral import bilateral_filter_cuda
 from ..kernels.integrate import MODES
+from ..ops.marching_cubes import _extract
 from ..ops.raycast import (
     REFERENCE_MAX_STEPS,
     compute_normals_from_vertices,
@@ -335,15 +345,22 @@ def raycast_sharded_bricked(
     return verts, compute_normals_from_vertices(verts)
 
 
+def _sum_in_rank_order(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``: one all-gather, the parts added in rank
+    order, so that every rank holds the same bits."""
+    parts = all_gather(t.contiguous(), group)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
 def _mesh_sum(mesh: Mesh, *parts):
     """The sums of the 6x7 system, residual and inliers over the mesh: one
     all-gather of every rank's 44 floats, added in rank order, so that
     every rank holds the same bits and takes the same branches."""
     flat = torch.cat([p.reshape(-1).to(_F32) for p in parts])
-    every = all_gather(flat, mesh.get_group(AXES))
-    total = every[0]
-    for p in every[1:]:
-        total = total + p
+    total = _sum_in_rank_order(flat, mesh.get_group(AXES))
     a, b, res, inl = torch.split(total, [36, 6, 1, 1])
     return a.reshape(6, 6), b, res[0], inl[0]
 
@@ -508,3 +525,321 @@ def track_and_fuse_frames_sharded(
         poses.append(camera.pose)
     return vol, camera, poses, stats
 
+
+
+# -- the surface, the non-rigid frame and the pose gradient -------------------
+
+
+def _cube_planes(vol: SlabVolume, mesh: Mesh):
+    """The float32 planes the cubes of a slab read: its own and the next
+    slab's first (``halo_exchange_z``); and the cube z-rows the slab owns,
+    one fewer on the last slab, which has no plane above it."""
+    b, _ = mesh.get_coordinate()
+    zl = vol.tsdf.shape[0]
+    planes = halo_exchange_z(vol.tsdf, mesh, halo=1)[1:]
+    return planes.to(_F32), (zl - 1 if b == mesh.shape["b"] - 1 else zl)
+
+
+def _gather_prefixes(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The ranks' (cap, ...) buffers ``t`` of ``group``, stacked, sent as
+    their first ``n`` rows (the most any rank fills) and zero-padded on
+    arrival."""
+    parts = all_gather(t[:max(n, 1)].contiguous(), group)
+    out = t.new_zeros((len(parts),) + tuple(t.shape))
+    for i, p in enumerate(parts):
+        out[i, :p.shape[0]] = p
+    return out
+
+
+def extract_surface_sharded(
+    vol: SlabVolume,
+    mesh: Mesh,
+    max_cubes_per_brick: int = 1 << 16,
+    max_vertices_per_brick: int = 1 << 18,
+    use_chunked: bool = True,
+):
+    """Brick-parallel marching cubes.
+
+    Each rank extracts the cubes whose base voxel its slab owns (dense
+    layout), reading the next slab's first plane through
+    ``halo_exchange_z``; its vertices are the single volume's bits (the
+    centres come from the whole volume's planes) and its voxel indices are
+    global. ``use_chunked`` selects a TPU compaction in the JAX package and
+    has no effect here.
+
+    Returns, on every rank, a TriangleSoup-like tuple of the slabs' buffers
+    stacked over "b" (one all-gather of the counts, then of each slab's
+    filled rows, over "b"):
+      vertices:      (nb, max_vertices_per_brick, 3) world mm
+      vertex_voxels: (nb, max_vertices_per_brick, 2) GLOBAL voxel indices
+      n_vertices:    (nb,)
+      overflowed:    (nb,)
+    Merge on the host with ``merge_brick_soups``. Every rank calls it.
+    """
+    del use_chunked
+    _check_slab(vol, mesh)
+    planes, n_cube_z = _cube_planes(vol, mesh)
+    _, sy, sx = vol.tsdf.shape
+    soup = _extract(
+        planes, vol.voxel_size, vol.offset, max_cubes_per_brick,
+        max_vertices_per_brick, "dense", n_cube_z=n_cube_z,
+        voxel_index_base=vol.z0 * sy * sx, z0=vol.z0,
+    )
+    del planes
+    group = mesh.get_group("b")
+    head = torch.stack([soup.n_vertices, soup.overflowed.to(torch.int32)])
+    heads = torch.stack(all_gather(head, group))
+    n = int(heads[:, 0].max())  # the dense layout's counts are host-sized
+    return (
+        _gather_prefixes(soup.vertices, n, group),
+        _gather_prefixes(soup.vertex_voxels, n, group),
+        heads[:, 0].contiguous(),
+        heads[:, 1] > 0,
+    )
+
+
+def merge_brick_soups(brick_soups):
+    """Host-side: concatenate per-brick triangle soups into
+    (verts (n, 3), tris (n/3, 3)) numpy arrays. Takes the tuple of
+    ``extract_surface_sharded`` with its tensors on the card or the CPU
+    (or as numpy arrays); copies each brick's filled rows only."""
+    import numpy as np
+
+    def host(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu().numpy()
+        return np.asarray(t)
+
+    verts_b, _voxels_b, n_b, overflow_b = brick_soups
+    if bool(host(overflow_b).any()):
+        raise ValueError(
+            "a brick overflowed: raise max_cubes/max_vertices_per_brick, "
+            "or — if this is the chunked compaction's active-chunk cap "
+            "(dense surface on TPU) — re-extract with "
+            "extract_surface_sharded(..., use_chunked=False)"
+        )
+    counts = [int(n) for n in host(n_b)]
+    verts = np.concatenate(
+        [host(verts_b[b, :n]) for b, n in enumerate(counts)], axis=0)
+    n = len(verts) - len(verts) % 3
+    verts = verts[:n]
+    tris = np.arange(n, dtype=np.int32).reshape(-1, 3)
+    return verts, tris
+
+
+def update_deformation_sharded(
+    vol: SlabVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    flow: torch.Tensor,
+    mesh: Mesh,
+    max_cubes_per_brick: int = 1 << 16,
+    threshold_mm: float | None = None,
+    tpu_safe: bool | None = None,
+):
+    """Brick-parallel deformation-field update (the single-card
+    ``pipelines.scenefusion.update_deformation`` on the mesh).
+
+    Each rank extracts the cubes its slab owns (masked layout, the next
+    slab's first plane through ``halo_exchange_z``), finds their
+    vertices' correspondences against the replicated depth and flow (the
+    row-gather kernel on a card) and sums (count, flow) into a LOCAL
+    accumulator of its planes plus one: the sums that land on the extra
+    plane belong to the next slab's first plane, and one all-gather over
+    "b" hands them on (slab 0 receives nothing). The per-voxel
+    normalisation ``flow_sum / max(count, 1)`` follows the hand-off,
+    exactly as in the single-card update. A voxel on a slab's first plane
+    adds its own cubes' sums and its neighbour's in another order than the
+    single card does, so the field agrees within rounding, not bit for
+    bit (exactly where the sums are exact, as with whole-millimetre flows).
+
+    ``tpu_safe`` selects TPU compactions in the JAX package and has no
+    effect here. The correspondence count and the overflow flag (a slab's
+    occupied cubes past ``max_cubes_per_brick``) are summed over "b" in
+    one all-reduce; the flag is read once on the host and warns.
+
+    Returns (slab with the new ``deform``, total correspondence count, a
+    0-d int32 tensor). Every rank calls it.
+    """
+    import warnings
+
+    from ..pipelines.scenefusion import (
+        CORRESPONDENCE_THRESHOLD_MM,
+        apply_deformation,
+        deformation_sums,
+    )
+
+    del tpu_safe
+    _check_slab(vol, mesh)
+    if vol.deform is None:
+        raise ValueError("update_deformation_sharded needs vol.deform")
+    if threshold_mm is None:
+        threshold_mm = CORRESPONDENCE_THRESHOLD_MM
+    dev = vol.device
+    depth = torch.as_tensor(depth).to(dev).to(_F32).contiguous()
+    flow = torch.as_tensor(flow).to(dev).to(_F32).contiguous()
+    planes, n_cube_z = _cube_planes(vol, mesh)
+    soup = _extract(planes, vol.voxel_size, vol.offset, max_cubes_per_brick,
+                    1, "masked", n_cube_z=n_cube_z, z0=vol.z0)
+    del planes
+    zl, sy, sx = vol.tsdf.shape
+    plane = sy * sx
+    acc, n_corr = deformation_sums(soup, depth, camera, flow,
+                                   float(threshold_mm), (zl + 1) * plane)
+    group = mesh.get_group("b")
+    halos = all_gather(acc[zl * plane:].contiguous(), group)
+    own = acc[:zl * plane]
+    b, _ = mesh.get_coordinate()
+    if b > 0:
+        own[:plane] += halos[b - 1]
+    counts = all_reduce(
+        torch.stack([n_corr, soup.overflowed.to(torch.int32)]),
+        dist.ReduceOp.SUM, group)
+    if bool(counts[1] > 0):  # the one host read
+        warnings.warn(
+            "update_deformation_sharded: a brick's occupied cubes "
+            f"exceed max_cubes_per_brick={max_cubes_per_brick}; the "
+            "deformation update was truncated — raise the cap",
+            stacklevel=2,
+        )
+    return vol.replace(deform=apply_deformation(vol.deform, own)), counts[0]
+
+
+def warped_topup_sharded(
+    vol: SlabVolume,
+    mask: torch.Tensor,
+    depth: torch.Tensor,
+    camera: Camera,
+    mesh: Mesh,
+    cap_weight: bool = False,
+    max_topup_per_brick: int = 1 << 16,
+):
+    """Brick-parallel ``warped_miss_topup`` of the JAX package: each rank
+    fuses exactly the voxels of its slab that ``mask`` (this rank's
+    (Z, Y, X) slab of the miss mask) marks, at their deformed centres, with
+    the update of ``ops.integrate.integrate`` on those voxels (plain
+    PyTorch on the slab's device, as the JAX core is plain jnp). It takes
+    at most ``max_topup_per_brick`` of them, in voxel order, found on the
+    device with no host read.
+
+    The port's warped kernel has one thread a voxel and misses none, so
+    the port's own frame (``scenefusion_frame_sharded``) never calls this:
+    it keeps the JAX contract for a mask made elsewhere.
+
+    Returns (slab with the updated tsdf and weight, remaining): the marked
+    voxels past the cap, summed over "b" (one all-reduce), a 0-d int32
+    tensor; > 0 means the top-up is incomplete. Every rank calls it.
+    """
+    from ..ops.integrate import integrate as integrate_plain
+
+    _check_slab(vol, mesh)
+    if vol.deform is None:
+        raise ValueError("warped_topup_sharded needs vol.deform")
+    dev = vol.device
+    depth = torch.as_tensor(depth).to(dev).to(_F32).contiguous()
+    mask = torch.as_tensor(mask).to(dev).reshape(-1).to(torch.bool)
+    n = mask.numel()
+    # the k-th marked voxel is the first whose running count reaches k
+    running = torch.cumsum(mask, 0, dtype=torch.int32)
+    k = torch.arange(1, max_topup_per_brick + 1, dtype=torch.int32,
+                     device=dev)
+    take = k <= running[-1]
+    ids = torch.where(take, torch.searchsorted(running, k), 0)
+    picked = vol.replace(
+        tsdf=vol.tsdf.reshape(-1)[ids], weight=vol.weight.reshape(-1)[ids],
+        deform=vol.deform.reshape(-1, 3)[ids], color=None, deform_rot=None)
+    fused = integrate_plain(picked, depth, camera, cap_weight=cap_weight)
+    # the voxels not taken write to a row past the slab, which is dropped
+    dest = torch.where(take, ids, n)
+
+    def put(field, values):
+        flat = torch.cat([field.reshape(-1), field.new_zeros(1)])
+        flat[dest] = values
+        return flat[:n].reshape(field.shape)
+
+    remaining = torch.clamp(running[-1] - max_topup_per_brick, min=0)
+    remaining = all_reduce(remaining.reshape(1), dist.ReduceOp.SUM,
+                           mesh.get_group("b"))[0]
+    out = vol.replace(tsdf=put(vol.tsdf, fused.tsdf),
+                      weight=put(vol.weight, fused.weight))
+    return out, remaining
+
+
+def scenefusion_frame_sharded(
+    vol: SlabVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    flow: torch.Tensor,
+    mesh: Mesh,
+    max_cubes_per_brick: int = 1 << 16,
+    threshold_mm: float | None = None,
+    tpu_safe: bool | None = None,
+    nk: int = 5,
+):
+    """One non-rigid SceneFusion frame on the mesh: the brick-parallel
+    deformation update (``update_deformation_sharded``), then the deformed
+    slab's integrate (``integrate_sharded``: the warped kernel on a card),
+    the mesh analogue of ``pipelines.scenefusion.scenefusion_step``. The
+    slab's tsdf and weight are updated IN PLACE; ``deform`` is replaced.
+
+    The warped kernel has one thread a voxel and misses none (its miss
+    count is 0), so no top-up runs, where the JAX frame tops up the
+    voxels its line-sweep kernel skipped. ``tpu_safe`` and ``nk`` select
+    TPU compactions and kernels in the JAX package and have no effect here.
+
+    Returns (slab, total correspondence count). Every rank calls it.
+    """
+    del tpu_safe, nk
+    vol, n_corr = update_deformation_sharded(
+        vol, depth, camera, flow, mesh,
+        max_cubes_per_brick=max_cubes_per_brick, threshold_mm=threshold_mm)
+    return integrate_sharded(vol, depth, camera, mesh), n_corr
+
+
+def integrate_pose_sharded(
+    vol: SlabVolume,
+    depth: torch.Tensor,
+    camera: Camera,
+    delta,
+    mesh: Mesh,
+    nk: int = 3,
+    cap_weight: bool = False,
+    image_term: bool = True,
+    interpret: bool | None = None,
+    mode: str = "exact",
+):
+    """Differentiable fusion with respect to the pose on the mesh.
+
+    Forward: each rank fuses ``depth`` into COPIES of its slab at the pose
+    ``se3_exp(delta) @ camera.pose`` (``kernels.integrate.integrate_pose``
+    on the slab: the brick-walk kernel, or the fast one with
+    ``mode="fast"``); the slabs equal the same planes of the single-volume
+    fusion bit for bit. Backward: each rank runs the pose adjoint's slab
+    instance on its slab; the volume cotangents dd and dw stay on the rank,
+    and the 12 float64 sums of the pose_inv cotangent are summed over "b"
+    only (never over "r", whose ranks hold the same slab), in rank order on
+    every rank, before they are rounded to float32. Autograd chains them
+    through the 4x4 inverse and ``se3_exp``.
+
+    The contract: each rank's loss is its slab's share, and ``delta.grad``
+    on every rank is the gradient of the sum of the shares over "b". Every
+    rank must call ``backward``: the backward holds a collective.
+
+    ``nk`` and ``interpret`` select TPU kernels in the JAX package and have
+    no effect here. Returns (fused slab, miss count summed over "b", a 0-d
+    int32 tensor with no gradient). Rigid slabs only.
+    """
+    from ..kernels.integrate import pose_fusion
+
+    del nk, interpret
+    _check_slab(vol, mesh)
+    if vol.deform is not None:
+        raise ValueError(
+            "integrate_pose_sharded is the rigid path: the pose adjoint "
+            "is computed at lattice centres (deformed volumes would get "
+            "a silently wrong gradient)"
+        )
+    depth = torch.as_tensor(depth).to(vol.device)
+    group = mesh.get_group("b")
+    return pose_fusion(vol, depth, camera, delta, cap_weight, image_term,
+                       mode, over_slabs=lambda t: _sum_in_rank_order(t, group))

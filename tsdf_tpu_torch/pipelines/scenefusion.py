@@ -129,6 +129,46 @@ def _accumulate_rows(acc: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
     acc[hit] += torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0)
 
 
+def deformation_sums(
+    soup: TriangleSoup,
+    depth: torch.Tensor,
+    camera: Camera,
+    flow: torch.Tensor,
+    threshold_mm: float,
+    n_vox: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-voxel sums of one scene-flow observation: an (n_vox, 4)
+    float32 accumulator whose channel 0 counts ALL valid mesh vertices a
+    voxel brackets and channels 1-3 sum the flow of the corresponding ones
+    (both bracketing voxels of a vertex receive its contribution), over the
+    voxels ``soup.vertex_voxels`` indexes; and the number of corresponding
+    vertices (0-d int32). ``update_deformation`` normalises them over a
+    whole volume, the sharded update over a slab and its halo plane."""
+    depth = depth.to(torch.float32)
+    valid = soup.valid
+    corr, flow_at_vert = _slot_correspondence(
+        soup.vertices, valid, depth, camera, flow, threshold_mm
+    )
+    payload = torch.cat([valid.to(torch.float32)[:, None], flow_at_vert], dim=-1)
+    # A dead slot adds an exact zero row. It is sent to a voxel of its own
+    # (its slot number modulo the volume) and not to one shared dump row:
+    # a run of millions of duplicates of one index would be added one
+    # after the other.
+    spread = torch.arange(valid.shape[0], device=valid.device) % n_vox
+    acc = torch.zeros((n_vox, 4), dtype=torch.float32, device=depth.device)
+    for side in (0, 1):
+        vox = soup.vertex_voxels[:, side].to(torch.int64)
+        _accumulate_rows(acc, torch.where(valid, vox, spread), payload)
+    return acc, corr.sum().to(torch.int32)
+
+
+def apply_deformation(deform: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``deform + flow_sum / max(count, 1)`` per voxel, from the sums of
+    ``deformation_sums`` over ``deform``'s voxels."""
+    delta = acc[:, 1:4] / torch.clamp(acc[:, 0:1], min=1.0)
+    return deform + delta.reshape(deform.shape)
+
+
 def update_deformation(
     vol: TSDFVolume,
     soup: TriangleSoup,
@@ -153,28 +193,10 @@ def update_deformation(
     Returns (volume with the new ``deform``, number of corresponding
     vertices as a 0-d int32 tensor). Nothing is read on the host.
     """
-    depth = depth.to(torch.float32)
-    valid = soup.valid
-    corr, flow_at_vert = _slot_correspondence(
-        soup.vertices, valid, depth, camera, flow, threshold_mm
+    acc, n_corr = deformation_sums(
+        soup, depth, camera, flow, threshold_mm, vol.tsdf.numel()
     )
-
-    n_vox = vol.tsdf.numel()
-    # channel 0 counts every valid vertex, channels 1-3 sum the flow of the
-    # corresponding ones (already zero elsewhere)
-    payload = torch.cat([valid.to(torch.float32)[:, None], flow_at_vert], dim=-1)
-    # A dead slot adds an exact zero row. It is sent to a voxel of its own
-    # (its slot number modulo the volume) and not to one shared dump row:
-    # a run of millions of duplicates of one index would be added one
-    # after the other.
-    spread = torch.arange(valid.shape[0], device=valid.device) % n_vox
-    acc = torch.zeros((n_vox, 4), dtype=torch.float32, device=vol.device)
-    for side in (0, 1):
-        vox = soup.vertex_voxels[:, side].to(torch.int64)
-        _accumulate_rows(acc, torch.where(valid, vox, spread), payload)
-    delta = acc[:, 1:4] / torch.clamp(acc[:, 0:1], min=1.0)
-    new_deform = vol.deform + delta.reshape(vol.deform.shape)
-    return vol.replace(deform=new_deform), corr.sum().to(torch.int32)
+    return vol.replace(deform=apply_deformation(vol.deform, acc)), n_corr
 
 
 def scenefusion_step(
