@@ -136,8 +136,24 @@ Phases (any failed check exits non-zero; nothing is caught):
      rank's launches and its peak. Then ``fuse --devices 1x1`` on NCCL,
      with and without ``--fuse-color``, byte-equal with the verb without
      ``--devices``, and ``fuse --devices 1x1 --track --filter`` (poses held
-     to the same gates). With four cards, the verb on 4x1 and 2x2 meshes of
-     cards too; else one line says it did not run.
+     to the same gates). Inside the same four-rank spawn too: the
+     sharded checkpoint at 512^3 (the fused float32 slabs and a bf16
+     slab with deformation and colour saved on 4x1 and restored onto 2x2
+     bit for bit, a resume on 4x1 of 2 + 2 frames bit-equal with 4 fused
+     straight on one card; each rank's save and load seconds, the bytes on
+     disk) and ``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 12's
+     files on both meshes, held after every frame to the single-card
+     class beside it (n_corr equal, deform and tsdf within
+     SF_MESH_DEFORM_MM / SF_MESH_TSDF_MM, weights equal, bit-equality
+     logged), its ``extract_mesh`` PLY and one ``dump`` byte-equal with the
+     single card's, then timed on the frames on the card (slowest rank,
+     each rank's launches). After ``fuse --devices 1x1``, ``sfusion
+     --devices 1x1`` on NCCL: stdout and PLY byte-equal with phase 12's
+     verb (which now runs before this phase), integrate_warped 6,
+     row_gather 5, lane_gather at least phase 12's. With four cards,
+     ``fuse`` on 4x1 and 2x2 meshes of cards, and ``sfusion -s 256`` on
+     both against one card's (byte-equal); else one line says they did
+     not run.
 
 The next-to-last line of output is one JSON object naming each kernel,
 the last is {"ok": true, "device": {...}}. Needs one card; imports no
@@ -2677,10 +2693,12 @@ def compare_windowed(dev) -> dict:
     return {"lane_gather_windowed": windowed, "lane_gather_checked": checked}
 
 
-def run_sfusion_cli(dev, rgbd: str, flow: str, mesh: str) -> dict:
-    """``cli.main(["sfusion", rgbd, flow, "--mesh", ...])`` at the verb's
-    defaults (255^3 over 2550 mm, max_cubes 2^18) with every launch count
-    set to 0 just before and read just after."""
+def run_sfusion_cli(dev, rgbd: str, flow: str, mesh: str, extra=()) -> dict:
+    """``cli.main(["sfusion", rgbd, flow, "--mesh", mesh, *extra])`` (by
+    default at the verb's defaults: 255^3 over 2550 mm, max_cubes 2^18)
+    with every launch count set to 0 just before and read just after:
+    the counts (this process's ranks only), seconds, vertices, stdout and
+    the PLY's digest."""
     import warnings
 
     from tsdf_tpu_torch import cli
@@ -2694,31 +2712,28 @@ def run_sfusion_cli(dev, rgbd: str, flow: str, mesh: str) -> dict:
             contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
         warnings.simplefilter("always")
         rc = cli.main(["sfusion", rgbd, flow, "--mesh", mesh,
-                       "--device", dev.type])
+                       "--device", dev.type, *extra])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
+    what = " ".join(("sfusion",) + tuple(extra))
     sys.stderr.write(err.getvalue())
     log(out.getvalue().rstrip())
-    log(f"sfusion: rc {rc} in {seconds:.2f} s; launches {counts}")
-    check(rc == 0, f"sfusion returned {rc}")
+    log(f"{what}: rc {rc} in {seconds:.2f} s; launches {counts}")
+    check(rc == 0, f"{what} returned {rc}")
     check(f"processed {SF_FRAMES} frames" in out.getvalue(),
-          "no 'processed N frames' line")
+          f"{what}: no 'processed N frames' line")
     check(not [w for w in caught if "max_cubes" in str(w.message)],
-          "the extraction overflowed max_cubes")
+          f"{what}: the extraction overflowed max_cubes")
     with open(mesh) as f:
         header = [next(f).strip() for _ in range(12)]
     (n_vert,) = [int(h.split()[-1]) for h in header
                  if h.startswith("element vertex")]
     check(n_vert > 1000 and f"({n_vert} vertices)" in out.getvalue(),
-          "the PLY is empty or its vertex count was not printed")
-    # per frame after the first: four lane gathers in the masked
-    # extraction, one row gather, one warped integrate; four more lane
-    # gathers for the final mesh
-    check_counts(counts, "sfusion path", integrate_warped=SF_FRAMES,
-                 row_gather=SF_FRAMES - 1,
-                 lane_gather=4 * (SF_FRAMES - 1) + 4)
-    return dict(counts=counts, seconds=seconds, vertices=n_vert)
+          f"{what}: the PLY is empty or its vertex count was not printed")
+    return dict(counts=counts, seconds=seconds, vertices=n_vert,
+                stdout=out.getvalue(), digest=digests({"ply": mesh})["ply"],
+                mesh=mesh)
 
 
 class CardFrames:
@@ -2741,10 +2756,22 @@ class CardFrames:
             self.observer(self.depth, None)
 
 
+def phase_sfusion_cli(dev, rgbd: str, flow: str, out_dir: str) -> dict:
+    """The ``sfusion`` verb on the fabricated directories, its launches
+    exact: per frame after the first four lane gathers in the masked
+    extraction, one row gather, one warped integrate; four more lane
+    gathers for the final mesh."""
+    run = run_sfusion_cli(dev, rgbd, flow, os.path.join(out_dir, "sf_mesh.ply"))
+    check_counts(run["counts"], "sfusion path", integrate_warped=SF_FRAMES,
+                 row_gather=SF_FRAMES - 1,
+                 lane_gather=4 * (SF_FRAMES - 1) + 4)
+    return run
+
+
 def phase_sfusion(dev, rgbd: str, flow: str, out_dir: str, sf_depth,
-                  sf_flows) -> dict:
-    """The SceneFusion path: the ``sfusion`` verb on the fabricated
-    directories; the ``SceneFusion`` class on the same files with dumps
+                  sf_flows, cli_run: dict) -> dict:
+    """The SceneFusion path (the verb's run, ``phase_sfusion_cli``, is
+    ``cli_run``): the ``SceneFusion`` class on the same files with dumps
     (bit-equal to a run through the plain twins and to a second run;
     the field against the flow that was fed); ms per frame, its split and
     its host syncs on frames already on the card."""
@@ -2757,8 +2784,6 @@ def phase_sfusion(dev, rgbd: str, flow: str, out_dir: str, sf_depth,
     from tsdf_tpu_torch.kernels.integrate import integrate_warped_cuda
     from tsdf_tpu_torch.ops.marching_cubes import extract_surface
     from tsdf_tpu_torch.pipelines import scenefusion as sf
-
-    cli_run = run_sfusion_cli(dev, rgbd, flow, os.path.join(out_dir, "sf_mesh.ply"))
 
     # the class on the same files, with a dump on the first and last frame
     dumps = os.path.join(out_dir, "sf_dumps")
@@ -4882,6 +4907,265 @@ def sharded_sfusion(dev, mesh, sf_depth_np, single: bool) -> dict:
                 again=again, counts=counts)
 
 
+def slabs_equal(a, b) -> bool:
+    """Every field of two volumes or slabs bit for bit (NaN included; None
+    where None; a slab's plane numbers equal)."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not isinstance(x, torch.Tensor) or not isinstance(y, torch.Tensor):
+            if not (x is y or x == y):
+                return False
+        elif x.dtype == torch.uint8 or x.dtype != y.dtype:
+            if not torch.equal(x, y):
+                return False
+        elif x.shape != y.shape or not bits_equal(x, y):
+            return False
+    return True
+
+
+def sharded_sfusion_class(dev, mesh, sf_dirs, sf_depth_np, first: bool,
+                          tmp: str) -> dict:
+    """``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 12's RGB-D +
+    PD-Flow files, each rank reading them through its own ``MockKinect``
+    and provider; every rank steps the single-card class on the same frames
+    beside it and, after every frame, holds its slab to the same planes of
+    that volume: n_corr equal, deform and tsdf within SF_MESH_DEFORM_MM /
+    SF_MESH_TSDF_MM, weights equal (and whether bit-equal). A rank compares
+    its own planes, so no frame gathers the slabs through the host. Then
+    ``extract_mesh``'s PLY and one ``dump`` (every rank calls both; the
+    first rank writes) byte-equal with the single card's; then the class
+    again on the same frames already on the card, timed, its launches
+    counted, its slab bit-equal with the run on files."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    from tsdf_tpu_torch.io.mock_kinect import MockKinect
+    from tsdf_tpu_torch.io.ply import write_ply
+    from tsdf_tpu_torch.io.sceneflow import PDSFMockSceneFlow
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.ops.marching_cubes import soup_to_numpy
+    from tsdf_tpu_torch.pipelines.scenefusion import SceneFusion, SceneFusionConfig
+
+    rgbd_dir, flow_dir = sf_dirs
+    cfg = SceneFusionConfig(volume_size=(SF_MESH_SIZE,) * 3,
+                            physical_size_mm=SF_MESH_PHYSICAL,
+                            offset_mm=SF_MESH_OFFSET, max_cubes=SF_MAX_CUBES)
+    cam = sf_camera(dev)
+
+    def provider():
+        sfa = PDSFMockSceneFlow(flow_dir)
+        check(sfa.init(), "no scene-flow files")
+        return sfa
+
+    kinect = MockKinect(rgbd_dir)
+    kinect.initialise()
+    fusion = SceneFusion(provider(), kinect, cfg, camera=cam, mesh=mesh)
+    ref = SceneFusion(provider(), CardFrames(None, []), cfg, camera=cam,
+                      device=dev)
+    z0, planes = fusion.volume.z0, fusion.volume.tsdf.shape[0]
+    frames = []
+
+    def step(depth, colour):
+        fusion.process_frames(depth, colour)
+        ref.process_frames(depth, colour)
+        mine, theirs = fusion.correspondence_counts, ref.correspondence_counts
+        slab = fusion.volume
+        want = {f: getattr(ref.volume, f)[z0:z0 + planes]
+                for f in ("tsdf", "weight", "deform")}
+        frames.append(dict(
+            n_corr=int(mine[-1]) if mine else 0,
+            n_single=int(theirs[-1]) if theirs else 0,
+            deform_mm=float((slab.deform - want["deform"]).abs().max()),
+            tsdf_mm=float((slab.tsdf - want["tsdf"]).abs().max()),
+            weights_equal=torch.equal(slab.weight, want["weight"]),
+            bit_equal=all(bits_equal(getattr(slab, f), want[f].contiguous())
+                          for f in want)))
+
+    kinect.add_observer(step)  # the one observer, in the class's place
+    kinect.start()
+    out = dict(frames=frames)
+    shape = f"{mesh.shape['b']}x{mesh.shape['r']}"
+    soup = fusion.extract_mesh()
+    dumps = os.path.join(tmp, f"class_{shape}")
+    fusion.dump_dir = os.path.join(dumps, "mesh")
+    fusion.dump(SF_FRAMES - 1)
+    check((soup is None) == (not first), "extract_mesh: a soup off the first rank")
+    if first:
+        ref.dump_dir = os.path.join(dumps, "single")
+        ref.dump(SF_FRAMES - 1)
+        plys = []
+        for name, s in (("mesh", soup), ("single", ref.extract_mesh())):
+            path = os.path.join(dumps, f"{name}.ply")
+            write_ply(path, *soup_to_numpy(s))
+            plys.append(digests({"ply": path})["ply"])
+        out["vertices"] = len(soup_to_numpy(soup)[0])
+        out["ply_equal"] = plys[0] == plys[1]
+        names = sorted(os.listdir(fusion.dump_dir))
+        out["dump_files"] = names
+        out["dump_equal"] = len(names) == 3 and names == sorted(
+            os.listdir(ref.dump_dir)) and all(
+            digests({"f": os.path.join(fusion.dump_dir, n)})
+            == digests({"f": os.path.join(ref.dump_dir, n)}) for n in names)
+        shutil.rmtree(dumps)
+    del ref, soup
+    gc.collect()  # a class and its source refer to each other
+    torch.cuda.empty_cache()
+
+    # the class timed on the same frames already on the card
+    depth = torch.from_numpy(sf_depth_np).to(dev)
+    flows = []
+    for mm in SF_FLOW_MM[:SF_FRAMES - 1]:
+        f = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+        f[..., 0] = mm
+        flows.append(f)
+    src = CardFrames(depth, flows)
+    timed = SceneFusion(src, src, cfg, camera=cam, mesh=mesh)
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    src.start()
+    torch.cuda.synchronize()
+    out["ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / SF_FRAMES
+    out["counts"] = launch_counts()
+    out["card_equal"] = slabs_equal(timed.volume, fusion.volume)
+    del timed, fusion, kinect, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rich_slab(mesh):
+    """This rank's slab of a bf16 512^3 volume with colour and deformation,
+    its content a closed form of the voxel's global index, so that any mesh
+    makes the planes it expects of a checkpoint."""
+    from tsdf_tpu_torch.parallel.ops import make_sharded_volume
+
+    vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL, dtype=BF16,
+                              with_color=True, with_deformation=True)
+    vol = vol.replace(deform_rot=None)  # file-format state only
+    dev = vol.device
+    z = torch.arange(vol.z0, vol.z0 + vol.tsdf.shape[0], device=dev,
+                     dtype=torch.float32).view(-1, 1, 1)
+    yx = torch.arange(SIZE, device=dev, dtype=torch.float32)
+    y, x = yx.view(1, -1, 1), yx.view(1, 1, -1)
+    vol.tsdf.copy_(torch.sin(0.37 * z + 0.11 * y + 0.05 * x))
+    vol.weight.copy_(torch.remainder(z + y + x, 16.0))
+    vol.color.copy_(torch.remainder(3 * z + 5 * y + 7 * x, 256.0)
+                    .to(torch.uint8).unsqueeze(-1).expand_as(vol.color))
+    vol.deform.add_(torch.stack(torch.broadcast_tensors(
+        0.25 * x, -0.5 * y, z / 8.0), dim=-1))
+    return vol
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def timed_on_mesh(fn):
+    """(result, seconds) of ``fn()``, started together on every rank and
+    ended with the card's work."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def sharded_checkpoint_save(dev, mesh, slab32, depths, cams, root: str,
+                            first: bool) -> dict:
+    """On the first mesh: ``save_sharded`` of the fused float32 slabs and
+    of a bf16 slab with deformation and colour (``rich_slab``) into
+    ``root``, for the second mesh to restore; and a resume at 512^3: 2
+    frames, save, load, 2 more, gathered and held on the first rank to 4
+    frames fused straight on one card (bit-equal). Each rank's save and
+    load seconds; the bytes on disk."""
+    import shutil
+
+    from tsdf_tpu_torch import make_volume
+    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
+    from tsdf_tpu_torch.parallel.ops import (
+        integrate_sharded,
+        make_sharded_volume,
+        unshard_volume,
+    )
+    from tsdf_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    out = {}
+    _, out["save_f32_s"] = timed_on_mesh(lambda: save_sharded(
+        slab32, os.path.join(root, "f32"), mesh=mesh))
+    rich = rich_slab(mesh)
+    _, out["save_rich_s"] = timed_on_mesh(lambda: save_sharded(
+        rich, os.path.join(root, "rich"), mesh=mesh))
+    del rich
+    vol = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+    for i in range(2):
+        integrate_sharded(vol, depths[i], cams[i], mesh)
+    path = os.path.join(root, "resume")
+    _, out["save_resume_s"] = timed_on_mesh(
+        lambda: save_sharded(vol, path, mesh=mesh))
+    del vol
+    like = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+    vol, out["load_resume_s"] = timed_on_mesh(
+        lambda: load_sharded(path, like, mesh=mesh))
+    del like
+    for i in range(2, 4):
+        integrate_sharded(vol, depths[i], cams[i], mesh)
+    whole = unshard_volume(vol, mesh)
+    del vol
+    if first:
+        out["bytes"] = {k: dir_bytes(os.path.join(root, k))
+                        for k in ("f32", "rich", "resume")}
+        straight = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
+        for i in range(4):
+            integrate_cuda(straight, depths[i], cams[i])
+        out["resume_equal"] = slabs_equal(whole, straight)
+        del straight
+        shutil.rmtree(path)
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_checkpoint_load(dev, mesh, slab32, root: str, first: bool) -> dict:
+    """On the second mesh: the first mesh's checkpoints restored onto this
+    mesh's slabs, each rank's held bit for bit to its own slab of the same
+    volume (the float32 fusion this mesh made, which the fuse step holds
+    to the single volume; ``rich_slab``); each rank's load seconds."""
+    import shutil
+
+    from tsdf_tpu_torch.parallel.ops import make_sharded_volume
+    from tsdf_tpu_torch.utils.checkpoint import load_sharded
+
+    out = {}
+    like = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL)
+    got, out["load_f32_s"] = timed_on_mesh(lambda: load_sharded(
+        os.path.join(root, "f32"), like, mesh=mesh))
+    out["f32_equal"] = slabs_equal(got, slab32)
+    del like, got
+    want = rich_slab(mesh)
+    like = make_sharded_volume(mesh, (SIZE,) * 3, PHYSICAL, dtype=BF16,
+                               with_color=True, with_deformation=True
+                               ).replace(deform_rot=None)
+    got, out["load_rich_s"] = timed_on_mesh(lambda: load_sharded(
+        os.path.join(root, "rich"), like, mesh=mesh))
+    out["rich_equal"] = slabs_equal(got, want)
+    del like, got, want
+    torch.cuda.empty_cache()
+    timed_on_mesh(lambda: None)  # every rank has read before the files go
+    if first:
+        for k in ("f32", "rich"):
+            shutil.rmtree(os.path.join(root, k))
+    return out
+
+
 def sharded_pose(dev, mesh, dtype, single: bool) -> dict:
     """One ``integrate_pose_sharded`` value-and-grad at 512^3 on config4b's
     frame and pose (``C4B_DELTA0``), into the slabs that frame fused at
@@ -4967,17 +5251,21 @@ def sharded_pose(dev, mesh, dtype, single: bool) -> dict:
     return out
 
 
-def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np):
+def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np, sf_dirs,
+                 root):
     """One of four ranks that share the card (gloo, CUDA tensors staged
     through the host), on each mesh of ``SHARDED_MESHES``: the GT-pose fuse
     of the frames (float32; bf16 and colour on the first mesh), the
     replicated and the bricked raycast from the first pose, the surface of
-    the fused float32 slabs, the tracked loop, six SceneFusion frames at
-    256^3 (``sharded_sfusion``), the pose gradient at 512^3 (float32; bf16
+    the fused float32 slabs, the sharded checkpoint at 512^3 (saved on the
+    first mesh, with a resume; restored on the second), the tracked loop,
+    six SceneFusion frames at 256^3 (``sharded_sfusion``) and the
+    ``SceneFusion(mesh=)`` class on phase 12's files
+    (``sharded_sfusion_class``), the pose gradient at 512^3 (float32; bf16
     too on the first mesh, ``sharded_pose``). The mesh's first rank also
     runs the single-card references and holds the results to them; every
     rank returns its times, its peaks, its launch counts and the seconds
-    of each step."""
+    of each step. ``root`` is a directory every rank sees."""
     import torch.distributed as dist
 
     from tsdf_tpu_torch import Camera, make_volume
@@ -5096,9 +5384,16 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np):
         lap("raycast_sharded_bricked")
         out["surface"] = sharded_surface(mesh, slab32,
                                          single_soup if first else None)
+        lap("surface")
+        if (nb, nr) == SHARDED_MESHES[0]:
+            out["checkpoint"] = sharded_checkpoint_save(
+                dev, mesh, slab32, depths, cams, root, first)
+        else:
+            out["checkpoint"] = sharded_checkpoint_load(dev, mesh, slab32,
+                                                        root, first)
         del slab32
         torch.cuda.empty_cache()
-        lap("surface")
+        lap("checkpoint")
 
         # the tracked loop (bilateral filter, the bricked model render, the
         # banded sharded pyramid, the sharded integrate)
@@ -5134,6 +5429,9 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np):
             lap("syncs")
         out["sfusion"] = sharded_sfusion(dev, mesh, sf_depth_np, first)
         lap("sfusion")
+        out["sfusion_class"] = sharded_sfusion_class(dev, mesh, sf_dirs,
+                                                     sf_depth_np, first, root)
+        lap("sfusion_class")
         pose_kinds = [("pose", torch.float32)]
         if (nb, nr) == SHARDED_MESHES[0]:
             pose_kinds.append(("pose_bf16", BF16))
@@ -5243,6 +5541,8 @@ def hold_sharded_mesh(shape: str, ranks: list) -> dict:
     check(sf["frames"][-1]["n_corr"] > 0, f"{shape}: SceneFusion found no surface")
     check(all(r["sfusion"]["again"] for r in outs),
           f"{shape}: two sharded SceneFusion runs differ")
+    hold_sharded_checkpoint(shape, outs)
+    class_ms = hold_sharded_class(shape, outs)
     poses = [k for k in ("pose", "pose_bf16") if k in r0]
     for key in poses:
         p = r0[key]
@@ -5308,12 +5608,91 @@ def hold_sharded_mesh(shape: str, ranks: list) -> dict:
                 ate_single_mm=r0["ate_single_mm"],
                 peaks_gib=[r["peak_gib"] for r in outs], counts=r0["counts"],
                 seconds=r0["seconds"], surface_s=surface_s, sf_ms=sf_ms,
-                update_ms=update_ms, pose_s=pose_s,
+                update_ms=update_ms, pose_s=pose_s, class_ms=class_ms,
+                checkpoint=[r["checkpoint"] for r in outs],
                 pose_counts={k: r0[k]["counts"] for k in poses})
 
 
+def hold_sharded_checkpoint(shape: str, outs: list) -> None:
+    """The checkpoint step of one mesh, from every rank: checked and
+    logged."""
+    ck = [r["checkpoint"] for r in outs]
+
+    def by_rank(key):
+        return "[" + ", ".join(f"{c[key]:.3f}" for c in ck) + "]"
+
+    if "resume_equal" in ck[0]:
+        check(ck[0]["resume_equal"], f"{shape}: the 512^3 fusion resumed from "
+              "a sharded checkpoint differs from 4 frames fused straight")
+        log(f"sharded {shape}: checkpoint at {SIZE}^3, save_sharded seconds by "
+            f"rank: the fused float32 slabs {by_rank('save_f32_s')}, bf16 with "
+            f"deformation and colour {by_rank('save_rich_s')}, the resume's "
+            f"{by_rank('save_resume_s')}; load_sharded of the resume "
+            f"{by_rank('load_resume_s')}; bytes on disk {ck[0]['bytes']}; 2 "
+            "frames + save + load + 2 frames bit-equal with 4 fused straight "
+            "on one card")
+        return
+    check(all(c["f32_equal"] and c["rich_equal"] for c in ck),
+          f"{shape}: the first mesh's checkpoints restored onto {shape} differ "
+          f"(float32 {[c['f32_equal'] for c in ck]}, bf16 with deformation and "
+          f"colour {[c['rich_equal'] for c in ck]})")
+    log(f"sharded {shape}: the first mesh's {SIZE}^3 checkpoints restored onto "
+        f"{shape}, every rank's slab bit-equal (float32, and bf16 with "
+        f"deformation and colour); load_sharded seconds by rank: float32 "
+        f"{by_rank('load_f32_s')}, bf16 with deformation and colour "
+        f"{by_rank('load_rich_s')}")
+
+
+def hold_sharded_class(shape: str, outs: list) -> float:
+    """The ``SceneFusion(mesh=)`` step of one mesh, from every rank: checked
+    and logged; returns the slowest rank's ms/frame on the card."""
+    cl = [r["sfusion_class"] for r in outs]
+    c0 = cl[0]
+    for rank, c in enumerate(cl):  # each rank held its own planes
+        for i, f in enumerate(c["frames"]):
+            check(f["n_corr"] == f["n_single"],
+                  f"{shape}: SceneFusion(mesh=) frame {i}: n_corr "
+                  f"{f['n_corr']} against the single card's {f['n_single']}")
+            check(f["deform_mm"] <= SF_MESH_DEFORM_MM
+                  and f["tsdf_mm"] <= SF_MESH_TSDF_MM and f["weights_equal"],
+                  f"{shape}: SceneFusion(mesh=) frame {i}, rank {rank}, off "
+                  f"the single card's {f}")
+        check(len(c["frames"]) == SF_FRAMES and c["frames"][-1]["n_corr"] > 0,
+              f"{shape}: SceneFusion(mesh=) ran {len(c['frames'])} frames")
+    worst = {k: max(f[k] for c in cl for f in c["frames"])
+             for k in ("deform_mm", "tsdf_mm")}
+    bit_equal = [all(c["frames"][i]["bit_equal"] for c in cl)
+                 for i in range(SF_FRAMES)]
+    check(c0["ply_equal"] and c0["dump_equal"],
+          f"{shape}: SceneFusion(mesh=) extract_mesh PLY equal {c0['ply_equal']}"
+          f", dump {c0['dump_files']} equal {c0['dump_equal']}")
+    check(all(c["card_equal"] for c in cl),
+          f"{shape}: SceneFusion(mesh=) on frames on the card differs from "
+          "the run on files")
+    for c in cl:
+        check_counts(c["counts"], f"{shape} SceneFusion(mesh=)",
+                     at_least=dict(lane_gather=SF_FRAMES - 1),
+                     integrate_warped=SF_FRAMES, row_gather=SF_FRAMES - 1)
+    ms = max(c["ms_per_frame"] for c in cl)
+    log(f"sharded {shape}: SceneFusion(mesh=) at {SF_MESH_SIZE}^3 over "
+        f"{SF_MESH_PHYSICAL:.0f} mm on phase 12's files: n_corr "
+        f"{[f['n_corr'] for f in c0['frames']]} (single card "
+        f"{[f['n_single'] for f in c0['frames']]}), every rank's planes: "
+        f"deform within {worst['deform_mm']:.3g} mm, tsdf within "
+        f"{worst['tsdf_mm']:.3g} mm, bit-equal frames {bit_equal}; "
+        f"extract_mesh PLY "
+        f"({c0['vertices']} vertices) and dump {c0['dump_files']} byte-equal "
+        f"with the single card's; on frames already on the card {ms:.4f} "
+        f"ms/frame (slowest rank; by rank "
+        + ", ".join(f"{c['ms_per_frame']:.4f}" for c in cl)
+        + "), launches by rank (integrate_warped, row_gather, lane_gather) "
+        + ", ".join(str(tuple(c["counts"][k] for k in (
+            "integrate_warped", "row_gather", "lane_gather"))) for c in cl))
+    return ms
+
+
 def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
-                  single: dict, sf_depth) -> dict:
+                  single: dict, sf_depth, sf_dirs, tmp: str) -> dict:
     """The mesh path (``tsdf_tpu_torch/parallel``) at 512^3 / 640x480 on the
     20 frames.
 
@@ -5325,11 +5704,15 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     bit-equal with the single-card render, ``raycast_sharded_bricked``
     within the JAX gates of it, the tracked loop's poses within 2 mm / 3e-3
     of the single-card loop's and its ATE under a voxel, each rank's peak
-    for the float32 fuse. Then ``fuse --devices 1x1`` on NCCL: the GT-pose
-    and colour outputs byte-equal with those of the verb without
-    ``--devices`` (``single``: the earlier phases' runs and digests), the
-    tracked verb's poses held to the same gates. With four cards, the verb
-    on 4x1 and 2x2 meshes of cards (NCCL) too."""
+    for the float32 fuse; the sharded checkpoint at 512^3 (saved on 4x1,
+    restored onto 2x2, a resume); ``SceneFusion(mesh=)`` on phase 12's
+    files (``sf_dirs``) against the single-card class. Then ``fuse
+    --devices 1x1`` on NCCL: the GT-pose and colour outputs byte-equal with
+    those of the verb without ``--devices`` (``single``: the earlier
+    phases' runs and digests), the tracked verb's poses held to the same
+    gates; ``sfusion --devices 1x1``, stdout and PLY byte-equal with phase
+    12's verb. With four cards, both verbs on 4x1 and 2x2 meshes of cards
+    (NCCL) too."""
     from tsdf_tpu_torch.parallel import ops as pops
     from tsdf_tpu_torch.parallel.distributed import launch
 
@@ -5339,8 +5722,10 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     rgbs_np = [c.cpu().numpy() for c in rgbs]
     torch.cuda.empty_cache()
     t0 = time.time()
+    root = os.path.join(tmp, "sharded")
+    os.makedirs(root)
     ranks = launch(sharded_rank, 4, (depths_np, poses_np, rgbs_np,
-                                     sf_depth.cpu().numpy()),
+                                     sf_depth.cpu().numpy(), sf_dirs, root),
                    backend="gloo", device="cuda:0")
     t1 = time.time()
     result = {f"{nb}x{nr}": hold_sharded_mesh(f"{nb}x{nr}", ranks)
@@ -5407,12 +5792,31 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     for f in run["outs"].values():
         os.remove(f)
 
+    # sfusion --devices 1x1 on NCCL, against phase 12's verb without it
+    sf_single = single["sfusion"]
+    run = run_sfusion_cli(dev, *sf_dirs, sf_single["mesh"], ("--devices", "1x1"))
+    check_counts(run["counts"], "sfusion --devices 1x1",
+                 at_least=dict(lane_gather=sf_single["counts"]["lane_gather"]),
+                 integrate_warped=SF_FRAMES, row_gather=SF_FRAMES - 1)
+    same = (run["stdout"] == sf_single["stdout"]
+            and run["digest"] == sf_single["digest"])
+    log(f"sfusion --devices 1x1 on NCCL: stdout and PLY byte-equal with the "
+        f"verb without --devices: {same}; {run['seconds']:.2f} s (without "
+        f"{sf_single['seconds']:.2f} s); launches integrate_warped "
+        f"{run['counts']['integrate_warped']}, row_gather "
+        f"{run['counts']['row_gather']}, lane_gather "
+        f"{run['counts']['lane_gather']} (without: "
+        f"{sf_single['counts']['lane_gather']})")
+    check(same, "sfusion --devices 1x1: stdout or PLY differ")
+    result["sfusion_1x1"] = dict(seconds=run["seconds"], counts=run["counts"])
+
     cards = torch.cuda.device_count()
     if cards < 4:
-        log(f"fuse --devices 4x1 / 2x2 on four cards: not run ({cards} card"
-            f"{'s' if cards != 1 else ''} visible)")
+        log(f"fuse and sfusion --devices 4x1 / 2x2 on four cards: not run "
+            f"({cards} card{'s' if cards != 1 else ''} visible)")
         log(f"sharded phase: {time.perf_counter() - phase_t0:.1f} s in all")
         return result
+    result["sfusion_cards"] = sfusion_on_cards(dev, sf_dirs, out_dir)
     for nb, nr in SHARDED_MESHES:
         shape = f"{nb}x{nr}"
         for tag, extra, color in (("gt", (), False),
@@ -5479,11 +5883,34 @@ def nccl_allgather_rank(dev, n_calls):
     return out if rank == mesh.ranks[0] else None
 
 
+def sfusion_on_cards(dev, sf_dirs, out_dir: str) -> dict:
+    """``sfusion -s 256`` on one card, then ``--devices 4x1`` and ``2x2`` on
+    meshes of four cards (NCCL; 255 divides neither B): stdout and PLY
+    byte-equal with the one card's."""
+    mesh = os.path.join(out_dir, "sf_mesh_256.ply")
+    size = ("-s", str(SF_MESH_SIZE))
+    one = run_sfusion_cli(dev, *sf_dirs, mesh, size)
+    found = {"1x1_s": one["seconds"]}
+    for nb, nr in SHARDED_MESHES:
+        shape = f"{nb}x{nr}"
+        run = run_sfusion_cli(dev, *sf_dirs, mesh, size + ("--devices", shape))
+        same = run["stdout"] == one["stdout"] and run["digest"] == one["digest"]
+        log(f"sfusion -s {SF_MESH_SIZE} --devices {shape} on {nb * nr} cards "
+            f"(NCCL): stdout and PLY byte-equal with one card: {same}; "
+            f"{run['seconds']:.2f} s with the ranks' start (one card "
+            f"{one['seconds']:.2f} s)")
+        check(same, f"sfusion --devices {shape} on four cards: outputs differ")
+        found[f"{shape}_s"] = run["seconds"]
+    os.remove(mesh)
+    return found
+
+
 def run_four_cards(dev) -> dict:
     """The smoke's four-card tracked loop alone (``sharded_tracked_rank``
     on meshes 4x1 and 2x2 of cards, NCCL, timed after its two-frame
-    warm-up), then one NCCL all-gather of 44 floats between the four cards
-    (``nccl_allgather_rank``). Needs four cards."""
+    warm-up), one NCCL all-gather of 44 floats between the four cards
+    (``nccl_allgather_rank``), then ``sfusion --devices`` on those meshes
+    against one card (``sfusion_on_cards``). Needs four cards."""
     from tsdf_tpu_torch.parallel.distributed import launch
 
     cards = torch.cuda.device_count()
@@ -5511,6 +5938,9 @@ def run_four_cards(dev) -> dict:
     check(all(g["ok"] for g in gathers.values()), "the NCCL all-gather is wrong")
     log(f"NCCL all-gather of 44 floats between the four cards: {gathers}")
     found["allgather_44"] = gathers
+    with tempfile.TemporaryDirectory(prefix="tsdf_smoke_") as tmp:
+        sf_rgbd, sf_flow, _ = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
+        found["sfusion"] = sfusion_on_cards(dev, (sf_rgbd, sf_flow), tmp)
     return found
 
 
@@ -5607,8 +6037,9 @@ def main() -> int:
     parser.add_argument(
         "--four-cards", action="store_true",
         help="instead of the smoke, on four cards: the tracked loop on "
-             "meshes 4x1 and 2x2 of cards after its warm-up, and one NCCL "
-             "all-gather of 44 floats between them",
+             "meshes 4x1 and 2x2 of cards after its warm-up, one NCCL "
+             "all-gather of 44 floats between them, and sfusion -s 256 "
+             "--devices 4x1 / 2x2 against one card",
     )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")
@@ -5624,6 +6055,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    started = time.perf_counter()
     name, smi = phase_environment()
     phase_build()
     if args.parent:
@@ -5721,15 +6153,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         fast = phase_fast(dev, frames, rgbs, poses)
         torch.cuda.empty_cache()
+        sf_cli = phase_sfusion_cli(dev, sf_rgbd, sf_flow, out_dir)
         sharded = phase_sharded(dev, tum, out_dir, frames, rgbs, poses, {
-            "gt": gt_path, "color": color_path, "tracked": tracked_path},
-            sf_depth)
+            "gt": gt_path, "color": color_path, "tracked": tracked_path,
+            "sfusion": sf_cli}, sf_depth, (sf_rgbd, sf_flow), tmp)
         torch.cuda.empty_cache()
         bf16 = phase_bf16(dev, frames, rgbs, poses, sf_depth, sf_flows)
         del frames, rgbs
         torch.cuda.empty_cache()
         decode = phase_decode(dev, tum, tmp, out_dir)
-        sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth, sf_flows)
+        sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth,
+                                sf_flows, sf_cli)
         warped_color = phase_warped_color(dev, sf_depth)
 
     # the adjoint's slab instances get lines of their own (below)
@@ -5875,6 +6309,8 @@ def main() -> int:
     log(f"SceneFusion: {sfusion['ms_per_frame']:.4f} ms/frame on the device, "
         f"{sfusion['syncs_per_frame']:.3f} host syncs per frame, the sfusion "
         f"verb {sfusion['cli_seconds']:.2f} s for {SF_FRAMES} frames")
+    log(f"smoke: {time.perf_counter() - started:.1f} s in all, the build "
+        "included")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

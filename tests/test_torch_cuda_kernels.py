@@ -1689,3 +1689,149 @@ def test_raycast_row_origin_matches_twin_and_whole_render(dev, dtype, row0,
     inside = min(rows, H - row0)
     _assert_same_render(tile[:inside], whole[row0:row0 + inside])
     assert bool(torch.isfinite(tile[:inside]).all(-1).any())
+
+
+# -- the mesh's SceneFusion class and checkpoint on one NCCL rank -----------
+
+
+class _CardFrames:
+    """An RGB-D source and a scene-flow provider over frames already on
+    the card."""
+
+    def __init__(self, depth, flows):
+        self.depth, self.flows, self.index = depth, flows, 0
+        self.observer = None
+
+    def add_observer(self, observer):
+        self.observer = observer
+
+    def compute_scene_flow(self, depth=None, rgb=None):
+        self.index += 1
+        return None, None, self.flows[self.index - 1]
+
+    def start(self):
+        for _ in range(len(self.flows) + 1):
+            self.observer(self.depth, None)
+
+
+def _scenefusion_run(dev, dump_dir, mesh=None):
+    """Four SceneFusion frames at 48^3 / 1500 mm on a sphere rendered by
+    the raycast kernel from the identity pose (uniform +x flows of 4 + i
+    mm), a dump every second frame: (the whole volume's tsdf, weight and
+    deform on the host, the correspondence counts, the extract_mesh
+    vertices, the launch counts of the run)."""
+    from tsdf_tpu_torch import kernels
+    from tsdf_tpu_torch.ops.marching_cubes import soup_to_numpy
+    from tsdf_tpu_torch.pipelines.scenefusion import (
+        SceneFusion,
+        SceneFusionConfig,
+    )
+
+    scene = fixtures.sphere_tsdf(
+        make_volume((48,) * 3, 1500.0, offset=(-750.0, -750.0, 0.0),
+                    device=dev), 300.0, centre=(0.0, 0.0, 750.0))
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
+    depth = raycast.render_to_depth_image_cuda(scene, cam, W, H).float()
+    flows = []
+    for i in range(3):
+        f = torch.zeros((H, W, 3), device=dev)
+        f[..., 0] = 4.0 + i
+        flows.append(f)
+    cfg = SceneFusionConfig(volume_size=(48,) * 3, physical_size_mm=1500.0,
+                            offset_mm=(-750.0, -750.0, 0.0),
+                            max_cubes=1 << 12, max_vertices=1 << 16)
+    src = _CardFrames(depth, flows)
+    kernels.reset_launch_counts()
+    sf = SceneFusion(src, src, cfg, camera=cam, dump_every=2,
+                     dump_dir=dump_dir, mesh=mesh, device=dev)
+    src.start()
+    soup = sf.extract_mesh()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    vol = sf.volume
+    if mesh is not None:
+        from tsdf_tpu_torch.parallel.ops import unshard_volume
+
+        vol = unshard_volume(vol, mesh)
+    return ({f: getattr(vol, f).cpu() for f in ("tsdf", "weight", "deform")},
+            [int(n) for n in sf.correspondence_counts],
+            soup_to_numpy(soup)[0], counts)
+
+
+def _scenefusion_on_1x1(dev, dump_dir):
+    from tsdf_tpu_torch.parallel import make_mesh
+
+    return _scenefusion_run(dev, dump_dir, make_mesh(1, 1, device=dev))
+
+
+def test_scenefusion_mesh_1x1_on_nccl_matches_the_single_class(dev, tmp_path):
+    """``SceneFusion(mesh=)`` on a 1x1 mesh over NCCL: tsdf, weight and
+    deform bit-equal with the single-card class on the same frames, the
+    same correspondence counts, extract_mesh soup and dump files, and the
+    same kernel launches."""
+    import os
+
+    from tsdf_tpu_torch.parallel.distributed import launch
+
+    (got,) = launch(_scenefusion_on_1x1, 1, (str(tmp_path / "mesh"),),
+                    device=str(dev))
+    want = _scenefusion_run(dev, str(tmp_path / "single"))
+    for f in ("tsdf", "weight", "deform"):
+        assert _bits_equal(got[0][f], want[0][f]), f
+    assert got[1] == want[1] and min(want[1]) > 100
+    assert got[2].tobytes() == want[2].tobytes() and len(want[2]) > 300
+    assert got[3] == want[3]
+    assert want[3]["integrate_warped"] == 4 and want[3]["row_gather"] == 3 + 2
+    names = sorted(os.listdir(tmp_path / "single"))
+    assert names == sorted(os.listdir(tmp_path / "mesh")) and len(names) == 6
+    for name in names:
+        assert ((tmp_path / "mesh" / name).read_bytes()
+                == (tmp_path / "single" / name).read_bytes()), name
+
+
+def _checkpoint_on_1x1(dev, path):
+    """A bf16 slab with colour and deformation on the card, fused by the
+    kernel, saved on a 1x1 mesh and restored onto a slab on the card and
+    onto a whole volume on the host."""
+    from tsdf_tpu_torch.parallel import make_mesh
+    from tsdf_tpu_torch.parallel.ops import make_sharded_volume
+    from tsdf_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    mesh = make_mesh(1, 1, device=dev)
+    kw = dict(offset=(-1000.0, -800.0, 0.0), dtype=BF16, with_color=True)
+    slab = make_sharded_volume(mesh, (64, 48, 40), 2000.0, **kw)
+    rgb = torch.from_numpy(fixtures.gradient_rgb(W, H)).to(dev)
+    for i in range(2):
+        cam = _camera(dev, [300.0 + 30.0 * i, 200.0, -700.0],
+                      [0.0, 0.0, 1000.0])
+        integrate.integrate_color_cuda(
+            slab, torch.from_numpy(_frame_depth(i)).to(dev), rgb, cam)
+    slab = slab.replace(deform=torch.randn(
+        slab.tsdf.shape + (3,), device=dev,
+        generator=torch.Generator(dev).manual_seed(2)))
+    save_sharded(slab, path, mesh=mesh)
+    like = make_sharded_volume(mesh, (64, 48, 40), 2000.0, **kw)
+    back = load_sharded(path, like.replace(deform=torch.zeros_like(slab.deform)),
+                        mesh=mesh)
+    host = make_volume((64, 48, 40), 2000.0, device="cpu", **kw)
+    whole = load_sharded(path, host.replace(
+        deform=torch.zeros(slab.deform.shape)))
+    fields = ("tsdf", "weight", "color", "deform", "global_rotation",
+              "offset", "truncation_distance")
+    return ({f: (getattr(slab, f).cpu(), getattr(back, f).cpu(),
+                 getattr(whole, f)) for f in fields},
+            back.device, float(slab.weight.float().max()))
+
+
+def test_checkpoint_of_a_slab_on_the_card(dev, tmp_path):
+    """A CUDA slab's checkpoint restores onto the card and onto a whole
+    volume on the host, every field in its dtype, bit for bit."""
+    from tsdf_tpu_torch.parallel.distributed import launch
+
+    (fields, where, wmax), = launch(_checkpoint_on_1x1, 1,
+                                    (str(tmp_path / "c"),), device=str(dev))
+    assert where == dev and wmax >= 1.0
+    for name, (saved, back, whole) in fields.items():
+        same = torch.equal if saved.dtype == torch.uint8 else _bits_equal
+        assert saved.dtype == back.dtype == whole.dtype, name
+        assert same(back, saved) and same(whole, saved), name

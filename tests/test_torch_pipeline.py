@@ -254,17 +254,18 @@ def test_fuse_devices_tracked_follows_the_single_device_verb(tum_dir, tmp_path,
 
 
 def test_fuse_devices_refusals(tum_dir, capsys):
-    """A malformed or indivisible ``--devices`` exits 1; ``sfusion
-    --devices`` is not ported yet and exits 2."""
+    """A malformed or indivisible ``--devices`` exits 1, for ``fuse`` and
+    for ``sfusion``, before any rank starts."""
     base = ["fuse", "-d", str(tum_dir), "--device", "cpu", "-s", "30"]
     assert torch_main(base + ["--devices", "4x1"]) == 1
     assert "divisible" in capsys.readouterr().err
     assert torch_main(base + ["--devices", "twox1"]) == 1
     assert "BxR" in capsys.readouterr().err
-    rc = torch_main(["sfusion", str(tum_dir), str(tum_dir), "--device", "cpu",
-                     "--devices", "2x1"])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    sfusion = ["sfusion", str(tum_dir), str(tum_dir), "--device", "cpu"]
+    assert torch_main(sfusion + ["--devices", "twox1"]) == 1
+    assert "BxR" in capsys.readouterr().err
+    assert torch_main(sfusion + ["--devices", "2x1"]) == 1  # -s 255
+    assert "divisible" in capsys.readouterr().err
 
 
 def test_fuse_frames_integrate_modes():

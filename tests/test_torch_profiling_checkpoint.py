@@ -139,9 +139,14 @@ def test_roundtrip(tmp_path):
     out = load_sharded(str(tmp_path / "ckpt"), like)
     _equal(out, vol)
     assert out.device == like.device
-    # a plain dict of tensors and a number: loadable with weights_only
-    state = torch.load(str(tmp_path / "ckpt" / "volume.pt"), weights_only=True)
-    assert state.pop("format") == 1
+    # one slab of every plane, a plain dict of tensors loadable with
+    # weights_only, named in a manifest of format 2
+    state = torch.load(str(tmp_path / "ckpt" / "slab_000000.pt"),
+                       weights_only=True)
+    manifest = json.loads((tmp_path / "ckpt" / "manifest.json").read_text())
+    assert manifest["format"] == 2
+    assert manifest["slabs"] == [
+        {"file": "slab_000000.pt", "z0": 0, "planes": 16}]
     assert all(isinstance(v, torch.Tensor) for v in state.values())
     assert "color" not in state and "deform" not in state
 
@@ -155,7 +160,8 @@ def test_roundtrip_with_colour_and_deformation(tmp_path):
                       global_rotation=torch.tensor([0.1, 0.2, 0.3]))
     save_sharded(vol, str(tmp_path / "ckpt2"))
     save_sharded(vol, str(tmp_path / "ckpt2"))  # replaces, leaves no temp
-    assert os.listdir(tmp_path / "ckpt2") == ["volume.pt"]
+    assert sorted(os.listdir(tmp_path / "ckpt2")) == [
+        "manifest.json", "slab_000000.pt"]
     like = make_volume((8, 12, 16), 1000.0, offset=(0.0, 0.0, 0.0),
                        with_deformation=True, with_color=True, device=CPU)
     out = load_sharded(str(tmp_path / "ckpt2"), like)

@@ -22,6 +22,7 @@ Tolerances:
 
 import dataclasses
 import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +43,7 @@ from tsdf_tpu.utils import fixtures as jax_fixtures
 from tsdf_tpu_torch import Camera, TSDFVolume, kernels
 from tsdf_tpu_torch.cli import main as torch_main
 from tsdf_tpu_torch.io import mock_kinect, sceneflow
+from tsdf_tpu_torch.parallel.distributed import launch
 from tsdf_tpu_torch.ops.marching_cubes import (
     TriangleSoup,
     extract_surface,
@@ -455,13 +457,30 @@ def test_scenefusion_exhausted_flow_overflow_warning_and_mesh(tmp_path):
         rgbd.start()
     assert sf.frame_index == 2
 
-    sf, rgbd = _port_run(_write_sequence(tmp_path / "two", 2))
+    two = _write_sequence(tmp_path / "two", 2)
+    sf, rgbd = _port_run(two)
     sf.config = dataclasses.replace(sf.config, max_cubes=700)
     with pytest.warns(UserWarning, match=r"frame 1: occupied cubes exceed "
                                          r"max_cubes=700"):
         rgbd.start()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _port_run(data, mesh=object())
+
+    # on a mesh (one gloo rank in this process) the class runs, and its
+    # overflow warns with the same message; a mesh on another device than
+    # device= is refused
+    def on_a_mesh(dev):
+        from tsdf_tpu_torch.parallel import make_mesh
+
+        sf, rgbd = _port_run(two, mesh=make_mesh(1, 1, device=dev))
+        sf.config = dataclasses.replace(sf.config, max_cubes=700)
+        with pytest.warns(UserWarning, match=r"frame 1: occupied cubes "
+                                             r"exceed max_cubes=700"):
+            rgbd.start()
+        return sf.frame_index, type(sf.volume).__name__
+
+    assert launch(on_a_mesh, 1, backend="gloo", device="cpu") == [
+        (2, "SlabVolume")]
+    with pytest.raises(ValueError, match="not the mesh's device"):
+        _port_run(data, mesh=SimpleNamespace(device=torch.device("meta")))
 
 
 # -- host I/O -------------------------------------------------------------------------
@@ -555,8 +574,8 @@ def test_cli_sfusion_refusals(tmp_path, capsys):
     empty = tmp_path / "empty"
     empty.mkdir()
     assert torch_main(["sfusion", data, data, "--devices", "2x1",
-                       "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+                       "--device", "cpu"]) == 1
+    assert "divisible" in capsys.readouterr().err
     assert torch_main(["sfusion", data, str(empty), "--device", "cpu"]) == 1
     assert capsys.readouterr().err == (
         f"no scene-flow files found in {empty}\n")

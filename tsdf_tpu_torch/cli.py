@@ -20,11 +20,13 @@ Verbs:
   convert  format converters: freenect2png, pgm2png, fl2uchar (host
            code, no device)
 
-``fuse --devices BxR`` fuses on a mesh of B x R ranks (``parallel/``):
-B z-slabs of the volume, R row tiles of the image. Run as one command, it
-starts the ranks itself, rank r on card r over NCCL (with ``--device cpu``
-on the CPU over gloo); under ``torchrun`` it joins the group it is given.
-The mesh's first rank gathers the slabs and writes the outputs.
+``fuse --devices BxR`` and ``sfusion --devices BxR`` run on a mesh of
+B x R ranks (``parallel/``): B z-slabs of the volume, R row tiles of the
+image. Run as one command, a verb starts the ranks itself, rank r on card
+r over NCCL (with ``--device cpu`` on the CPU over gloo); under
+``torchrun`` it joins the group it is given. The mesh's first rank gathers
+the slabs and writes the outputs, byte-equal with the verb's without
+``--devices``.
 
 Every verb but ``convert`` takes ``--device`` (default ``cuda``). On a
 CUDA device every integration (depth, or depth + colour with
@@ -169,42 +171,45 @@ def cmd_fuse(args):
         )
         return 1
     if args.devices:
-        return _fuse_on_mesh(args)
+        shape = _mesh_shape(args)
+        return 1 if shape is None else _on_mesh(args, _fuse, shape)
     return _fuse(args, resolve_device(args.device))
 
 
-def _parse_devices(spec: str, size: int):
-    """(B, R) of ``--devices BxR``, or an error message."""
-    b, _, r = spec.partition("x")
+def _mesh_shape(args):
+    """(B, R) of ``--devices BxR``; None, with the reason on stderr, when
+    it is malformed or B does not divide ``--size``."""
+    b, _, r = args.devices.partition("x")
     try:
         nb, nr = int(b), int(r or 1)
     except ValueError:
-        return None, f"--devices must be BxR (got {spec!r})"
+        nb = nr = 0
     if nb < 1 or nr < 1:
-        return None, f"--devices must be BxR with B, R >= 1 (got {spec!r})"
-    if size % nb:
-        return None, (f"--size {size} must be divisible by the brick "
-                      f"axis ({nb})")
-    return (nb, nr), None
+        print(f"--devices must be BxR with B, R >= 1 (got {args.devices!r})",
+              file=sys.stderr)
+        return None
+    if args.size % nb:
+        print(f"--size {args.size} must be divisible by the brick axis ({nb})",
+              file=sys.stderr)
+        return None
+    return nb, nr
 
 
-def _fuse_on_mesh(args):
-    """``fuse --devices BxR``: join the group ``torchrun`` describes, or
-    start B x R local ranks (the kernels built first, once); the mesh's
-    first rank prints and writes the outputs."""
+def _on_mesh(args, verb, shape):
+    """A verb on a mesh of B x R ranks (``--devices BxR``): join the group
+    ``torchrun`` describes, or start B x R local ranks, one a card over
+    NCCL (the kernels built first, once), or on the CPU over gloo with
+    ``--device cpu``. Each rank runs ``verb(args, device, mesh)``; what the
+    mesh's first rank prints is printed, and its exit code returned."""
     from .parallel.distributed import initialize, launch
 
-    shape, err = _parse_devices(args.devices, args.size)
-    if err:
-        print(err, file=sys.stderr)
-        return 1
     nb, nr = shape
     device = resolve_device(args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         initialize(backend="nccl" if device.type == "cuda" else "gloo")
         dev = (torch.device("cuda", torch.cuda.current_device())
                if device.type == "cuda" else device)
-        rc, text = _fuse_rank(dev, args, nb, nr)
+        rc, text = _mesh_rank(dev, verb, args, nb, nr)
         print(text, end="")
         return rc
     if device.type == "cuda":
@@ -219,14 +224,14 @@ def _fuse_on_mesh(args):
         from .kernels._build import library
 
         library()
-    rc, text = launch(_fuse_rank, nb * nr, (args, nb, nr),
+    rc, text = launch(_mesh_rank, nb * nr, (verb, args, nb, nr),
                       device="cuda" if device.type == "cuda" else "cpu")[0]
     print(text, end="")
     return rc
 
 
-def _fuse_rank(device, args, nb, nr):
-    """One rank of ``fuse --devices``: (exit code, what the mesh's first
+def _mesh_rank(device, verb, args, nb, nr):
+    """One rank of a verb on the mesh: (exit code, what the mesh's first
     rank printed; every other rank prints nothing)."""
     import torch.distributed as dist
 
@@ -235,7 +240,7 @@ def _fuse_rank(device, args, nb, nr):
     mesh = make_mesh(nb, nr, device=device)
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
-        rc = _fuse(args, device, mesh)
+        rc = verb(args, device, mesh)
     return rc, (text.getvalue() if dist.get_rank() == mesh.ranks[0] else "")
 
 
@@ -429,29 +434,44 @@ def cmd_icp(args):
     return 0
 
 
-def cmd_sfusion(args):
-    from .io.mock_kinect import MockKinect
-    from .io.ply import write_ply
+def _flow_provider(args):
+    """The scene-flow provider of ``sfusion``'s arguments, initialised;
+    None, with the reason on stderr, when the directory holds no files."""
     from .io.sceneflow import PDSFMockSceneFlow, SRSFMockSceneFlow
-    from .ops.marching_cubes import soup_to_numpy
-    from .pipelines.scenefusion import SceneFusion, SceneFusionConfig
 
-    if args.devices:
-        print(
-            "--devices (brick-parallel non-rigid fusion) is not yet ported "
-            "to tsdf_tpu_torch; see ROADMAP.md (run the JAX CLI, python -m "
-            "tsdf_tpu)",
-            file=sys.stderr,
-        )
-        return 2
     sfa_cls = (
         SRSFMockSceneFlow if args.flow_format == "srsf" else PDSFMockSceneFlow
     )
     sfa = sfa_cls(args.flow_dir)
     if not sfa.init():
         print(f"no scene-flow files found in {args.flow_dir}", file=sys.stderr)
+        return None
+    return sfa
+
+
+def cmd_sfusion(args):
+    shape = None
+    if args.devices:
+        shape = _mesh_shape(args)
+        if shape is None:
+            return 1
+    if _flow_provider(args) is None:
         return 1
-    device = resolve_device(args.device)
+    if shape is not None:
+        return _on_mesh(args, _sfusion, shape)
+    return _sfusion(args, resolve_device(args.device))
+
+
+def _sfusion(args, device, mesh=None):
+    """The sfusion verb on ``device``, on one card or, with ``mesh``,
+    brick-parallel on this rank's slab (each rank reads the files itself;
+    the mesh's first rank writes the mesh)."""
+    from .io.mock_kinect import MockKinect
+    from .io.ply import write_ply
+    from .ops.marching_cubes import soup_to_numpy
+    from .pipelines.scenefusion import SceneFusion, SceneFusionConfig
+
+    sfa = _flow_provider(args)
     rgbd = MockKinect(args.rgbd_dir)
     rgbd.initialise()
     cfg = SceneFusionConfig(
@@ -461,14 +481,17 @@ def cmd_sfusion(args):
         max_cubes=args.max_cubes,
     )
     sf = SceneFusion(
-        sfa, rgbd, cfg, camera=_make_camera(args, device), device=device
+        sfa, rgbd, cfg, camera=_make_camera(args, device), mesh=mesh,
+        device=device,
     )
     rgbd.start()
     print(f"processed {sf.frame_index} frames")
     if args.mesh:
-        verts, tris = soup_to_numpy(sf.extract_mesh())
-        write_ply(args.mesh, verts, tris)
-        print(f"wrote {args.mesh} ({len(verts)} vertices)")
+        soup = sf.extract_mesh()  # on a mesh, None but on its first rank
+        if soup is not None:
+            verts, tris = soup_to_numpy(soup)
+            write_ply(args.mesh, verts, tris)
+            print(f"wrote {args.mesh} ({len(verts)} vertices)")
     return 0
 
 
@@ -648,7 +671,12 @@ def main(argv=None):
     p.add_argument("--mesh", default="mesh.ply")
     # surface-cube capacity: scale down with --size for small volumes
     p.add_argument("--max-cubes", type=int, default=1 << 18)
-    p.add_argument("--devices", help="not yet ported")
+    p.add_argument(
+        "--devices",
+        help="BxR: brick-parallel on a mesh of B z-slabs x R row tiles, one "
+        "rank (card) each; B must divide --size (the default 255: B of 1, 3, "
+        "5, 15, 17, ...)",
+    )
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_sfusion)

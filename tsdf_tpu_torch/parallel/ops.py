@@ -663,13 +663,30 @@ def update_deformation_sharded(
     """
     import warnings
 
+    del tpu_safe
+    vol, n_corr, overflowed = deformation_update_slab(
+        vol, depth, camera, flow, mesh, max_cubes_per_brick, threshold_mm)
+    if overflowed:
+        warnings.warn(
+            "update_deformation_sharded: a brick's occupied cubes "
+            f"exceed max_cubes_per_brick={max_cubes_per_brick}; the "
+            "deformation update was truncated — raise the cap",
+            stacklevel=2,
+        )
+    return vol, n_corr
+
+
+def deformation_update_slab(vol, depth, camera, flow, mesh,
+                            max_cubes_per_brick, threshold_mm):
+    """``update_deformation_sharded`` without its warning: (slab, total
+    correspondence count, whether a slab's occupied cubes overflowed, a
+    bool read on the host: the update's one host read)."""
     from ..pipelines.scenefusion import (
         CORRESPONDENCE_THRESHOLD_MM,
         apply_deformation,
         deformation_sums,
     )
 
-    del tpu_safe
     _check_slab(vol, mesh)
     if vol.deform is None:
         raise ValueError("update_deformation_sharded needs vol.deform")
@@ -695,14 +712,9 @@ def update_deformation_sharded(
     counts = all_reduce(
         torch.stack([n_corr, soup.overflowed.to(torch.int32)]),
         dist.ReduceOp.SUM, group)
-    if bool(counts[1] > 0):  # the one host read
-        warnings.warn(
-            "update_deformation_sharded: a brick's occupied cubes "
-            f"exceed max_cubes_per_brick={max_cubes_per_brick}; the "
-            "deformation update was truncated — raise the cap",
-            stacklevel=2,
-        )
-    return vol.replace(deform=apply_deformation(vol.deform, own)), counts[0]
+    overflowed = bool(counts[1] > 0)  # the one host read
+    return (vol.replace(deform=apply_deformation(vol.deform, own)), counts[0],
+            overflowed)
 
 
 def warped_topup_sharded(

@@ -237,6 +237,18 @@ def _on_device(image, device) -> torch.Tensor:
     return image.to(device).to(torch.float32).contiguous()
 
 
+def _same_device(a, b) -> bool:
+    """Whether two device names name one device ("cuda" is the current
+    card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    return (a.index if a.index is not None else torch.cuda.current_device()) == (
+        b.index if b.index is not None else torch.cuda.current_device())
+
+
 class SceneFusion:
     """Orchestrator wiring an RGBD device to a scene-flow provider
     (ref: SceneFusion.cpp:46-185): per frame pair, update the warp field
@@ -245,6 +257,15 @@ class SceneFusion:
     One host read per frame after the first: the extraction's overflow
     flag, which decides the warning. ``correspondence_counts`` keeps each
     frame's count on the device.
+
+    With ``mesh`` (a ``parallel.make_mesh`` mesh) the class runs
+    brick-parallel: ``volume`` is this rank's slab of the config's volume,
+    made as a slab (``parallel.ops.make_sharded_volume``), and each later
+    frame is ``parallel.scenefusion_frame_sharded``'s update and
+    integrate. Every rank of the mesh constructs the class and feeds it the
+    same frames; ``extract_mesh`` and ``dump`` gather the slabs onto the
+    mesh's first rank, so every rank calls them too. ``device`` defaults to
+    the mesh's and may not name another.
     """
 
     def __init__(
@@ -257,18 +278,29 @@ class SceneFusion:
         dump_dir: str = ".",
         mesh=None,
         *,
-        device,
+        device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "brick-parallel SceneFusion (mesh=) is not yet ported to "
-                "tsdf_tpu_torch; see ROADMAP.md"
-            )
+            if device is None:
+                device = mesh.device
+            elif not _same_device(device, mesh.device):
+                raise ValueError(
+                    f"device={device} is not the mesh's device {mesh.device}")
+        elif device is None:
+            raise TypeError("SceneFusion needs device= (or a mesh)")
         self.config = config
         self.sfa = scene_flow_provider
         self.rgbd = rgbd
+        self.mesh = mesh
         self.camera = camera or Camera.default_depth_camera(device=device)
-        self.volume = config.make_volume(device=device)
+        if mesh is None:
+            self.volume = config.make_volume(device=device)
+        else:
+            from ..parallel.ops import make_sharded_volume
+
+            self.volume = make_sharded_volume(
+                mesh, config.volume_size, config.physical_size_mm,
+                offset=config.offset_mm, with_deformation=True)
         self.last_depth = None
         self.frame_index = 0
         self.dump_every = dump_every
@@ -284,12 +316,27 @@ class SceneFusion:
         if self.last_depth is not None:
             _t, _r, flow = self.sfa.compute_scene_flow(depth, colour)
             flow = _on_device(flow, dev)
-            self.volume, n_corr, overflow = scenefusion_step(
-                self.volume, depth, flow, self.camera,
-                max_cubes=cfg.max_cubes, threshold_mm=cfg.threshold_mm,
-            )
+            if self.mesh is None:
+                self.volume, n_corr, overflow = scenefusion_step(
+                    self.volume, depth, flow, self.camera,
+                    max_cubes=cfg.max_cubes, threshold_mm=cfg.threshold_mm,
+                )
+                overflow = bool(overflow)  # the frame's one host read
+            else:
+                # scenefusion_frame_sharded, with the overflow flag it reads
+                # once on the host handed back for this class's warning
+                from ..parallel.ops import (
+                    deformation_update_slab,
+                    integrate_sharded,
+                )
+
+                vol, n_corr, overflow = deformation_update_slab(
+                    self.volume, depth, self.camera, flow, self.mesh,
+                    cfg.max_cubes, cfg.threshold_mm)
+                self.volume = integrate_sharded(vol, depth, self.camera,
+                                                self.mesh)
             self.correspondence_counts.append(n_corr)
-            if bool(overflow):  # the frame's one host read
+            if overflow:
                 warnings.warn(
                     f"SceneFusion frame {self.frame_index}: occupied "
                     f"cubes exceed max_cubes={cfg.max_cubes}; mesh (and "
@@ -306,38 +353,61 @@ class SceneFusion:
 
     def _integrate(self, depth: torch.Tensor) -> TSDFVolume:
         """The deformed-volume integrate: every voxel reads its own pixel,
-        so there is no miss to fall back from."""
+        so there is no miss to fall back from (on a mesh, each rank's slab:
+        ``parallel.integrate_sharded``)."""
+        if self.mesh is not None:
+            from ..parallel.ops import integrate_sharded
+
+            return integrate_sharded(self.volume, depth, self.camera, self.mesh)
         return integrate_warped_cuda(self.volume, depth, self.camera)
+
+    def _whole_volume(self) -> Optional[TSDFVolume]:
+        """The whole volume: on a mesh, gathered onto its first rank (None
+        on every other rank; every rank calls this)."""
+        if self.mesh is None:
+            return self.volume
+        from ..parallel.ops import unshard_volume
+
+        return unshard_volume(self.volume, self.mesh)
 
     def dump(self, index: int) -> None:
         """Periodic checkpoint + canonical and warped meshes
-        (ref: SceneFusion.cpp:142-181)."""
+        (ref: SceneFusion.cpp:142-181). On a mesh the first rank writes
+        the files from the gathered volume; every rank calls this."""
         from ..io.ply import write_ply
         from ..io.tsdf_file import save_tsdf
         from ..ops.deform import deform_points
         from ..ops.marching_cubes import soup_to_numpy
 
+        vol = self._whole_volume()
+        if vol is None:
+            return
         os.makedirs(self.dump_dir, exist_ok=True)
-        save_tsdf(
-            self.volume,
-            os.path.join(self.dump_dir, f"frame_{index:03d}.tsdf"),
-        )
-        verts, tris = soup_to_numpy(self.extract_mesh())
+        save_tsdf(vol, os.path.join(self.dump_dir, f"frame_{index:03d}.tsdf"))
+        verts, tris = soup_to_numpy(self._extract(vol))
         write_ply(
             os.path.join(self.dump_dir, f"mesh_canonical_{index:03d}.ply"),
             verts,
             tris,
         )
-        warped, _valid = deform_points(self.volume, verts)
+        warped, _valid = deform_points(vol, verts)
         write_ply(
             os.path.join(self.dump_dir, f"mesh_warped_{index:03d}.ply"),
             warped.cpu().numpy(),
             tris,
         )
 
-    def extract_mesh(self) -> TriangleSoup:
+    def extract_mesh(self) -> Optional[TriangleSoup]:
+        """The whole volume's surface. On a mesh: the slabs gathered onto
+        the mesh's first rank and extracted there, which returns the soup
+        of the single card's volume (None on every other rank; every rank
+        calls this)."""
+        vol = self._whole_volume()
+        return None if vol is None else self._extract(vol)
+
+    def _extract(self, vol: TSDFVolume) -> TriangleSoup:
         return extract_surface(
-            self.volume,
+            vol,
             max_cubes=self.config.max_cubes,
             max_vertices=self.config.max_vertices,
         )
