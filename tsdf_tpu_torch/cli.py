@@ -41,6 +41,11 @@ PyTorch on the volume's device, as they are plain XLA or numpy in the
 JAX package; ``--device cpu`` runs the kernels' plain PyTorch twins.
 ``--device cuda`` without a card raises.
 
+``fuse --profile DIR`` and ``sfusion --profile DIR`` (one device) write a
+``torch.profiler`` trace of the run into DIR, with the program's spans
+(``utils.profiling.trace``) over its kernels, and the program's counters
+into ``DIR/counters.json``.
+
 Run as ``python -m tsdf_tpu_torch <verb> ...``.
 """
 
@@ -50,6 +55,7 @@ import argparse
 import contextlib
 import io
 import itertools
+import json
 import math
 import os
 import sys
@@ -101,6 +107,41 @@ def _add_device_arg(p):
         "--device", default="cuda",
         help="cuda (the kernels) or cpu (their plain twins)",
     )
+
+
+def _add_profile_arg(p):
+    p.add_argument(
+        "--profile", metavar="DIR",
+        help="write a torch.profiler trace of the run (the program's spans "
+        "and, on a card, its kernels; open it in Perfetto) and the "
+        "program's counters, counters.json, into DIR; one device only",
+    )
+
+
+def _profiled(args, run) -> int:
+    """``run()``; with ``--profile DIR`` under ``profile_to(DIR)`` with
+    the program's counters open, their totals then written to
+    ``DIR/counters.json``."""
+    if not args.profile:
+        return run()
+    from .utils import profiling
+
+    with profiling.counting() as counts:
+        with profiling.profile_to(args.profile):
+            rc = run()
+    with open(os.path.join(args.profile, "counters.json"), "w") as f:
+        json.dump(counts.totals(), f, indent=1)
+        f.write("\n")
+    print(f"wrote a trace and counters.json into {args.profile}")
+    return rc
+
+
+def _check_profile(args) -> bool:
+    """False, with the reason on stderr, for ``--profile`` on a mesh."""
+    if args.profile and args.devices:
+        print("--profile traces one device; drop --devices", file=sys.stderr)
+        return False
+    return True
 
 
 def _add_pallas_arg(p):
@@ -170,10 +211,13 @@ def cmd_fuse(args):
             file=sys.stderr,
         )
         return 1
+    if not _check_profile(args):
+        return 1
     if args.devices:
         shape = _mesh_shape(args)
         return 1 if shape is None else _on_mesh(args, _fuse, shape)
-    return _fuse(args, resolve_device(args.device))
+    device = resolve_device(args.device)
+    return _profiled(args, lambda: _fuse(args, device))
 
 
 def _mesh_shape(args):
@@ -450,6 +494,8 @@ def _flow_provider(args):
 
 
 def cmd_sfusion(args):
+    if not _check_profile(args):
+        return 1
     shape = None
     if args.devices:
         shape = _mesh_shape(args)
@@ -459,7 +505,8 @@ def cmd_sfusion(args):
         return 1
     if shape is not None:
         return _on_mesh(args, _sfusion, shape)
-    return _sfusion(args, resolve_device(args.device))
+    device = resolve_device(args.device)
+    return _profiled(args, lambda: _sfusion(args, device))
 
 
 def _sfusion(args, device, mesh=None):
@@ -619,6 +666,7 @@ def main(argv=None):
     p.add_argument("--mesh", default="mesh.ply")
     p.add_argument("--max-cubes", type=int, default=1 << 18)
     p.add_argument("--max-vertices", type=int, default=1 << 20)
+    _add_profile_arg(p)
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_fuse)
@@ -677,6 +725,7 @@ def main(argv=None):
         "rank (card) each; B must divide --size (the default 255: B of 1, 3, "
         "5, 15, 17, ...)",
     )
+    _add_profile_arg(p)
     _add_device_arg(p)
     _add_camera_args(p)
     p.set_defaults(fn=cmd_sfusion)

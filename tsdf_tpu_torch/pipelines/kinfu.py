@@ -30,6 +30,7 @@ from ..kernels.integrate import (
 from ..kernels.raycast import raycast_vertices_cuda
 from ..ops.raycast import vertices_to_camera_depth
 from ..tracking.icp import get_incremental_transformation
+from ..utils.profiling import count, count_tensor, trace
 from ..utils.se3 import matmul_small
 from ..volume import TSDFVolume, make_volume
 
@@ -172,20 +173,26 @@ def fuse_frames(
 
     Returns (volume, camera at the last pose). Warns if the "fast" mode
     skipped voxels (one host read of the miss counts, after the last
-    frame).
+    frame). Spans: ``kinfu.frame`` (its index), ``kinfu.bilateral`` and
+    ``kinfu.integrate``; counter ``kinfu.frames``.
     """
     _check_integrate_mode(config)
     miss_log: list = []
-    for depth, pose, *rest in frames:
-        camera = camera.set_pose(pose)
-        if config.use_bilateral_filter:
-            depth = bilateral_filter_cuda(
-                depth, config.sigma_colour, config.sigma_space
-            )
-        rgb = _rgb_on(vol.device, rest[0]) if rest else None
-        vol = _integrate(
-            vol, depth.to(torch.float32), camera, config, miss_log, rgb=rgb
-        )
+    for index, (depth, pose, *rest) in enumerate(frames):
+        with trace("kinfu.frame", index):
+            count("kinfu.frames")
+            camera = camera.set_pose(pose)
+            if config.use_bilateral_filter:
+                with trace("kinfu.bilateral"):
+                    depth = bilateral_filter_cuda(
+                        depth, config.sigma_colour, config.sigma_space
+                    )
+            rgb = _rgb_on(vol.device, rest[0]) if rest else None
+            with trace("kinfu.integrate"):
+                vol = _integrate(
+                    vol, depth.to(torch.float32), camera, config, miss_log,
+                    rgb=rgb,
+                )
     _check_misses(miss_log, config)
     return vol, camera
 
@@ -214,6 +221,13 @@ def track_and_fuse_frames(
     * a frame still below that count is lost: the pose is kept exactly as
       it was and the frame is not fused. A zero depth frame is therefore
       an exact no-op.
+
+    Spans (``utils.profiling.trace``): ``kinfu.frame`` (its index) around
+    each frame, and inside it ``kinfu.bilateral``, ``kinfu.raycast`` (the
+    render and its camera-space depth), ``kinfu.icp``, ``kinfu.icp_exact``
+    (the fallback) and ``kinfu.integrate``. Counters: ``kinfu.frames``,
+    ``kinfu.icp_fallbacks``, ``kinfu.lost`` and ``icp.inliers`` (each
+    tracked frame's final inlier count, by reference).
 
     Host syncs: one per tracked frame, the read of the inlier count that
     decides the fallback (two on a frame that takes the fallback: the
@@ -259,45 +273,56 @@ def track_and_fuse_frames(
     stats = []
     miss_log: list = []
     has_rgb = None
-    for frame in frames:
-        frame, rgb = frame if isinstance(frame, tuple) else (frame, None)
-        rgb = _rgb_on(dev, rgb)
-        if has_rgb is None:
-            has_rgb = rgb is not None
-        elif (rgb is not None) != has_rgb:
-            raise ValueError(
-                "track_and_fuse_frames needs a consistent rgb presence "
-                "across frames"
-            )
-        depth = torch.as_tensor(frame).to(dev).to(torch.float32).contiguous()
-        if not poses:
-            stats.append((zero, zero))
-            vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
-            poses.append(camera.pose)
-            continue
+    for index, frame in enumerate(frames):
+        with trace("kinfu.frame", index):
+            count("kinfu.frames")
+            frame, rgb = frame if isinstance(frame, tuple) else (frame, None)
+            rgb = _rgb_on(dev, rgb)
+            if has_rgb is None:
+                has_rgb = rgb is not None
+            elif (rgb is not None) != has_rgb:
+                raise ValueError(
+                    "track_and_fuse_frames needs a consistent rgb presence "
+                    "across frames"
+                )
+            depth = torch.as_tensor(frame).to(dev).to(torch.float32).contiguous()
+            if not poses:
+                stats.append((zero, zero))
+                with trace("kinfu.integrate"):
+                    vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
+                poses.append(camera.pose)
+                continue
 
-        if config.use_bilateral_filter:
-            depth_icp = bilateral_filter_cuda(
-                depth, config.sigma_colour, config.sigma_space
-            )
-        else:
             depth_icp = depth
-        verts = raycast_vertices_cuda(
-            vol, camera, config.width, config.height
-        )
-        model_depth = vertices_to_camera_depth(verts, camera.pose_inv)
+            if config.use_bilateral_filter:
+                with trace("kinfu.bilateral"):
+                    depth_icp = bilateral_filter_cuda(
+                        depth, config.sigma_colour, config.sigma_space
+                    )
+            with trace("kinfu.raycast"):
+                verts = raycast_vertices_cuda(
+                    vol, camera, config.width, config.height
+                )
+                model_depth = vertices_to_camera_depth(verts, camera.pose_inv)
 
-        res = track(depth_icp, model_depth, band)
-        lost = bool(res.inliers < min_inl)  # the frame's host sync
-        if lost and band is not None:
-            res = track(depth_icp, model_depth, None)
-            lost = bool(res.inliers < min_inl)
-        stats.append((res.error, res.inliers))
-        if not lost:
-            # res.pose maps current-camera into previous-camera
-            # coordinates: new camera->world = previous pose o T_prev_curr
-            camera = camera.set_pose(matmul_small(camera.pose, res.pose))
-            vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
-        poses.append(camera.pose)
+            with trace("kinfu.icp"):
+                res = track(depth_icp, model_depth, band)
+                lost = bool(res.inliers < min_inl)  # the frame's host sync
+            fallback = lost and band is not None
+            count("kinfu.icp_fallbacks", int(fallback))
+            if fallback:
+                with trace("kinfu.icp_exact"):
+                    res = track(depth_icp, model_depth, None)
+                    lost = bool(res.inliers < min_inl)
+            count("kinfu.lost", int(lost))
+            count_tensor("icp.inliers", res.inliers)
+            stats.append((res.error, res.inliers))
+            if not lost:
+                # res.pose maps current-camera into previous-camera
+                # coordinates: new camera->world = previous pose o T_prev_curr
+                camera = camera.set_pose(matmul_small(camera.pose, res.pose))
+                with trace("kinfu.integrate"):
+                    vol = _integrate(vol, depth, camera, config, miss_log, rgb=rgb)
+            poses.append(camera.pose)
     _check_misses(miss_log, config)
     return vol, camera, poses, stats

@@ -31,6 +31,7 @@ from ..camera import Camera
 from ..kernels.integrate import integrate_pose
 from ..ops.raycast import REFERENCE_MAX_STEPS
 from ..ops.raycast_diff import correct, march, slope, vertices_to_depth
+from ..utils.profiling import count, trace
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
 
@@ -62,15 +63,20 @@ def fusion_loss_and_grad(
     """(loss, d loss / d delta) on the device: the mean of
     (fused tsdf - target tsdf)^2 over the voxels both volumes updated.
     The fusion is the exact one (the JAX runner's "line" mode runs the
-    same kernel here)."""
-    d = delta.detach().clone().requires_grad_(True)
-    out, _miss = integrate_pose(vol, depth, camera, d)
-    m = (target.weight > 0) & (out.weight > 0)
-    n = torch.clamp(m.sum().to(_F32), min=1.0)
-    # in float32 whatever the volumes' storage
-    diff = out.tsdf.to(_F32) - target.tsdf.to(_F32)
-    loss = torch.where(m, diff ** 2, 0.0).sum() / n
-    (g,) = torch.autograd.grad(loss, d)
+    same kernel here). Spans ``pose.forward`` (the fusion and its
+    clones), ``pose.loss`` and ``pose.backward`` (the loss's backward and
+    the adjoint kernel)."""
+    with trace("pose.forward"):
+        d = delta.detach().clone().requires_grad_(True)
+        out, _miss = integrate_pose(vol, depth, camera, d)
+    with trace("pose.loss"):
+        m = (target.weight > 0) & (out.weight > 0)
+        n = torch.clamp(m.sum().to(_F32), min=1.0)
+        # in float32 whatever the volumes' storage
+        diff = out.tsdf.to(_F32) - target.tsdf.to(_F32)
+        loss = torch.where(m, diff ** 2, 0.0).sum() / n
+    with trace("pose.backward"):
+        (g,) = torch.autograd.grad(loss, d)
     return loss.detach(), g
 
 
@@ -90,29 +96,41 @@ def descend_through_fusion(
 
     Returns (best delta, its loss, one record a step: loss, |v| and |w|
     after the step, host seconds of the step including its one sync).
+
+    Spans: ``pose.step`` (its index; the last evaluation, after the
+    steps, is ``steps``) around each evaluation, and inside it, after
+    ``fusion_loss_and_grad``'s, ``pose.update``: the host reads and the
+    normalised step. Counter ``pose.steps``: the evaluations.
     """
     delta = torch.as_tensor(delta0, dtype=_F32, device=vol.device).clone()
     best = (float("inf"), delta)
     history = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss, g = fusion_loss_and_grad(vol, depth, camera, target, delta)
-        lv = float(loss)
-        seconds = time.perf_counter() - t0
-        if lv < best[0]:
-            best = (lv, delta)
-        gw, gv = g[:3], g[3:]
-        step = torch.cat([
-            ROT_STEP * gw / (torch.linalg.vector_norm(gw) + 1e-12),
-            TRANS_STEP * gv / (torch.linalg.vector_norm(gv) + 1e-12),
-        ])
-        delta = delta - step
-        history.append(dict(
-            loss=lv, v_mm=float(torch.linalg.vector_norm(delta[3:])),
-            w_mrad=float(torch.linalg.vector_norm(delta[:3])) * 1e3,
-            seconds=seconds,
-        ))
-    lv = float(fusion_loss_and_grad(vol, depth, camera, target, delta)[0])
+    for index in range(steps):
+        with trace("pose.step", index):
+            count("pose.steps")
+            t0 = time.perf_counter()
+            loss, g = fusion_loss_and_grad(vol, depth, camera, target, delta)
+            with trace("pose.update"):
+                lv = float(loss)
+                seconds = time.perf_counter() - t0
+                if lv < best[0]:
+                    best = (lv, delta)
+                gw, gv = g[:3], g[3:]
+                step = torch.cat([
+                    ROT_STEP * gw / (torch.linalg.vector_norm(gw) + 1e-12),
+                    TRANS_STEP * gv / (torch.linalg.vector_norm(gv) + 1e-12),
+                ])
+                delta = delta - step
+                history.append(dict(
+                    loss=lv, v_mm=float(torch.linalg.vector_norm(delta[3:])),
+                    w_mrad=float(torch.linalg.vector_norm(delta[:3])) * 1e3,
+                    seconds=seconds,
+                ))
+    with trace("pose.step", steps):
+        count("pose.steps")
+        loss = fusion_loss_and_grad(vol, depth, camera, target, delta)[0]
+        with trace("pose.update"):
+            lv = float(loss)
     if lv < best[0]:
         best = (lv, delta)
     return best[1], best[0], history

@@ -41,6 +41,7 @@ from ..camera import Camera
 from ..kernels.gather import row_gather_op
 from ..kernels.integrate import integrate_warped_cuda
 from ..ops.marching_cubes import TriangleSoup, extract_surface
+from ..utils.profiling import count, count_tensor, trace
 from ..volume import TSDFVolume, make_volume
 
 # ref: SceneFusion_krnl.cu:15
@@ -143,23 +144,35 @@ def deformation_sums(
     (both bracketing voxels of a vertex receive its contribution), over the
     voxels ``soup.vertex_voxels`` indexes; and the number of corresponding
     vertices (0-d int32). ``update_deformation`` normalises them over a
-    whole volume, the sharded update over a slab and its halo plane."""
+    whole volume, the sharded update over a slab and its halo plane.
+
+    Spans ``sfusion.correspond`` (the projection, the row gather and the
+    payload) and ``sfusion.scatter`` (the two accumulations); counters
+    ``sfusion.slots`` (the slots the scatter walks) and
+    ``sfusion.correspondences`` (the count returned, by reference)."""
     depth = depth.to(torch.float32)
     valid = soup.valid
-    corr, flow_at_vert = _slot_correspondence(
-        soup.vertices, valid, depth, camera, flow, threshold_mm
-    )
-    payload = torch.cat([valid.to(torch.float32)[:, None], flow_at_vert], dim=-1)
-    # A dead slot adds an exact zero row. It is sent to a voxel of its own
-    # (its slot number modulo the volume) and not to one shared dump row:
-    # a run of millions of duplicates of one index would be added one
-    # after the other.
-    spread = torch.arange(valid.shape[0], device=valid.device) % n_vox
-    acc = torch.zeros((n_vox, 4), dtype=torch.float32, device=depth.device)
-    for side in (0, 1):
-        vox = soup.vertex_voxels[:, side].to(torch.int64)
-        _accumulate_rows(acc, torch.where(valid, vox, spread), payload)
-    return acc, corr.sum().to(torch.int32)
+    with trace("sfusion.correspond"):
+        corr, flow_at_vert = _slot_correspondence(
+            soup.vertices, valid, depth, camera, flow, threshold_mm
+        )
+        payload = torch.cat(
+            [valid.to(torch.float32)[:, None], flow_at_vert], dim=-1
+        )
+        n_corr = corr.sum().to(torch.int32)
+    count("sfusion.slots", valid.shape[0])
+    count_tensor("sfusion.correspondences", n_corr)
+    with trace("sfusion.scatter"):
+        # A dead slot adds an exact zero row. It is sent to a voxel of its
+        # own (its slot number modulo the volume) and not to one shared
+        # dump row: a run of millions of duplicates of one index would be
+        # added one after the other.
+        spread = torch.arange(valid.shape[0], device=valid.device) % n_vox
+        acc = torch.zeros((n_vox, 4), dtype=torch.float32, device=depth.device)
+        for side in (0, 1):
+            vox = soup.vertex_voxels[:, side].to(torch.int64)
+            _accumulate_rows(acc, torch.where(valid, vox, spread), payload)
+    return acc, n_corr
 
 
 def apply_deformation(deform: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -217,15 +230,19 @@ def scenefusion_step(
 
     Returns (volume, correspondence count (0-d int32 tensor),
     extraction-overflow flag (0-d bool tensor): the occupied cubes exceeded
-    ``max_cubes`` and the update saw a truncated surface).
+    ``max_cubes`` and the update saw a truncated surface). Spans:
+    ``sfusion.extract``, ``sfusion.update`` and ``sfusion.integrate``.
     """
-    soup = extract_surface(
-        vol, max_cubes=max_cubes, max_vertices=1, layout="masked"
-    )
-    vol, n_corr = update_deformation(
-        vol, soup, depth, camera, flow, threshold_mm
-    )
-    vol = integrate_warped_cuda(vol, depth, camera)
+    with trace("sfusion.extract"):
+        soup = extract_surface(
+            vol, max_cubes=max_cubes, max_vertices=1, layout="masked"
+        )
+    with trace("sfusion.update"):
+        vol, n_corr = update_deformation(
+            vol, soup, depth, camera, flow, threshold_mm
+        )
+    with trace("sfusion.integrate"):
+        vol = integrate_warped_cuda(vol, depth, camera)
     return vol, n_corr, soup.overflowed
 
 
@@ -309,7 +326,14 @@ class SceneFusion:
         rgbd.add_observer(self.process_frames)
 
     def process_frames(self, depth, colour=None):
-        """Observer callback (ref: SceneFusion::process_frames :84-185)."""
+        """Observer callback (ref: SceneFusion::process_frames :84-185).
+        Span ``sfusion.frame`` (the frame's index); counters
+        ``sfusion.frames`` and ``sfusion.overflows``."""
+        with trace("sfusion.frame", self.frame_index):
+            count("sfusion.frames")
+            self._process_frame(depth, colour)
+
+    def _process_frame(self, depth, colour):
         cfg = self.config
         dev = self.volume.device
         depth = _on_device(depth, dev)
@@ -335,6 +359,7 @@ class SceneFusion:
                     cfg.max_cubes, cfg.threshold_mm)
                 self.volume = integrate_sharded(vol, depth, self.camera,
                                                 self.mesh)
+            count("sfusion.overflows", int(overflow))
             self.correspondence_counts.append(n_corr)
             if overflow:
                 warnings.warn(
@@ -342,7 +367,7 @@ class SceneFusion:
                     f"cubes exceed max_cubes={cfg.max_cubes}; mesh (and "
                     "the deformation update) truncated — raise "
                     "SceneFusionConfig.max_cubes",
-                    stacklevel=2,
+                    stacklevel=3,
                 )
         else:
             self.volume = self._integrate(depth)

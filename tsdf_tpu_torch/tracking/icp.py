@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels.gather import lookup_flat
+from ..utils.profiling import trace
 from ..utils.se3 import matmul_small, se3_exp
 
 DIST_THRESH_MM = 100.0
@@ -467,30 +468,33 @@ def get_incremental_transformation(
 
     Returns T_prev_curr: it maps current-camera points into the previous
     camera's frame. Not a gradient path: it runs under ``no_grad``.
+    Spans: ``icp.maps`` (pyramids, vertex and normal maps), then
+    ``icp.level<l>`` around each level's Gauss-Newton loop.
     """
-    pyr_c = depth_pyramid(depth_curr, levels)
-    pyr_p = depth_pyramid(depth_prev, levels)
-    dev = pyr_c[0].device
+    with trace("icp.maps"):
+        pyr_c = depth_pyramid(depth_curr, levels)
+        pyr_p = depth_pyramid(depth_prev, levels)
+        dev = pyr_c[0].device
 
-    maps = []
-    for lvl in range(levels):
-        intr = level_intrinsics(fx, fy, cx, cy, lvl)
-        vc = vertex_map_planes(pyr_c[lvl], *intr)
-        nc = normal_map_planes(*vc)
-        if band is None:
-            # only the exact association reads the model's maps
-            vp = vertex_map_planes(pyr_p[lvl], *intr)
-            np_ = normal_map_planes(*vp)
-        else:
-            vp = np_ = None
-        maps.append((vc, nc, vp, np_, intr))
+        maps = []
+        for lvl in range(levels):
+            intr = level_intrinsics(fx, fy, cx, cy, lvl)
+            vc = vertex_map_planes(pyr_c[lvl], *intr)
+            nc = normal_map_planes(*vc)
+            if band is None:
+                # only the exact association reads the model's maps
+                vp = vertex_map_planes(pyr_p[lvl], *intr)
+                np_ = normal_map_planes(*vp)
+            else:
+                vp = np_ = None
+            maps.append((vc, nc, vp, np_, intr))
 
-    pose = (
-        torch.eye(4, dtype=_F32, device=dev) if init_pose is None
-        else torch.as_tensor(init_pose, dtype=_F32, device=dev)
-    )
-    err = torch.zeros((), dtype=_F32, device=dev)
-    inl = torch.zeros((), dtype=_F32, device=dev)
+        pose = (
+            torch.eye(4, dtype=_F32, device=dev) if init_pose is None
+            else torch.as_tensor(init_pose, dtype=_F32, device=dev)
+        )
+        err = torch.zeros((), dtype=_F32, device=dev)
+        inl = torch.zeros((), dtype=_F32, device=dev)
 
     for lvl in range(levels - 1, -1, -1):
         vc, nc, vp, np_, intr = maps[lvl]
@@ -507,7 +511,8 @@ def get_incremental_transformation(
                 rot, trans, vc, nc, vp, np_, *intr, dist_thresh, angle_thresh
             )
 
-        pose, err, inl = run_level(
-            step, iterations[lvl], float(conv_eps), pose, err, inl
-        )
+        with trace(f"icp.level{lvl}"):
+            pose, err, inl = run_level(
+                step, iterations[lvl], float(conv_eps), pose, err, inl
+            )
     return ICPResult(pose=pose, error=err, inliers=inl)

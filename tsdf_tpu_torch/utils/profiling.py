@@ -7,8 +7,11 @@ Port of ``tsdf_tpu/utils/profiling.py`` on the card's own tools:
     and return that leaf's sum as a float;
   * ``Timer``: a wall-clock span that syncs its result, with derived
     rates, logged as one JSON line on the logger ``tsdf_tpu_torch``;
-  * ``trace(name)``: a ``torch.profiler.record_function`` region, and an
-    NVTX range when CUDA is initialised;
+  * ``trace(name, index=None)``: the program's span, a region of the
+    ``torch.profiler`` trace (on the kernels' clock), and nothing at all
+    when no profiler runs;
+  * ``count(name, n)``, ``count_tensor(name, t)`` and ``counting()``:
+    the program's counters, read once when counting closes;
   * ``profile_to(dir)``: a ``torch.profiler`` trace file written into
     ``dir`` (TensorBoard's and Perfetto's format);
   * ``median_ms``: the median CUDA-event time of a call, its launches
@@ -105,19 +108,87 @@ class Timer:
         return self.counts[key] / self.elapsed
 
 
+# The span with no profiler running: one shared context that does nothing.
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_Span = torch._C._profiler._RecordFunctionFast
+
+
+def trace(name: str, index: Optional[int] = None):
+    """The program's span: a region named ``name`` in the running
+    ``torch.profiler`` trace. Spans nest as the regions are entered; the
+    kernels a region launches are its children by their correlation ids.
+    ``index`` (the frame or step number) is the record's keyword argument
+    ``index``, which the trace shows where the profiler records inputs
+    (``record_shapes=True``).
+
+    The region is a function-scope record, entered without the
+    dispatcher: unlike a ``record_function`` user annotation it puts no
+    copy of itself on the device's timeline, so the trace's device events
+    are the kernels, copies and sets alone. With no profiler running the
+    call is one flag check and returns a shared context that does
+    nothing: no operator, launch or sync either way."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    if index is None:
+        return _Span(name)
+    return _Span(name, (), {"index": index})
+
+
+class Counts:
+    """The program's counters while a ``counting()`` block is open: sums
+    of host numbers, and 0-d tensors the program already computed, kept
+    by reference and summed only in :meth:`totals`."""
+
+    def __init__(self):
+        self.host: dict[str, float] = {}
+        self.tensors: dict[str, list[torch.Tensor]] = {}
+
+    def totals(self) -> dict:
+        """Every counter's total, by name: an int where every value was
+        integral, else a float. Each tensor counter is summed on its device
+        and read once (a host sync apiece): call it after the measured
+        stretch."""
+        out = dict(self.host)
+        for name, ts in self.tensors.items():
+            total = torch.stack([t.reshape(()).to(torch.float64) for t in ts]).sum()
+            integral = not any(t.is_floating_point() for t in ts)
+            out[name] = out.get(name, 0) + (int(total) if integral else float(total))
+        return dict(sorted(out.items()))
+
+
+_COUNTS: Optional[Counts] = None
+
+
 @contextlib.contextmanager
-def trace(name: str):
-    """Name a region in ``torch.profiler`` traces, and in NVTX when CUDA
-    is initialised."""
-    nvtx = torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+def counting():
+    """Open the program's counters for the block; yields the
+    :class:`Counts` that ``count`` and ``count_tensor`` add to. A nested
+    block counts on its own and restores the outer one's on exit."""
+    global _COUNTS
+    outer, counts = _COUNTS, Counts()
+    _COUNTS = counts
+    try:
+        yield counts
+    finally:
+        _COUNTS = outer
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n``, a number the host already holds, to counter ``name``;
+    with counting closed, one check and nothing else."""
+    counts = _COUNTS
+    if counts is not None:
+        counts.host[name] = counts.host.get(name, 0) + n
+
+
+def count_tensor(name: str, t: torch.Tensor) -> None:
+    """Add the 0-d tensor ``t`` to counter ``name`` by reference: no copy,
+    launch or read until ``Counts.totals``; with counting closed, one
+    check and nothing else."""
+    counts = _COUNTS
+    if counts is not None:
+        counts.tensors.setdefault(name, []).append(t)
 
 
 def _activities():
