@@ -1,6 +1,7 @@
 """The program's spans and counters (``tsdf_tpu_torch/utils/profiling.py``:
 ``trace``, ``count``, ``count_tensor``, ``counting``) at the layer
-boundaries of the tracked loop, SceneFusion and the pose step, on the CPU.
+boundaries of the tracked loop, SceneFusion, the pose step through fusion
+and the Levenberg-Marquardt step through the raycast, on the CPU.
 
 Under a CPU ``torch.profiler`` each pipeline emits its named spans, nested as
 the layers call each other and carrying their frame or step index; with no
@@ -31,7 +32,7 @@ from tsdf_tpu_torch.utils import fixtures, profiling
 CPU = torch.device("cpu")
 W, H = 80, 60
 INTR = (73.9, 73.8, 41.4, 29.3)
-PROGRAM = ("kinfu.", "icp.", "sfusion.", "pose.")
+PROGRAM = ("kinfu.", "icp.", "sfusion.", "pose.", "lm.")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -197,6 +198,107 @@ def test_pose_step_spans():
            ("pose.backward", None, "pose.step"), ("pose.update", None, "pose.step")]
     assert spans == sum(([("pose.step", i, None)] + one for i in range(3)), [])
     assert counts.totals() == {"pose.steps": 3}
+
+
+def _lm_problem():
+    """(volume, start camera, target) of the Levenberg-Marquardt tests:
+    the sphere and wall fused at the camera, recovered from 20 mm off."""
+    cfg = _config()
+    camera = _camera()
+    depth = torch.from_numpy(_depth())
+    vol, _ = kinfu.fuse_frames(cfg.make_volume(device=CPU), camera,
+                               [(depth, camera.pose)] * 2, cfg)
+    return vol, camera.move_to([20.0, 0.0, -400.0]), depth
+
+
+LM_STEP = [("lm.march", None, "lm.step"), ("lm.slope", None, "lm.step"),
+           ("lm.jacobian", None, "lm.step"), ("lm.solve", None, "lm.step"),
+           ("lm.update", None, "lm.step")]
+
+
+def test_lm_step_spans_and_counters(monkeypatch):
+    vol, start, target = _lm_problem()
+    masks = []
+    residuals = pose_recovery.banded_residuals
+
+    def spy(*args, **kwargs):
+        r, m = residuals(*args, **kwargs)
+        masks.append(int(m.sum()))
+        return r, m
+
+    monkeypatch.setattr(pose_recovery, "banded_residuals", spy)
+    with profiling.counting() as counts:
+        (_xi, history), spans = _profiled(
+            lambda: pose_recovery.recover_pose_lm(vol, start, target, iters=3))
+    assert spans == sum(([("lm.step", i, None)] + LM_STEP for i in range(3)), [])
+    # six dual passes a step, each with the step's one mask
+    assert len(masks) == 18 and all(len(set(masks[i:i + 6])) == 1 for i in (0, 6, 12))
+    totals = counts.totals()
+    assert totals == {"lm.accepted": sum(h["accepted"] for h in history),
+                      "lm.inliers": sum(masks[::6]), "lm.steps": 3}
+    assert 0 < totals["lm.inliers"] <= 3 * W * H
+    assert isinstance(totals["lm.inliers"], int)
+
+
+class _Reads(TorchDispatchMode):
+    """Counts the host reads of tensor values (a scalar read is the sync
+    on the card), except inside the CPU twin of the raycast march: on the
+    card the march is one kernel launch with no read."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default and not self.paused:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_lm_step_reads_the_host_once(traced, monkeypatch):
+    vol, start, target = _lm_problem()
+    march = pose_recovery.march
+    mode = _Reads()
+
+    def twin(*args, **kwargs):
+        mode.paused = True
+        try:
+            return march(*args, **kwargs)
+        finally:
+            mode.paused = False
+
+    monkeypatch.setattr(pose_recovery, "march", twin)
+    ctx = profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext()
+    with ctx, profiling.counting(), mode:
+        _xi, history = pose_recovery.recover_pose_lm(vol, start, target, iters=3)
+    assert len(history) == 3 and mode.n == 3
+
+
+def test_lm_history_holds_the_twists_the_steps_used(monkeypatch):
+    vol, start, target = _lm_problem()
+    calls = []
+    step = pose_recovery.lm_step
+
+    def spy(vol, camera, target, xi, lam, max_steps):
+        out = step(vol, camera, target, xi, lam, max_steps)
+        calls.append((xi, lam, out[0]))
+        return out
+
+    monkeypatch.setattr(pose_recovery, "lm_step", spy)
+    xi, history = pose_recovery.recover_pose_lm(vol, start, target, iters=4)
+    assert len(calls) == len(history) == 4
+    lam = pose_recovery.LAM0
+    for h, (xi_in, lam_in, xi_new) in zip(history, calls):
+        assert h["xi"] is xi_in and h["xi_new"] is xi_new
+        assert lam_in == lam
+        lam = h["lam"]
+    assert torch.equal(history[0]["xi"], torch.zeros(6))
+    for a, b in zip(history, history[1:]):
+        assert b["xi"] is (a["xi_new"] if a["accepted"] else a["xi"])
+    taken = [h["xi_new"] for h in history if h["accepted"]]
+    assert xi is (taken[-1] if taken else history[0]["xi"])
 
 
 def test_off_enters_no_record_function(monkeypatch):

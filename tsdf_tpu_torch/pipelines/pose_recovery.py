@@ -31,7 +31,7 @@ from ..camera import Camera
 from ..kernels.integrate import integrate_pose
 from ..ops.raycast import REFERENCE_MAX_STEPS
 from ..ops.raycast_diff import correct, march, slope, vertices_to_depth
-from ..utils.profiling import count, trace
+from ..utils.profiling import count, count_tensor, trace
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
 
@@ -173,30 +173,42 @@ def lm_step(
     their (H*W, 6) Jacobian by six forward-mode dual passes through the
     correction (the residuals are their primal); then
     (J^T J + lam diag(J^T J)) dx = -J^T r, solved without a host sync.
+
+    Spans ``lm.march`` (the pose, the raycast-kernel march, t0 and the
+    hits), ``lm.slope``, ``lm.jacobian`` (the six dual passes) and
+    ``lm.solve`` (J^T J, J^T r, the damped solve, the rms). Counter
+    ``lm.inliers`` (the band's mask, summed for the rms), by reference.
     """
     xi = xi.detach()
     h, w = target.shape
-    cam = _twisted(camera, xi)
-    t0, hit = march(vol, cam, w, h, max_steps=max_steps)
-    fp = slope(vol, cam, t0, w, h)
-    cols = []
-    with fwAD.dual_level():
-        for j in range(6):
-            tangent = torch.zeros(6, dtype=_F32, device=xi.device)
-            tangent[j] = 1.0
-            x = fwAD.make_dual(xi, tangent)
-            rj, m = banded_residuals(vol, _twisted(camera, x), target, t0,
-                                     hit, fp=fp)
-            r, dr = fwAD.unpack_dual(rj)
-            cols.append(dr.reshape(-1))
-    jac = torch.stack(cols, dim=-1)
-    rf = r.reshape(-1)
-    jtj = jac.T @ jac
-    jtr = jac.T @ rf
-    a = jtj + lam * torch.diag(torch.diag(jtj))
-    dx = torch.linalg.solve_ex(a, -jtr[:, None]).result[:, 0]
-    n = torch.clamp(m.sum().to(_F32), min=1.0)
-    rms = torch.sqrt((rf * rf).sum() / n)
+    with trace("lm.march"):
+        cam = _twisted(camera, xi)
+        t0, hit = march(vol, cam, w, h, max_steps=max_steps)
+    with trace("lm.slope"):
+        fp = slope(vol, cam, t0, w, h)
+    with trace("lm.jacobian"):
+        cols = []
+        # the tangents are rows of one identity: setting an element of a
+        # card's tensor from a Python number is a blocking copy
+        tangents = torch.eye(6, dtype=_F32, device=xi.device)
+        with fwAD.dual_level():
+            for j in range(6):
+                x = fwAD.make_dual(xi, tangents[j])
+                rj, m = banded_residuals(vol, _twisted(camera, x), target, t0,
+                                         hit, fp=fp)
+                r, dr = fwAD.unpack_dual(rj)
+                cols.append(dr.reshape(-1))
+    with trace("lm.solve"):
+        jac = torch.stack(cols, dim=-1)
+        rf = r.reshape(-1)
+        jtj = jac.T @ jac
+        jtr = jac.T @ rf
+        a = jtj + lam * torch.diag(torch.diag(jtj))
+        dx = torch.linalg.solve_ex(a, -jtr[:, None]).result[:, 0]
+        inliers = m.sum()
+        count_tensor("lm.inliers", inliers)
+        n = torch.clamp(inliers.to(_F32), min=1.0)
+        rms = torch.sqrt((rf * rf).sum() / n)
     return xi + dx, rms
 
 
@@ -215,26 +227,38 @@ def recover_pose_lm(
     True (the runner stops at a translation error under 1 mm).
 
     Returns (xi, one record an iteration: rms, lam after it, whether the
-    step was taken, host seconds including its one sync).
+    step was taken, host seconds including its one sync, and as device
+    tensors read by no one here: ``xi`` the twist the step linearised at,
+    ``xi_new`` the twist it proposed).
+
+    Spans: ``lm.step`` (its index) around each iteration, holding
+    ``lm_step``'s and then ``lm.update``: the rms read (the step's one
+    host sync) and the trust rule. Counters ``lm.steps`` and
+    ``lm.accepted``.
     """
     xi = torch.zeros(6, dtype=_F32, device=vol.device)
     lam = LAM0
     best_rms = float("inf")
     history = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        xi_new, rms = lm_step(vol, camera, target, xi, lam, max_steps)
-        rms = float(rms)
-        seconds = time.perf_counter() - t0
-        accept = rms <= best_rms * 1.2
-        if accept:
-            xi = xi_new
-            best_rms = min(best_rms, rms)
-            lam = max(lam * 0.5, 1e-4)
-        else:
-            lam = min(lam * 8.0, 1e2)
-        history.append(dict(rms=rms, lam=lam, accepted=accept,
-                            seconds=seconds))
+    for index in range(iters):
+        with trace("lm.step", index):
+            count("lm.steps")
+            t0 = time.perf_counter()
+            xi_at = xi
+            xi_new, rms = lm_step(vol, camera, target, xi, lam, max_steps)
+            with trace("lm.update"):
+                rms = float(rms)
+                seconds = time.perf_counter() - t0
+                accept = rms <= best_rms * 1.2
+                count("lm.accepted", int(accept))
+                if accept:
+                    xi = xi_new
+                    best_rms = min(best_rms, rms)
+                    lam = max(lam * 0.5, 1e-4)
+                else:
+                    lam = min(lam * 8.0, 1e2)
+                history.append(dict(rms=rms, lam=lam, accepted=accept,
+                                    seconds=seconds, xi=xi_at, xi_new=xi_new))
         if stop is not None and stop(xi):
             break
     return xi, history
