@@ -60,9 +60,13 @@ Phases (any failed check exits non-zero; nothing is caught):
      loss and |v| a step, ms a value-and-grad step by CUDA events and on
      the host, device time by kernel under the profiler, peak memory,
      integrate and integrate_pose_grad launches) and of
-     tools/run_config4.py (Levenberg-Marquardt through raycast_diff from a
-     25.6 mm offset until the translation error is under 1 mm, at most 80
-     iterations: rms and error a step, ms a step, one raycast launch a
+     tools/run_config4.py: first the linearisation kernel
+     (csrc/lm_linearise.cu) at a twisted pose, float32 and bf16, two calls
+     bit-equal, its sums against the plain twin's, its time beside its
+     bound, the twin's and the six dual passes it replaced; then
+     Levenberg-Marquardt through raycast_diff from a 25.6 mm offset until
+     the translation error is under 1 mm, at most 80 iterations: rms and
+     error a step, ms a step, one raycast and one lm_linearise launch a
      step);
   4. the GT-pose path: a fabricated 20-frame TUM directory (a wall and
      two spheres, intersected in closed form) through
@@ -171,6 +175,12 @@ same inputs, in turns with this tree's;
 the fast fuse loop and the config4b step with the parent's kernel in
 turns; and the config4b descent through the parent's adjoint, whose
 residual must stay within C4B_RESIDUAL_MM of this tree's.
+
+    python3 chip_smoke.py --lm
+
+runs only phase 3b's Levenberg-Marquardt half (the linearisation kernel,
+then the recovery) and prints what it found as one JSON object on the
+last line.
 
     python3 chip_smoke.py --probe
 
@@ -3823,17 +3833,12 @@ def phase_config4b(dev) -> dict:
                 profile=prof, history=history)
 
 
-def phase_config4(dev) -> dict:
-    """tools/run_config4.py on the card: pose recovery through the
-    differentiable raycast at 512^3 / 640x480. The scene is four spheres
-    and a wall; the target depth is rendered at the true pose; from the
-    perturbed pose, Levenberg-Marquardt on the banded depth residuals
-    (one raycast-kernel march a step, the Jacobian by forward mode through
-    the correction) until the translation error is under 1 mm."""
+def c4_scene(dev):
+    """Config 4's problem at 512^3 / 640x480: (the scene of four spheres
+    and a wall, the true camera, the target depth rendered there and its
+    hits, the camera at the perturbed pose)."""
     from tsdf_tpu_torch import make_volume
-    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tsdf_tpu_torch.ops.raycast_diff import depth_image_diff
-    from tsdf_tpu_torch.pipelines.pose_recovery import lm_step, recover_pose_lm
     from tsdf_tpu_torch.utils import fixtures
     from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
 
@@ -3851,6 +3856,109 @@ def phase_config4(dev) -> dict:
         target, hit = depth_image_diff(scene, cam_true, W, H)
     xi_p = torch.tensor(C4_PERTURB, dtype=torch.float32, device=dev)
     cam0 = cam_true.set_pose(matmul_small(se3_exp(xi_p), cam_true.pose))
+    return scene, cam_true, target.detach(), hit, cam0
+
+
+# float32 operations a linearised ray takes in csrc/lm_linearise.cu, counted
+# from its source: the direction 36, the sample and its gradient 120, the
+# correction and depth 30, each twist axis's tangent 84, the 29 float64
+# sums as 58
+LM_OPS_PER_RAY = 36 + 120 + 30 + 6 * 84 + 58
+# the twist of the timed linearisation: config 4's second step's size
+C4_XI = (-0.004, 0.006, -0.002, -8.0, 9.0, -6.0)
+
+
+def compare_lm_linearise(dev) -> dict:
+    """``csrc/lm_linearise.cu`` at config 4's shapes (512^3, 640x480) on
+    the float32 and the bf16 volume: two calls bit-equal, the sums against
+    the plain twin on the card (within 1e-5 of their scale: the twin's
+    depth is a matrix product and its pose tangents forward mode), its
+    time against its bound, the twin's, and the route it replaced (the
+    reverse-mode slope, six forward-mode dual passes through
+    ``banded_residuals`` and the float32 normal equations)."""
+    import torch.autograd.forward_ad as fwAD
+
+    from tsdf_tpu_torch.kernels import lm
+    from tsdf_tpu_torch.ops.lm_linearise import linearise, normal_equations
+    from tsdf_tpu_torch.ops.raycast_diff import march, slope
+    from tsdf_tpu_torch.pipelines.pose_recovery import (
+        BAND_MM,
+        _twisted,
+        banded_residuals,
+    )
+
+    scene, _cam_true, target, _hit, cam0 = c4_scene(dev)
+    xi = torch.tensor(C4_XI, dtype=torch.float32, device=dev)
+    cam = _twisted(cam0, xi)
+    out = {}
+    for name, vol in (("f32", scene), ("bf16", scene.astype(BF16))):
+        t0, hit = march(vol, cam, W, H)
+
+        def kernel():
+            return lm.lm_linearise(vol, cam0, cam, xi, t0, hit, target, BAND_MM)
+
+        def twin():
+            return linearise(vol, cam0, cam, xi, t0, hit, target, BAND_MM)
+
+        def dual_passes():
+            fp = slope(vol, cam, t0, W, H)
+            cols = []
+            tangents = torch.eye(6, dtype=torch.float32, device=dev)
+            with fwAD.dual_level():
+                for j in range(6):
+                    x = fwAD.make_dual(xi, tangents[j])
+                    rj, _m = banded_residuals(vol, _twisted(cam0, x), target, t0,
+                                              hit, fp=fp)
+                    cols.append(fwAD.unpack_dual(rj).tangent.reshape(-1))
+            jac = torch.stack(cols, dim=-1)
+            return jac.T @ jac
+
+        sums, again, want = kernel(), kernel(), twin()
+        torch.cuda.synchronize()
+        check(bits_equal(sums.view(torch.float32), again.view(torch.float32)),
+              f"lm_linearise {name}: two calls differ")
+        got, ref = normal_equations(sums), normal_equations(want)
+        scale = torch.sqrt(torch.diag(ref[0]))
+        gap_jtj = float(((got[0] - ref[0]).abs() / (scale[:, None] * scale[None, :])).max())
+        gap_jtr = float(((got[1] - ref[1]).abs() / (scale * float(ref[2]) ** 0.5)).max())
+        gap_rr = abs(float(got[2] - ref[2])) / float(ref[2])
+        inliers, want_inliers = int(got[3]), int(ref[3])
+        log(f"lm_linearise {name} 512^3 {W}x{H}: against the twin J^T J "
+            f"{gap_jtj:.3e}, J^T r {gap_jtr:.3e}, r^2 {gap_rr:.3e} of their "
+            f"scale; inliers {inliers} / {want_inliers}")
+        check(max(gap_jtj, gap_jtr, gap_rr) <= 1e-5 and abs(inliers - want_inliers) <= 4,
+              f"lm_linearise {name}: the kernel's sums are off the twin's")
+        ms = median_ms(kernel, reps=20)
+        plain = median_ms(twin, reps=5)
+        dual = median_ms(dual_passes, reps=3)
+        # each ray's t0, hit and target; the eight taps of each ray the kernel
+        # samples (a hit with target depth)
+        sampled = int((hit & (target.reshape(-1) > 0)).sum())
+        moved = W * H * 9 + sampled * 8 * vol.tsdf.element_size()
+        b = bound(moved, sampled * LM_OPS_PER_RAY)
+        log(f"lm_linearise {name}: {ms:.4f} ms (bound {b['bound_ms']:.4f} by "
+            f"{b['bound_by']}, {sampled} rays sampled); plain twin {plain:.4f} ms; "
+            f"the dual-pass route it replaced {dual:.4f} ms")
+        out[name] = dict(kernel_ms=ms, plain_ms=plain, dual_pass_ms=dual,
+                         gaps=[gap_jtj, gap_jtr, gap_rr], inliers=inliers,
+                         sampled_rays=sampled, **b)
+        del vol
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_config4(dev) -> dict:
+    """tools/run_config4.py on the card: pose recovery through the
+    differentiable raycast at 512^3 / 640x480. The scene is four spheres
+    and a wall; the target depth is rendered at the true pose; from the
+    perturbed pose, Levenberg-Marquardt on the banded depth residuals
+    (one raycast-kernel march and one linearisation kernel a step) until
+    the translation error is under 1 mm."""
+    from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.pipelines.pose_recovery import lm_step, recover_pose_lm
+    from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
+
+    scene, cam_true, target, hit, cam0 = c4_scene(dev)
 
     def terr(xi):
         pose = matmul_small(se3_exp(xi), cam0.pose)
@@ -3882,9 +3990,11 @@ def phase_config4(dev) -> dict:
     log(f"config4 512^3 {W}x{H}: {per_step:.4f} ms a Levenberg-Marquardt step "
         f"(host clock, with its sync), {step_ms:.4f} ms by CUDA events; pose "
         f"recovered to {errors[-1]:.4f} mm in {iters} iterations (start "
-        f"{terr0:.4f} mm); launches raycast {counts['raycast']}")
+        f"{terr0:.4f} mm); launches raycast {counts['raycast']}, lm_linearise "
+        f"{counts['lm_linearise']}")
     check(errors[-1] < C4_TERR_MM, "config4: the pose was not recovered to 1 mm")
     check(counts["raycast"] == iters, "config4: one march a step expected")
+    check(counts["lm_linearise"] == iters, "config4: one linearisation a step expected")
     return dict(counts=counts, iters=iters, step_ms=step_ms,
                 host_step_ms=per_step, start_mm=terr0, final_mm=errors[-1],
                 errors=errors, rms=[h["rms"] for h in history], profile=prof)
@@ -6041,6 +6151,12 @@ def main() -> int:
              "all-gather of 44 floats between them, and sfusion -s 256 "
              "--devices 4x1 / 2x2 against one card",
     )
+    parser.add_argument(
+        "--lm", action="store_true",
+        help="instead of the smoke, only config 4's Levenberg-Marquardt: the "
+             "linearisation kernel against its twin and its bound at 512^3 / "
+             "640x480 (float32 and bf16), then the recovery",
+    )
     parser.add_argument("--frames", type=int, default=500,
                         help="--config3: number of frames")
     parser.add_argument("--noise", action="store_true",
@@ -6062,6 +6178,14 @@ def main() -> int:
         global PARENT_LIB, PARENT_DIR
         PARENT_LIB = load_parent(args.parent)
         PARENT_DIR = args.parent
+    if args.lm:
+        found = {"lm_linearise": compare_lm_linearise(dev)}
+        torch.cuda.empty_cache()
+        config4 = phase_config4(dev)
+        found["config4"] = {k: v for k, v in config4.items() if k != "profile"}
+        log(smi)
+        print(json.dumps(found))
+        return 0
     if args.config3 or args.four_cards:
         found = (run_four_cards(dev) if args.four_cards else run_config3(
             dev, args.frames, args.noise, 0.02 if args.eps else 0.0))
@@ -6121,6 +6245,8 @@ def main() -> int:
         results["gather_probe"] = compare_probe(dev)
         torch.cuda.empty_cache()
         config4b = phase_config4b(dev)
+        torch.cuda.empty_cache()
+        results["lm_linearise"] = compare_lm_linearise(dev)
         torch.cuda.empty_cache()
         config4 = phase_config4(dev)
         torch.cuda.empty_cache()
@@ -6292,7 +6418,18 @@ def main() -> int:
                         "replaces": f"{integ}:1378", "launches": counts[k],
                         "launches_on": "integrate_pose_sharded value-and-grad, "
                         "4x1 mesh (one rank's count)", **timed})
+    # the Levenberg-Marquardt linearisation, with its launches on config 4's
+    # recovery; its bf16 instance timed on the bf16 copy of the scene
+    for k, part in (("lm_linearise", "f32"), ("lm_linearise_bf16", "bf16")):
+        kernels.append({"name": k, "route": "cuda",
+                        "source": "tsdf_tpu_torch/csrc/lm_linearise.cu",
+                        "replaces": "none: jax.jacfwd through the Newton correction",
+                        "launches": config4["counts"][k] if part == "f32" else None,
+                        "launches_on": "config4: recover_pose_lm",
+                        **results["lm_linearise"][part]})
     for entry in kernels:
+        if entry["launches"] is None:
+            continue
         check(entry["launches"] > 0 or entry["launches_on"] in (no_path, probe),
               f"{entry['name']} was never launched")
     log(f"config4b: {config4b['host_step_ms']:.4f} ms a value-and-grad step "

@@ -1835,3 +1835,91 @@ def test_checkpoint_of_a_slab_on_the_card(dev, tmp_path):
         same = torch.equal if saved.dtype == torch.uint8 else _bits_equal
         assert saved.dtype == back.dtype == whole.dtype, name
         assert same(back, saved) and same(whole, saved), name
+
+
+# -- the Levenberg-Marquardt linearisation (csrc/lm_linearise.cu) ----------------
+
+# The kernel against its twin (ops/lm_linearise.py:linearise) on the card:
+# the twin's depth goes through Camera.world_to_camera's matrix product and
+# its pose tangents through forward mode, the kernel's through its own
+# expressions, so they round apart by a few ulps: r within 1e-3 mm where
+# both keep the ray (a 1.5 m depth's ulp is 1.2e-4 mm), the mask equal but
+# for rays within 1e-3 mm of the band's edge, each Jacobian column within
+# 1e-5 of its largest entry or natural size, the sums within 1e-5 of their
+# scale. Two calls are bit-equal: the kernel sums in a fixed order.
+def _lm_problem(dev, dtype, twist):
+    from tsdf_tpu_torch.ops.raycast_diff import depth_image_diff, march
+    from tsdf_tpu_torch.utils.se3 import matmul_small, se3_exp
+
+    vol = make_volume((64, 64, 64), 2400.0, offset=(-1200.0, -1200.0, 0.0), device=dev)
+    tsdf = torch.minimum(fixtures.wall_tsdf(vol, 1900.0).tsdf,
+                         fixtures.sphere_tsdf(vol, 260.0, centre=(150.0, -100.0, 1300.0)).tsdf)
+    vol = vol.replace(tsdf=tsdf.contiguous(), weight=torch.ones_like(vol.weight))
+    if dtype != torch.float32:
+        vol = vol.astype(dtype)
+    cam_true = _camera(dev, [40.0, -30.0, 200.0], [0.0, 0.0, 1500.0])
+    with torch.no_grad():
+        target, _ = depth_image_diff(vol, cam_true, W, H)
+    twisted = lambda c, x: c.set_pose(matmul_small(se3_exp(x), c.pose))
+    off = torch.tensor([0.008, -0.009, 0.006, 15.0, -12.0, 16.0], device=dev)
+    cam0 = twisted(cam_true, off)
+    xi = (torch.zeros(6, device=dev) if twist == "zero"
+          else torch.tensor([-0.004, 0.006, 0.002, -8.0, 9.0, -6.0], device=dev))
+    cam = twisted(cam0, xi)
+    t0, hit = march(vol, cam, W, H)
+    return vol, cam0, cam, xi, t0, hit, target.detach()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("twist", ["zero", "config4"])
+def test_lm_linearise_kernel_matches_twin(dev, twist, dtype):
+    from tsdf_tpu_torch.kernels import lm
+    from tsdf_tpu_torch.ops.lm_linearise import linearise, normal_equations
+    from tsdf_tpu_torch.pipelines.pose_recovery import BAND_MM
+
+    vol, cam0, cam, xi, t0, hit, target = _lm_problem(dev, dtype, twist)
+    kernel = lm.KERNEL_BF16 if dtype == BF16 else lm.KERNEL
+    before = kernel.launches
+    sums, rows = lm.lm_linearise(vol, cam0, cam, xi, t0, hit, target, BAND_MM, rows=True)
+    again, rows_again = lm.lm_linearise(vol, cam0, cam, xi, t0, hit, target, BAND_MM,
+                                        rows=True)
+    want, want_rows = linearise(vol, cam0, cam, xi, t0, hit, target, BAND_MM, rows=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert _bits_equal(sums, again) and _bits_equal(rows, rows_again)
+
+    m, want_m = rows[:, 7] > 0, want_rows[:, 7] > 0
+    assert int(want_m.sum()) > 0.3 * W * H
+    flipped = m != want_m
+    edge = ((want_rows[:, 0].abs() - BAND_MM).abs() < 1e-3) | ~hit
+    assert int(flipped.sum()) <= 2 and not (flipped & ~edge & want_m).any()
+    both = m & want_m
+    assert float((rows[both, 0] - want_rows[both, 0]).abs().max()) <= 1e-3
+    for j in range(6):
+        col = want_rows[both, 1 + j]
+        natural = float(t0.max()) if j < 3 else 1.0
+        err = float((rows[both, 1 + j] - col).abs().max())
+        assert err <= 1e-5 * max(float(col.abs().max()), natural), (j, err)
+    got, want = normal_equations(sums), normal_equations(want)
+    scale, rr = torch.sqrt(torch.diag(want[0])), float(want[2])
+    assert ((got[0] - want[0]).abs() <= 1e-5 * scale[:, None] * scale[None, :]).all()
+    assert ((got[1] - want[1]).abs() <= 1e-5 * scale * rr ** 0.5).all()
+    assert abs(float(got[2]) - rr) <= 1e-5 * rr
+    assert float(got[3]) == float(m.sum())
+
+
+def test_lm_linearised_counts_the_steps_on_the_card(dev):
+    """recover_pose_lm on CUDA tensors takes the kernel once a step: the
+    counter lm.linearised and the kernel's launches equal the steps."""
+    from tsdf_tpu_torch.kernels import lm
+    from tsdf_tpu_torch.pipelines.pose_recovery import recover_pose_lm
+    from tsdf_tpu_torch.utils import profiling
+
+    vol, cam0, _cam, _xi, _t0, _hit, target = _lm_problem(dev, torch.float32, "zero")
+    before = lm.KERNEL.launches
+    with profiling.counting() as counts:
+        _x, history = recover_pose_lm(vol, cam0, target, iters=3)
+    totals = counts.totals()
+    assert len(history) == 3 and totals["lm.linearised"] == 3
+    assert lm.KERNEL.launches == before + 3
+    assert history[-1]["rms"] < history[0]["rms"]

@@ -211,31 +211,31 @@ def _lm_problem():
     return vol, camera.move_to([20.0, 0.0, -400.0]), depth
 
 
-LM_STEP = [("lm.march", None, "lm.step"), ("lm.slope", None, "lm.step"),
-           ("lm.jacobian", None, "lm.step"), ("lm.solve", None, "lm.step"),
-           ("lm.update", None, "lm.step")]
+LM_STEP = [("lm.march", None, "lm.step"), ("lm.jacobian", None, "lm.step"),
+           ("lm.solve", None, "lm.step"), ("lm.update", None, "lm.step")]
 
 
 def test_lm_step_spans_and_counters(monkeypatch):
     vol, start, target = _lm_problem()
     masks = []
-    residuals = pose_recovery.banded_residuals
+    linearise = pose_recovery.lm_linearise
 
     def spy(*args, **kwargs):
-        r, m = residuals(*args, **kwargs)
-        masks.append(int(m.sum()))
-        return r, m
+        sums, rows = linearise(*args, rows=True, **kwargs)
+        masks.append(int(rows[:, 7].sum()))
+        return sums
 
-    monkeypatch.setattr(pose_recovery, "banded_residuals", spy)
+    monkeypatch.setattr(pose_recovery, "lm_linearise", spy)
     with profiling.counting() as counts:
         (_xi, history), spans = _profiled(
             lambda: pose_recovery.recover_pose_lm(vol, start, target, iters=3))
     assert spans == sum(([("lm.step", i, None)] + LM_STEP for i in range(3)), [])
-    # six dual passes a step, each with the step's one mask
-    assert len(masks) == 18 and all(len(set(masks[i:i + 6])) == 1 for i in (0, 6, 12))
+    # one linearisation a step, on the CPU its plain twin: lm.linearised
+    # counts only the kernel's
+    assert len(masks) == 3
     totals = counts.totals()
     assert totals == {"lm.accepted": sum(h["accepted"] for h in history),
-                      "lm.inliers": sum(masks[::6]), "lm.steps": 3}
+                      "lm.inliers": sum(masks), "lm.steps": 3}
     assert 0 < totals["lm.inliers"] <= 3 * W * H
     assert isinstance(totals["lm.inliers"], int)
 

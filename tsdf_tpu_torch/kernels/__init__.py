@@ -7,7 +7,7 @@ PyTorch twin only on CPU tensors; each keeps a launch count on its
 
 from __future__ import annotations
 
-from . import bilateral, gather, integrate, raycast
+from . import bilateral, gather, integrate, lm, raycast
 
 KERNELS = {
     "integrate": integrate.KERNEL,
@@ -25,6 +25,7 @@ KERNELS = {
     "lane_gather_if_missed": gather.KERNEL_IF_MISSED,
     "bilateral": bilateral.KERNEL,
     "gather_probe": gather.KERNEL_PROBE,
+    "lm_linearise": lm.KERNEL,
     # the bfloat16-storage instances of the kernels that read the volume
     "integrate_bf16": integrate.KERNEL_BF16,
     "integrate_color_bf16": integrate.KERNEL_COLOR_BF16,
@@ -35,6 +36,7 @@ KERNELS = {
     "integrate_warped_color_bf16": integrate.KERNEL_WARPED_COLOR_BF16,
     "integrate_pose_grad_bf16": integrate.KERNEL_POSE_GRAD_BF16,
     "integrate_pose_grad_slab_bf16": integrate.KERNEL_POSE_GRAD_SLAB_BF16,
+    "lm_linearise_bf16": lm.KERNEL_BF16,
 }
 
 

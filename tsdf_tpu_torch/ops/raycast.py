@@ -39,19 +39,26 @@ def _mat3_rows(m, v0, v1, v2):
     return [m[i, 0] * v0 + m[i, 1] * v1 + m[i, 2] * v2 for i in range(3)]
 
 
-def ray_directions(
+def pixel_rays(
     camera: Camera, width: int, height: int, row0: int = 0
-) -> torch.Tensor:
-    """(H, W, 3) unit world-space ray directions: normalize(R K^-1 p),
-    for the image rows row0 .. row0 + H - 1."""
+) -> list[torch.Tensor]:
+    """The camera-space rays K^-1 (x, y, 1) of the image rows row0 ..
+    row0 + H - 1: three (H, W) components."""
     dev = camera.device
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     ys = torch.arange(row0, row0 + height, dtype=torch.float32,
                       device=dev)[:, None]
     xs, ys = xs.expand(height, width), ys.expand(height, width)
     ki = camera.k_inv
-    d_cam = [ki[i, 0] * xs + ki[i, 1] * ys + ki[i, 2] for i in range(3)]
-    d = _mat3_rows(camera.rotation, *d_cam)
+    return [ki[i, 0] * xs + ki[i, 1] * ys + ki[i, 2] for i in range(3)]
+
+
+def ray_directions(
+    camera: Camera, width: int, height: int, row0: int = 0
+) -> torch.Tensor:
+    """(H, W, 3) unit world-space ray directions: normalize(R K^-1 p),
+    for the image rows row0 .. row0 + H - 1."""
+    d = _mat3_rows(camera.rotation, *pixel_rays(camera, width, height, row0))
     norm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     return torch.stack([c / norm for c in d], dim=-1)
 

@@ -19,18 +19,9 @@ from __future__ import annotations
 import torch
 
 
-def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
-    """Sample ``values`` at grid-local points.
-
-    Args:
-      values: (Z, Y, X) f32 or bf16 volume.
-      points: (..., 3) f32 grid-local mm coords (world - space_min),
-        components (x, y, z).
-      voxel_size: (3,) f32 mm.
-
-    Returns:
-      (...,) f32 interpolated values.
-    """
+def _stencil(values: torch.Tensor, points, voxel_size):
+    """The eight f32 taps c000 .. c111 (x, y, z indices) of each point and
+    its fractions u, v, w under the border rules, and the points as f32."""
     sz, sy, sx = values.shape
     dev = values.device
     voxel_size = torch.as_tensor(voxel_size, dtype=torch.float32, device=dev)
@@ -41,10 +32,10 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
     max_values = torch.stack(
         [voxel_size[0] * sx, voxel_size[1] * sy, voxel_size[2] * sz]
     )
-    p = torch.where(p >= max_values, max_values - voxel_size / 10.0, p)
-    p = torch.where(p < 0.0, torch.zeros_like(p), p)
+    q = torch.where(p >= max_values, max_values - voxel_size / 10.0, p)
+    q = torch.where(q < 0.0, torch.zeros_like(q), q)
 
-    g = p / voxel_size - 0.5
+    g = q / voxel_size - 0.5
     lower = torch.clamp(torch.floor(g), min=0.0)
     uvw = g - lower
     u, v, w = uvw[..., 0], uvw[..., 1], uvw[..., 2]
@@ -62,15 +53,12 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
         # and the blend still runs in f32
         return flat[(izs[dz] * sy + iys[dy]) * sx + ixs[dx]].to(torch.float32)
 
-    c000 = tap(0, 0, 0)
-    c001 = tap(0, 0, 1)
-    c010 = tap(0, 1, 0)
-    c011 = tap(0, 1, 1)
-    c100 = tap(1, 0, 0)
-    c101 = tap(1, 0, 1)
-    c110 = tap(1, 1, 0)
-    c111 = tap(1, 1, 1)
+    taps = [tap(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    return taps, u, v, w, p, max_values, voxel_size
 
+
+def _blend(taps, u, v, w):
+    c000, c001, c010, c011, c100, c101, c110, c111 = taps
     return (
         c000 * (1 - u) * (1 - v) * (1 - w)
         + c001 * (1 - u) * (1 - v) * w
@@ -81,6 +69,42 @@ def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
         + c110 * u * v * (1 - w)
         + c111 * u * v * w
     )
+
+
+def trilinear_sample(values: torch.Tensor, points, voxel_size) -> torch.Tensor:
+    """Sample ``values`` at grid-local points.
+
+    Args:
+      values: (Z, Y, X) f32 or bf16 volume.
+      points: (..., 3) f32 grid-local mm coords (world - space_min),
+        components (x, y, z).
+      voxel_size: (3,) f32 mm.
+
+    Returns:
+      (...,) f32 interpolated values.
+    """
+    taps, u, v, w, *_ = _stencil(values, points, voxel_size)
+    return _blend(taps, u, v, w)
+
+
+def trilinear_sample_and_grad(values: torch.Tensor, points, voxel_size):
+    """:func:`trilinear_sample` (the same bits) and its gradient in the
+    point, (..., 3) f32 mm^-1: the derivative of the blend in each
+    fraction over the voxel size, and 0 along a coordinate the border
+    rules hold (pulled back from the far face or clamped at 0); the lower
+    corner's ``floor`` has none. ``csrc/lm_linearise.cu`` evaluates the
+    same expressions in the same order."""
+    taps, u, v, w, p, max_values, voxel_size = _stencil(values, points, voxel_size)
+    c000, c001, c010, c011, c100, c101, c110, c111 = taps
+    fu = ((c100 - c000) * (1 - v) * (1 - w) + (c101 - c001) * (1 - v) * w
+          + (c110 - c010) * v * (1 - w) + (c111 - c011) * v * w)
+    fv = ((c010 - c000) * (1 - u) * (1 - w) + (c011 - c001) * (1 - u) * w
+          + (c110 - c100) * u * (1 - w) + (c111 - c101) * u * w)
+    fw = ((c001 - c000) * (1 - u) * (1 - v) + (c011 - c010) * (1 - u) * v
+          + (c101 - c100) * u * (1 - v) + (c111 - c110) * u * v)
+    free = (p >= 0.0) & (p < max_values)
+    grad = torch.where(free, torch.stack([fu, fv, fw], dim=-1) / voxel_size, 0.0)
+    return _blend(taps, u, v, w), grad
 
 
 def trilinear_weights_and_indices(values_shape, points, voxel_size):

@@ -12,9 +12,12 @@ drive them:
 * through the raycast (``tools/run_config4.py``): Levenberg-Marquardt on
   the depth residuals of a differentiable render against a target depth
   image. Each step marches once at the current pose (the raycast kernel,
-  no gradient) and takes the (H*W, 6) Jacobian by forward-mode AD through
-  the Newton correction only (``ops.raycast_diff.correct``), six dual
-  passes: the tangents flow only through the correction in any case.
+  no gradient), then linearises the Newton correction
+  (``ops.raycast_diff.correct``) in one pass: every ray's residual and
+  row of the (H*W, 6) Jacobian, summed into the normal equations
+  (``kernels.lm.lm_linearise``, the kernel ``csrc/lm_linearise.cu``). The
+  tangents flow only through the correction in any case; six forward-mode
+  dual passes through ``banded_residuals`` take the same Jacobian.
 
 Both follow their tensors' device: on CUDA tensors every kernel runs, on
 CPU tensors the plain twins.
@@ -25,12 +28,13 @@ from __future__ import annotations
 import time
 
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ..camera import Camera
 from ..kernels.integrate import integrate_pose
+from ..kernels.lm import lm_linearise
+from ..ops.lm_linearise import normal_equations
 from ..ops.raycast import REFERENCE_MAX_STEPS
-from ..ops.raycast_diff import correct, march, slope, vertices_to_depth
+from ..ops.raycast_diff import correct, march, vertices_to_depth
 from ..utils.profiling import count, count_tensor, trace
 from ..utils.se3 import matmul_small, se3_exp
 from ..volume import TSDFVolume
@@ -169,47 +173,35 @@ def lm_step(
     ``se3_exp(xi) @ camera.pose``: (new xi, rms of the residuals at
     ``xi``), both on the device.
 
-    One march and one slope f'(t0) at the current pose; the residuals and
-    their (H*W, 6) Jacobian by six forward-mode dual passes through the
-    correction (the residuals are their primal); then
-    (J^T J + lam diag(J^T J)) dx = -J^T r, solved without a host sync.
+    One march at the current pose; then, in one pass, every ray's
+    residual of the Newton correction with its slope f'(t0) frozen and
+    its row of the (H*W, 6) Jacobian, summed into J^T J, J^T r, the sum of
+    r^2 and the band's inliers (``kernels.lm.lm_linearise``: the kernel on
+    CUDA tensors, its plain twin on CPU tensors; the Jacobian of six
+    forward-mode dual passes through ``banded_residuals``); then
+    (J^T J + lam diag(J^T J)) dx = -J^T r, solved in float64 without a
+    host sync.
 
     Spans ``lm.march`` (the pose, the raycast-kernel march, t0 and the
-    hits), ``lm.slope``, ``lm.jacobian`` (the six dual passes) and
-    ``lm.solve`` (J^T J, J^T r, the damped solve, the rms). Counter
-    ``lm.inliers`` (the band's mask, summed for the rms), by reference.
+    hits), ``lm.jacobian`` (the slope, the residuals, the Jacobian and the
+    sums) and ``lm.solve`` (the damped solve, the rms). Counters
+    ``lm.inliers`` (the band's mask, summed, by reference) and
+    ``lm.linearised`` (the steps the kernel took, from the wrapper).
     """
     xi = xi.detach()
     h, w = target.shape
     with trace("lm.march"):
         cam = _twisted(camera, xi)
         t0, hit = march(vol, cam, w, h, max_steps=max_steps)
-    with trace("lm.slope"):
-        fp = slope(vol, cam, t0, w, h)
     with trace("lm.jacobian"):
-        cols = []
-        # the tangents are rows of one identity: setting an element of a
-        # card's tensor from a Python number is a blocking copy
-        tangents = torch.eye(6, dtype=_F32, device=xi.device)
-        with fwAD.dual_level():
-            for j in range(6):
-                x = fwAD.make_dual(xi, tangents[j])
-                rj, m = banded_residuals(vol, _twisted(camera, x), target, t0,
-                                         hit, fp=fp)
-                r, dr = fwAD.unpack_dual(rj)
-                cols.append(dr.reshape(-1))
+        sums = lm_linearise(vol, camera, cam, xi, t0, hit, target, BAND_MM)
     with trace("lm.solve"):
-        jac = torch.stack(cols, dim=-1)
-        rf = r.reshape(-1)
-        jtj = jac.T @ jac
-        jtr = jac.T @ rf
+        jtj, jtr, rr, inliers = normal_equations(sums)
         a = jtj + lam * torch.diag(torch.diag(jtj))
         dx = torch.linalg.solve_ex(a, -jtr[:, None]).result[:, 0]
-        inliers = m.sum()
-        count_tensor("lm.inliers", inliers)
-        n = torch.clamp(inliers.to(_F32), min=1.0)
-        rms = torch.sqrt((rf * rf).sum() / n)
-    return xi + dx, rms
+        count_tensor("lm.inliers", inliers.to(torch.int64))
+        rms = torch.sqrt(rr / torch.clamp(inliers, min=1.0))
+    return xi + dx.to(_F32), rms.to(_F32)
 
 
 def recover_pose_lm(
