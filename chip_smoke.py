@@ -10,7 +10,8 @@ reference's 255^3 / 2550 mm, on one NVIDIA card.
 Phases (any failed check exits non-zero; nothing is caught):
 
   1. environment: torch/CUDA versions, the card, its power limit;
-  2. build: compile csrc/*.cu with nvcc into the package's build dir;
+  2. build: compile csrc/*.cu with nvcc into the package's build dir,
+     and the native PNG library (csrc/png_unfilter.cpp);
   3. each kernel against its plain PyTorch twin on the card, at the
      shapes the main paths give it, with CUDA-event median times
      (``tsdf_tpu_torch.utils.profiling.median_ms``), the
@@ -63,7 +64,7 @@ Phases (any failed check exits non-zero; nothing is caught):
      tools/run_config4.py: first the linearisation kernel
      (csrc/lm_linearise.cu) at a twisted pose, float32 and bf16, two calls
      bit-equal, its sums against the plain twin's, its time beside its
-     bound, the twin's and the six dual passes it replaced; then
+     bound and the six dual passes it replaced; then
      Levenberg-Marquardt through raycast_diff from a 25.6 mm offset until
      the translation error is under 1 mm, at most 80 iterations: rms and
      error a step, ms a step, one raycast and one lm_linearise launch a
@@ -76,35 +77,32 @@ Phases (any failed check exits non-zero; nothing is caught):
      frame from a nearby pose, with launch counts and the recovered
      motion; then the package-level API (``api``): the root ``integrate``
      (depth, and with colour) against ``integrate_cuda`` /
-     ``integrate_color_cuda`` over two 512^3 frames, the stacked
+     ``integrate_color_cuda`` over two 512^3 frames and the stacked
      ``icp_step_banded`` against the planar form at level 0 of the first
-     tracked frame, the root ``raycast`` and ``render_to_depth_image``
-     against their wrappers, all bit-equal with their launches counted; a
+     tracked frame, all bit-equal with their launches counted; a
      checkpoint resume at 512^3 (2 frames, ``save_sharded``,
      ``load_sharded``, 2 more) bit-equal with 4 frames fused straight,
      with the save and load seconds; the ``view`` verb on the saved .tsdf
-     (seconds; the tiles on the card byte-equal with the CPU's); the
-     ``convert`` verb on a 640x480 freenect PGM and a 256^3 float volume;
-     a ``Timer`` span and a ``profile_to`` trace around a fused frame;
-  5. the per-frame fuse time of the device loop alone;
-  6. the tracked path: the same directory through
+     (seconds; the tiles on the card byte-equal with the CPU's); a
+     ``Timer`` span and a ``profile_to`` trace around a fused frame;
+  5. the tracked path: the same directory through
      ``cli.main(["fuse", "--track", "--filter", ...])`` (its poses serve
      only as the first pose and for the trajectory error), with launch
      counts, no lost frame, the trajectory error under one voxel, and the
-     same output checks;
-  7. the tracked device loop alone: ms/frame, its split into bilateral /
-     raycast / ICP / integrate by CUDA events, host syncs per frame;
-  8. colour fusion: ``cli.main(["fuse", "--fuse-color", "--color", ...])``
+     same output checks; then the tracked device loop alone on the same
+     frames: no lost frame, the trajectory error under one voxel, at most
+     one host sync a tracked frame;
+  6. colour fusion: ``cli.main(["fuse", "--fuse-color", "--color", ...])``
      on the same directory, whose rgb/ frames hold a closed-form colour of
      the hit point (launch counts, the colour render against that colour,
      the coloured PLY, the .tsdf's colour against an in-process fuse);
      then ``fuse --fuse-color --track --filter`` (launch counts, no lost
      frame, trajectory error, colour render);
-  9. ``integrate_mode="fast"`` through ``fuse_frames`` (depth, and depth +
+  7. ``integrate_mode="fast"`` through ``fuse_frames`` (depth, and depth +
      colour) and ``track_and_fuse_frames``: launch counts, no miss, the
      fused field against the exact fusion and the analytic surface, and
      ms/frame of the fast and the exact fuse loop side by side;
- 10. bf16 storage (``TSDFVolume.astype``): each bf16 kernel instance (the
+  8. bf16 storage (``TSDFVolume.astype``): each bf16 kernel instance (the
      four integrates of the brick walk, the raycast, the warped integrate
      with and without colour, the pose adjoint) bit-equal with its bf16
      twin, timed in turns with its float32 instance, its bound with 2-byte
@@ -115,20 +113,14 @@ Phases (any failed check exits non-zero; nothing is caught):
      of both; the tracked loop on a bf16 volume; the marching-cubes vertex
      count beside float32's; the SceneFusion loop and colour frames into a
      deformed bf16 volume; one config4b step on a bf16 volume;
- 11. decode: the TUM frames rewritten with Paeth and mixed row filters,
-     the native unfilter (``csrc/png_unfilter.cpp``) bit-equal with its
-     twin on every file, ms/frame of the Python codec, the native codec,
-     ``load_png16_batch`` and the prefetched loader, and the ``fuse`` verb's
-     wall time on the filtered frames (native and Python codec) beside the
-     unfiltered ones, renders byte-equal; the native library must build;
- 12. SceneFusion: a fabricated RGB-D + PD-Flow directory (a sphere seen
+  9. SceneFusion: a fabricated RGB-D + PD-Flow directory (a sphere seen
      from the identity pose, a uniform +x flow of 4 + i mm) through
      ``cli.main(["sfusion", ...])`` with exact launch counts; the
      ``SceneFusion`` class on the same files with dumps, bit-equal to a
      run through the plain twins and to a second run; the deformation
      field against the flow that was fed; ms per frame, its split and its
      host syncs; colour frames into a deformed volume;
- 13. sharded (run after phase 9): the mesh path of ``parallel/`` on the
+ 10. sharded (run after phase 7): the mesh path of ``parallel/`` on the
      20 frames at 512^3. Four ranks share this card over gloo (a
      correctness configuration, not a multi-card speed), as mesh 4x1 and
      then 2x2: the GT-pose ``integrate_sharded`` gathered bit-equal with
@@ -145,16 +137,16 @@ Phases (any failed check exits non-zero; nothing is caught):
      slab with deformation and colour saved on 4x1 and restored onto 2x2
      bit for bit, a resume on 4x1 of 2 + 2 frames bit-equal with 4 fused
      straight on one card; each rank's save and load seconds, the bytes on
-     disk) and ``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 12's
+     disk) and ``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 9's
      files on both meshes, held after every frame to the single-card
      class beside it (n_corr equal, deform and tsdf within
      SF_MESH_DEFORM_MM / SF_MESH_TSDF_MM, weights equal, bit-equality
      logged), its ``extract_mesh`` PLY and one ``dump`` byte-equal with the
      single card's, then timed on the frames on the card (slowest rank,
      each rank's launches). After ``fuse --devices 1x1``, ``sfusion
-     --devices 1x1`` on NCCL: stdout and PLY byte-equal with phase 12's
-     verb (which now runs before this phase), integrate_warped 6,
-     row_gather 5, lane_gather at least phase 12's. With four cards,
+     --devices 1x1`` on NCCL: stdout and PLY byte-equal with phase 9's
+     verb (which runs before this phase), integrate_warped 6,
+     row_gather 5, lane_gather at least phase 9's. With four cards,
      ``fuse`` on 4x1 and 2x2 meshes of cards, and ``sfusion -s 256`` on
      both against one card's (byte-equal); else one line says they did
      not run.
@@ -182,14 +174,9 @@ runs only phase 3b's Levenberg-Marquardt half (the linearisation kernel,
 then the recovery) and prints what it found as one JSON object on the
 last line.
 
-    python3 chip_smoke.py --probe
-
-runs, in place of phases 3-9, the measurements PERF.md's findings rest
-on and prints them as one JSON object on the last line.
-
     python3 chip_smoke.py --config3 [--frames N] [--noise] [--eps]
 
-runs, in place of phases 3-9, the tracked loop on the 500-pose orbit of a
+runs, in place of phases 3-10, the tracked loop on the 500-pose orbit of a
 wall-and-sphere scene at 256^3 (the workload of tools/run_config3.py) and
 prints ms/frame and the trajectory errors as one JSON object on the last
 line.
@@ -520,6 +507,9 @@ def phase_environment() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    """The kernels' library with nvcc, and the native PNG library with the
+    host's compiler: without it the verbs decode frames in Python."""
+    from tsdf_tpu_torch import native
     from tsdf_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -527,6 +517,8 @@ def phase_build() -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path()})")
+    check(native.available(), f"the native PNG library did not build: "
+          f"{native.build_error()}")
 
 
 def voxels_in_front(vol, cam) -> int:
@@ -574,7 +566,6 @@ def compare_integrate(dev, frames) -> dict:
           "a frame with no depth leaves a brick unculled")
     ms = median_ms(lambda: integrate_cuda(out, depth, cam), reps=20)
     zero_depth_ms = median_ms(lambda: integrate_cuda(out, no_depth, cam), reps=20)
-    plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=5)
     parent = parent_in_turns([integrate.KERNEL],
                              lambda: integrate_cuda(out, depth, cam), 20, ms,
                              "integrate 512^3 one frame")
@@ -588,12 +579,12 @@ def compare_integrate(dev, frames) -> dict:
         16 * updated + depth.numel() * 4,
         ops["voxel"] * SIZE**3 + ops["in_front"] * in_front
         + ops["updated"] * updated)
-    log(f"integrate 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"integrate 512^3 one frame: kernel {ms:.4f} ms, "
         f"bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
         f"({updated} voxels updated, {in_front} in front of the camera); "
         f"{culled:.4f} of the bricks culled; a frame with no depth "
         f"{zero_depth_ms:.4f} ms (every brick culled)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+    return dict(max_abs_err=err, ms=ms, **least,
                 library_ms=None, zero_depth_ms=zero_depth_ms,
                 culled_share=culled, parent_ms=parent)
 
@@ -687,7 +678,6 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
               f"{name}: the kernel differs from its twin")
 
         ms = median_ms(lambda: kernel(name, out, 1), reps=20)
-        plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
         # the bricks the kernel culls, and a frame with no depth: it must
         # leave the volume as it is
         extra = {"culled_share": float(
@@ -732,11 +722,11 @@ def compare_integrate_variants(dev, frames, rgbs) -> dict:
             moved += 6 * band + pixels * 3
             ops += COLOR_OPS_PER_BAND_VOXEL * band
         least = bound(moved, ops)
-        log(f"{name} 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        log(f"{name} 512^3 one frame: kernel {ms:.4f} "
             f"ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
             f"({updated} voxels updated"
             + (f", {band} in the colour band" if color else "") + ")")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        results[name] = dict(max_abs_err=err, ms=ms,
                              **least, library_ms=None, **extra)
         del ref, out, before
     return results
@@ -841,7 +831,6 @@ def compare_raycast(dev, vols: dict, pose) -> dict:
         ms = median_ms(lambda: raycast_vertices_cuda(vol, cam, W, H), reps=10)
         prepass_ms = median_ms(
             lambda: raycast_vertices_cuda(vol, cam, W, H, max_steps=0), reps=10)
-        plain_ms = median_ms(lambda: raycast_vertices(vol, cam, W, H), reps=3)
         parent = parent_in_turns(
             [KERNEL], lambda: raycast_vertices_cuda(vol, cam, W, H), 10, ms,
             f"raycast 512^3, {name} volume")
@@ -849,12 +838,12 @@ def compare_raycast(dev, vols: dict, pose) -> dict:
             4 * n_voxels + 12 * W * H,
             RAYCAST_OPS["ray"] * W * H + RAYCAST_OPS["sample"] * n_samples)
         log(f"raycast 512^3 {W}x{H} vertices, {name} volume: kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"ms, bound {least['bound_ms']:.4f} ms by "
             f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
             f"voxels read); {n_uniform / n_samples:.4f} of the samples in "
             f"uniform bricks; a render of no step (brick table, ray set-up) "
             f"{prepass_ms:.4f} ms")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+        rows[name] = dict(max_abs_err=err, ms=ms, **least,
                           library_ms=None, samples=n_samples,
                           uniform_share=n_uniform / n_samples,
                           prepass_ms=prepass_ms, parent_ms=parent)
@@ -888,7 +877,7 @@ def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
     )
 
     n_timed = len(calls) if n_timed is None else n_timed
-    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+    out = dict(max_abs_err=0.0, ms=0.0, library_ms=0.0,
                bound_ms=0.0, bound_by="bytes", each=[], launch_choices=[])
     for n, ((table, idx), what) in enumerate(zip(calls, whats)):
         launch, tile_rows = lane_gather_launch(
@@ -908,7 +897,6 @@ def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
             log(f"lane gather {shapes}: bit-equal")
             continue
         ms = median_ms(lambda: lane_gather_op(table, idx), reps=10, inner=10)
-        plain_ms = median_ms(lambda: take_or_zero(table, idx), reps=10, inner=10)
         # the one PyTorch call for the same function; it takes int64
         # indices inside the table, prepared outside the timing
         idx64 = idx.clamp(0, table.shape[1] - 1).to(torch.int64)
@@ -918,12 +906,12 @@ def hold_lane_gathers(calls, whats, n_timed=None) -> dict:
         words = table.shape[1] if table.stride(0) == 0 else table.numel()
         least = bound(4 * (2 * idx.numel() + words), idx.numel())
         check(least["bound_by"] == "bytes", "lane gather bound")
-        log(f"lane gather {shapes}: bit-equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound "
+        log(f"lane gather {shapes}: bit-equal; kernel {ms:.4f} ms, "
+            f"torch.gather {library_ms:.4f} ms, bound "
             f"{least['bound_ms']:.4f} ms by bytes")
-        each = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        each = dict(ms=ms, library_ms=library_ms,
                     bound_ms=least["bound_ms"], launch=launch)
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "library_ms", "bound_ms"):
             out[key] += each[key]
         out["each"].append(each)
     return out
@@ -981,7 +969,7 @@ def compare_gather(dev, vol, depth_prev: torch.Tensor) -> dict:
     log(f"lane gather, one extraction's four calls ({n_occ} occupied cubes, "
         f"max_cubes {MAX_CUBES}) and the ICP lookup of each level: bit-equal, "
         f"max |diff| {out['max_abs_err']:.3g}; timed without the two coarser "
-        f"levels: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+        f"levels: kernel {out['ms']:.4f} ms, "
         f"torch.gather {out['library_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms")
     return out
@@ -1053,13 +1041,11 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
         nans = int(torch.isnan(want.float()).sum())
         ms = median_ms(
             lambda: bilateral_filter_cuda(d, *sigmas), reps=10, inner=10)
-        plain_ms = median_ms(lambda: bilateral_filter(d, *sigmas),
-                             reps=1 if name == wide else 3)
         plan = launch_plan(filter_radius(sigmas[1] if sigmas else 3.0),
                            *d.shape)
         log(f"bilateral {W}x{H} {name}: bit-equal {equal} (max |diff| "
-            f"{err:.3g}, {nans} NaN in the twin), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; instance {plan.instance or 'runtime radius'},"
+            f"{err:.3g}, {nans} NaN in the twin), kernel {ms:.4f} ms; "
+            f"instance {plan.instance or 'runtime radius'},"
             f" {plan.block[0]}x{plan.block[1]} threads x {plan.rows} rows, "
             f"grid {plan.grid[0]}x{plan.grid[1]}, {plan.shared_bytes} B of "
             f"shared memory")
@@ -1071,8 +1057,7 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
             parent = parent_in_turns(
                 [KERNEL], lambda: bilateral_filter_cuda(d, *sigmas), 10, ms,
                 f"bilateral {name}", inner=10)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         parent_ms=parent)
+        out[name] = dict(max_abs_err=err, ms=ms, parent_ms=parent)
     # the work the float32 default case needs: a tap counts where the
     # centre and the tap both hold data; the image is read and written once
     side = 2 * filter_radius(3.0) + 1
@@ -1108,7 +1093,7 @@ def compare_bilateral(dev, depth: torch.Tensor) -> dict:
                 issue_floor_ms=issue_floor, instructions_per_tap=per_tap,
                 sm_clock_mhz=mhz,
                 registers=registers,
-                u16_ms=out["u16"]["ms"], u16_plain_ms=out["u16"]["plain_ms"],
+                u16_ms=out["u16"]["ms"],
                 u16_parent_ms=out["u16"]["parent_ms"],
                 r3_ms=out[other]["ms"], r3_parent_ms=out[other]["parent_ms"],
                 r60_ms=out[wide]["ms"],
@@ -1298,22 +1283,16 @@ def api_integrate(dev, frames, rgbs, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def api_raycast_icp(dev, frames, smi: str) -> None:
+def api_icp_step(dev, frames, smi: str) -> None:
     """The stacked ``icp_step_banded`` against the planar form at level 0
     of the tracked loop's first frame (the filtered second frame against
     the model depth of the volume the first one fused), one lane-gather
-    launch each; then the root ``raycast`` and ``render_to_depth_image``
-    against their wrappers on the volume the two frames leave, one
-    raycast launch each, and ``raycast(mode="fixed")`` refused."""
-    from tsdf_tpu_torch import Camera, make_volume, raycast, render_to_depth_image
+    launch each."""
+    from tsdf_tpu_torch import Camera, make_volume
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
     from tsdf_tpu_torch.kernels.integrate import integrate_cuda
-    from tsdf_tpu_torch.kernels.raycast import (
-        raycast_cuda,
-        raycast_vertices_cuda,
-        render_to_depth_image_cuda,
-    )
+    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
     from tsdf_tpu_torch.ops.raycast import vertices_to_camera_depth
     from tsdf_tpu_torch.tracking.icp import (
         icp_step_banded,
@@ -1325,9 +1304,8 @@ def api_raycast_icp(dev, frames, smi: str) -> None:
     )
 
     vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
-    cams = [Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(p)
-            for _, p in frames[:2]]
-    cam = cams[0]
+    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(
+        frames[0][1])
     integrate_cuda(vol, frames[0][0], cam)
 
     cfg = tracked_config()
@@ -1360,41 +1338,6 @@ def api_raycast_icp(dev, frames, smi: str) -> None:
         f"({inliers} inliers), one lane-gather launch each ({smi})")
     check(inliers > 0.02 * W * H, "api: too few ICP inliers")
     check(same, "api: stacked icp_step_banded differs from the planar form")
-
-    integrate_cuda(vol, frames[1][0], cams[1])
-    runs = {}
-    for what, fn in (
-        ("root raycast", lambda: raycast(vol, cam, W, H)),
-        ("raycast_cuda", lambda: raycast_cuda(vol, cam, W, H)),
-        ("root render_to_depth_image",
-         lambda: render_to_depth_image(vol, cam, W, H)),
-        ("render_to_depth_image_cuda",
-         lambda: render_to_depth_image_cuda(vol, cam, W, H)),
-    ):
-        reset_launch_counts()
-        runs[what] = fn()
-        torch.cuda.synchronize()
-        check_counts(launch_counts(), f"api: {what}", raycast=1)
-    (v0, n0), (v1, n1) = runs["root raycast"], runs["raycast_cuda"]
-    hits = int(torch.isfinite(v0).all(-1).sum())
-    same = (torch.equal(v0.nan_to_num(7.0), v1.nan_to_num(7.0))
-            and torch.equal(torch.isnan(v0), torch.isnan(v1))
-            and torch.equal(n0, n1))
-    depth_same = torch.equal(runs["root render_to_depth_image"],
-                             runs["render_to_depth_image_cuda"])
-    log(f"api: root raycast against raycast_cuda at 512^3, {W}x{H}: vertices "
-        f"and normals bit-equal {same} ({hits} hits); root "
-        f"render_to_depth_image against render_to_depth_image_cuda: bit-equal "
-        f"{depth_same}; one raycast launch each ({smi})")
-    check(hits > 0.5 * W * H, "api: the raycast hit too few pixels")
-    check(same, "api: root raycast differs from raycast_cuda")
-    check(depth_same, "api: root render_to_depth_image differs")
-    try:
-        raycast(vol, cam, W, H, mode="fixed")
-        refused = False
-    except ValueError as e:
-        refused = "fixed-step raycast kernel" in str(e)
-    check(refused, "api: raycast(mode='fixed') on CUDA tensors did not raise")
 
 
 def api_checkpoint(dev, frames, tmp: str, smi: str) -> None:
@@ -1472,52 +1415,6 @@ def api_view(dev, tsdf_path: str, out_dir: str, smi: str) -> None:
     shutil.rmtree(view_dir)
 
 
-def api_convert(tmp: str, smi: str) -> None:
-    """``cli.main(["convert", ...])``, host code: a 640x480 freenect PGM to
-    PNG (and as a plain PGM), and a 256^3 float volume to bytes."""
-    from tsdf_tpu_torch import cli
-    from tsdf_tpu_torch.io.convert import freenect_raw11_to_mm
-    from tsdf_tpu_torch.io.pgm import load_pgm, save_pgm
-    from tsdf_tpu_torch.io.png import load_png
-
-    rng = np.random.default_rng(13)
-    raw = rng.integers(300, 1100, size=(H, W)).astype(np.uint16)
-    raw[rng.random((H, W)) < 0.05] = 2047
-    pgm = os.path.join(tmp, "freenect.pgm")
-    save_pgm(pgm, raw.byteswap())  # freenect writes the low byte first
-    fl = os.path.join(tmp, "volume.fl")
-    vol = rng.uniform(-4.0, 9.0, size=256**3).astype(np.float32)
-    with open(fl, "wb") as f:
-        np.array([256, 256, 256], np.uint32).tofile(f)
-        np.array([2550.0] * 3, np.float32).tofile(f)
-        vol.tofile(f)
-    times = {}
-    for kind, src, dst in (("freenect2png", pgm, "depth.png"),
-                           ("pgm2png", pgm, "raw.png"),
-                           ("fl2uchar", fl, "volume.u8")):
-        dst = os.path.join(tmp, dst)
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["convert", kind, src, dst])
-        times[kind] = time.perf_counter() - t0
-        check(rc == 0 and os.path.getsize(dst) > 0, f"api: convert {kind}")
-        log(out.getvalue().rstrip())
-    check(np.array_equal(load_png(os.path.join(tmp, "depth.png")),
-                         freenect_raw11_to_mm(raw)), "api: freenect2png")
-    check(np.array_equal(load_png(os.path.join(tmp, "raw.png")), load_pgm(pgm)),
-          "api: pgm2png")
-    u8 = np.fromfile(os.path.join(tmp, "volume.u8"), np.uint8)
-    lo, hi = float(vol.min()), float(vol.max())
-    check(np.array_equal(u8, np.clip((vol - lo) * (255.0 / (hi - lo)), 0, 255)
-                         .astype(np.uint8)), "api: fl2uchar")
-    log("api: convert (host code): " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in times.items())
-        + f" (640x480 PGM; 256^3 floats) ({smi})")
-    for f in (pgm, fl, "depth.png", "raw.png", "volume.u8"):
-        os.remove(os.path.join(tmp, f))
-
-
 def api_profiling(dev, frames, tmp: str, smi: str) -> None:
     """One ``Timer`` span and one ``profile_to`` trace around a fused
     frame: the span logs one JSON line with a positive ``ms``, the trace
@@ -1560,19 +1457,18 @@ def api_profiling(dev, frames, tmp: str, smi: str) -> None:
 
 def phase_api(dev, frames, rgbs, tsdf_path: str, tmp: str, smi: str) -> None:
     """The package-level API and the verbs and utilities ported with it:
-    the root integrate / raycast / render_to_depth_image against the
-    wrappers their routes name, the stacked ICP step against the planar
-    one, a checkpoint resume at 512^3, the ``view`` and ``convert`` verbs,
-    and the profiling helpers. Any mismatch fails the run."""
+    the root integrate against the wrappers its routes name, the stacked
+    ICP step against the planar one, a checkpoint resume at 512^3, the
+    ``view`` verb, and the profiling helpers. Any mismatch fails the
+    run."""
     api_integrate(dev, frames, rgbs, smi)
     torch.cuda.empty_cache()
-    api_raycast_icp(dev, frames, smi)
+    api_icp_step(dev, frames, smi)
     torch.cuda.empty_cache()
     api_checkpoint(dev, frames, tmp, smi)
     torch.cuda.empty_cache()
     api_view(dev, tsdf_path, os.path.dirname(tsdf_path), smi)
     torch.cuda.empty_cache()
-    api_convert(tmp, smi)
     api_profiling(dev, frames, tmp, smi)
     torch.cuda.empty_cache()
 
@@ -1616,17 +1512,16 @@ def check_tracked_output(stdout: str, what: str) -> None:
 def phase_surface(dev, outs: dict, first_pose: np.ndarray) -> float:
     """Raycast the saved volume from the first pose, as the CLI's render
     did, and measure the hits against the analytic scene."""
-    from tsdf_tpu_torch import Camera
+    from tsdf_tpu_torch import Camera, raycast
     from tsdf_tpu_torch.io.png import load_png
     from tsdf_tpu_torch.io.tsdf_file import load_tsdf
-    from tsdf_tpu_torch.kernels.raycast import raycast_cuda
 
     vol = load_tsdf(outs["tsdf"], device=dev)
     check(tuple(vol.tsdf.shape) == (SIZE,) * 3, "saved volume shape")
     check(bool(torch.isfinite(vol.tsdf).all()), "non-finite tsdf")
     cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(
         torch.as_tensor(first_pose, dtype=torch.float32))
-    verts, _ = raycast_cuda(vol, cam, W, H)
+    verts, _ = raycast(vol, cam, W, H)
     hit = torch.isfinite(verts).all(-1)
     dist = surface_distance(verts[hit])
     med = float(dist.median())
@@ -1662,25 +1557,6 @@ def load_rgbs(dev, tum: str) -> list[torch.Tensor]:
             for _, _, rgb in TUMDataLoader(tum).iter_with_rgb()]
 
 
-def phase_fuse_time(dev, frames) -> float:
-    from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.kernels.integrate import KERNEL
-    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
-
-    cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
-    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
-    vol = cfg.make_volume(device=dev)
-    ms = median_ms(lambda: fuse_frames(vol, cam, frames, cfg), reps=3)
-    ms /= len(frames)
-    log(f"fuse loop on the device, 512^3: {ms:.4f} ms/frame "
-        f"(median of 3 runs of {len(frames)} frames already on the card)")
-    parent = parent_ms([KERNEL], lambda: fuse_frames(vol, cam, frames, cfg), 3)
-    if parent is not None:
-        log(f"fuse loop on the device, the parent's integrate kernel: "
-            f"{parent / len(frames):.4f} ms/frame")
-    return ms
-
-
 def tracked_config():
     from tsdf_tpu_torch.pipelines.kinfu import FusionConfig
 
@@ -1688,56 +1564,21 @@ def tracked_config():
                         width=W, height=H, use_bilateral_filter=True)
 
 
-def phase_tracked_time(dev, frames, gt_poses) -> dict:
-    """The tracked loop on frames already on the card: ms/frame, host
-    syncs per tracked frame, the trajectory error, and the loop's stages
-    timed one by one with CUDA events."""
+def phase_tracked_loop(dev, frames, gt_poses) -> None:
+    """The tracked loop on frames already on the card, under torch's sync
+    debug mode: the trajectory error under one voxel, no lost frame, and
+    at most one host sync a tracked frame."""
     import traceback
     import warnings
 
     from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.kernels.bilateral import bilateral_filter_cuda
-    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
-    from tsdf_tpu_torch.kernels.raycast import raycast_vertices_cuda
-    from tsdf_tpu_torch.ops.raycast import vertices_to_camera_depth
     from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
-    from tsdf_tpu_torch.tracking.icp import get_incremental_transformation
-    from tsdf_tpu_torch.utils.se3 import matmul_small
     from tsdf_tpu_torch.utils.trajectory import ate, rpe
 
     cfg = tracked_config()
     depths = [d for d, _ in frames]
     cam0 = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(frames[0][1])
     tracked = len(depths) - 1
-
-    def run():
-        vol = cfg.make_volume(device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = track_and_fuse_frames(vol, cam0, depths, cfg)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    run()  # warm: the weights and index tables go to the card once
-    times = []
-    for _ in range(3):
-        (vol, _cam, poses, stats), ms = run()
-        times.append(ms / len(depths))
-    ms_frame = float(np.median(times))
-    est = [p.cpu().numpy() for p in poses]
-    a, r = ate(est, gt_poses), rpe(est, gt_poses)
-    inliers = [int(n) for _, n in stats[1:]]
-    log(f"tracked loop on the device, 512^3 {W}x{H}: {ms_frame:.4f} ms/frame "
-        f"(median of 3 runs of {len(depths)} frames already on the card; "
-        f"runs {', '.join(f'{t:.4f}' for t in times)}); ATE rmse "
-        f"{a['rmse']:.4f} mm (max {a['max']:.4f}), RPE trans "
-        f"{r['trans_rmse']:.4f} mm/frame rot {r['rot_rmse'] * 1e3:.4f} mrad/frame; "
-        f"inliers {min(inliers)}..{max(inliers)}")
-    check(a["rmse"] < ATE_MAX_MM, "tracked loop ATE is not under one voxel")
-    check(min(inliers) > 0.02 * W * H, "a frame was lost")
-
-    # host syncs: torch's sync debug mode warns at each one
-    del vol
     vol = cfg.make_volume(device=dev)
     torch.cuda.synchronize()
     syncs = []  # (file, line, the stack that led there)
@@ -1753,13 +1594,20 @@ def phase_tracked_time(dev, frames, gt_poses) -> dict:
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            track_and_fuse_frames(vol, cam0, depths, cfg)
+            _vol, _cam, poses, stats = track_and_fuse_frames(
+                vol, cam0, depths, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    est = [p.cpu().numpy() for p in poses]
+    a, r = ate(est, gt_poses), rpe(est, gt_poses)
+    inliers = [int(n) for _, n in stats[1:]]
     per_frame = len(syncs) / tracked
-    log(f"tracked loop host syncs: {len(syncs)} in {tracked} tracked frames "
-        f"({per_frame:.3f} per frame)")
+    log(f"tracked loop on the device, 512^3 {W}x{H}: ATE rmse "
+        f"{a['rmse']:.4f} mm (max {a['max']:.4f}), RPE trans "
+        f"{r['trans_rmse']:.4f} mm/frame rot {r['rot_rmse'] * 1e3:.4f} mrad/frame; "
+        f"inliers {min(inliers)}..{max(inliers)}; host syncs: {len(syncs)} in "
+        f"{tracked} tracked frames ({per_frame:.3f} per frame)")
     places = {}
     for filename, lineno, stack in syncs:
         places.setdefault((filename, lineno), []).append(stack)
@@ -1767,44 +1615,9 @@ def phase_tracked_time(dev, frames, gt_poses) -> dict:
         via = " <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
                           for f in reversed(stacks[0][-4:]))
         log(f"  {len(stacks)} at {filename}:{lineno} ({via})")
+    check(a["rmse"] < ATE_MAX_MM, "tracked loop ATE is not under one voxel")
+    check(min(inliers) > 0.02 * W * H, "a frame was lost")
     check(len(syncs) <= tracked, "more than one host sync per tracked frame")
-
-    # the stages of track_and_fuse_frames, one by one, on the same frames
-    vol.tsdf.fill_(float(vol.truncation_distance))
-    vol.weight.zero_()
-    k = cam0.k
-    intr = (k[0, 0], k[1, 1], k[0, 2], k[1, 2])
-    cam = cam0
-    integrate_cuda(vol, depths[0], cam)
-    split = dict(bilateral=0.0, raycast=0.0, icp=0.0, integrate=0.0)
-    marks = []
-    for depth in depths[1:]:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        depth_icp = bilateral_filter_cuda(depth, cfg.sigma_colour, cfg.sigma_space)
-        ev[1].record()
-        verts = raycast_vertices_cuda(vol, cam, W, H)
-        model = vertices_to_camera_depth(verts, cam.pose_inv)
-        ev[2].record()
-        res = get_incremental_transformation(
-            depth_icp, model, *intr, band=cfg.icp_band)
-        ev[3].record()
-        cam = cam.set_pose(matmul_small(cam.pose, res.pose))
-        integrate_cuda(vol, depth, cam)
-        ev[4].record()
-        marks.append(ev)
-    torch.cuda.synchronize()
-    for ev in marks:
-        for i, name in enumerate(split):
-            split[name] += ev[i].elapsed_time(ev[i + 1]) / tracked
-    check(torch.equal(cam.pose, poses[-1]),
-          "the staged loop did not end at the tracked loop's pose")
-    log("tracked frame by stage, CUDA events (the host enqueues without "
-        "waiting, so a stage's time includes the card waiting for launches): "
-        + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
-        + f"; sum {sum(split.values()):.4f} ms")
-    return dict(tracked_ms_per_frame=ms_frame, ate_rmse_mm=a["rmse"],
-                syncs_per_frame=per_frame, split_ms=split)
 
 
 def check_color_render(path: str, first_rgb: np.ndarray, what: str) -> float:
@@ -2037,17 +1850,16 @@ SF_TOTAL_FLOW_MM = sum(SF_FLOW_MM[:SF_FRAMES - 1])
 WARP_512_MM = (80.0, 0.0, 0.0)
 
 
-def write_sfusion_dirs(dev, root: str) -> tuple[str, str, dict]:
+def write_sfusion_dirs(dev, root: str) -> tuple[str, str, np.ndarray]:
     """An RGB-D directory and a PD-Flow directory: a sphere (r = 500 mm at
     z = 1300 mm) in the 255^3 / 2550 mm volume, its depth rendered with the
     raycast kernel from the identity pose, the same frame SF_FRAMES times
     (depth_NNNNN.png / colour_NNNNN.png), and per frame a text file of
-    307200 lines with a uniform +x flow of 4 + i mm. Also the host's time
-    to write and to read one such file."""
-    from tsdf_tpu_torch import Camera, make_volume
+    307200 lines with a uniform +x flow of 4 + i mm; one of them read
+    back."""
+    from tsdf_tpu_torch import Camera, make_volume, render_to_depth_image
     from tsdf_tpu_torch.io.png import save_png
     from tsdf_tpu_torch.io.sceneflow import read_pdflow
-    from tsdf_tpu_torch.kernels.raycast import render_to_depth_image_cuda
     from tsdf_tpu_torch.utils import fixtures
 
     rgbd, flow = os.path.join(root, "rgbd"), os.path.join(root, "flow")
@@ -2058,7 +1870,7 @@ def write_sfusion_dirs(dev, root: str) -> tuple[str, str, dict]:
         make_volume((SF_SIZE,) * 3, SF_PHYSICAL, offset=SF_OFFSET, device=dev),
         radius, centre=centre)
     cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
-    depth = render_to_depth_image_cuda(scene, cam, W, H).to(torch.int32)
+    depth = render_to_depth_image(scene, cam, W, H).to(torch.int32)
     depth = depth.cpu().numpy().astype(np.uint16)
     hit = float((depth > 0).mean())
     log(f"sfusion frames: depth {depth.shape} {depth.dtype}, "
@@ -2066,7 +1878,6 @@ def write_sfusion_dirs(dev, root: str) -> tuple[str, str, dict]:
         f"{depth.max()} mm")
     check(0.2 < hit < 0.9, "the rendered sphere fills an odd share of the frame")
     ys, xs = np.mgrid[0:H, 0:W]
-    t_write = 0.0
     for i in range(SF_FRAMES):
         save_png(os.path.join(rgbd, f"depth_{i:05d}.png"), depth)
         save_png(os.path.join(rgbd, f"colour_{i:05d}.png"),
@@ -2074,19 +1885,12 @@ def write_sfusion_dirs(dev, root: str) -> tuple[str, str, dict]:
         rows = np.stack([ys.ravel(), xs.ravel(), np.zeros(H * W),
                          np.full(H * W, SF_FLOW_MM[i] / 1000.0),
                          np.zeros(H * W)], axis=1)
-        t0 = time.perf_counter()
         np.savetxt(os.path.join(flow, f"sflow_{i:05d}_results01.txt"), rows,
                    fmt="%.0f %.0f %.6f %.6f %.6f")
-        t_write += time.perf_counter() - t0
-    t0 = time.perf_counter()
     got = read_pdflow(os.path.join(flow, "sflow_00001_results01.txt"))
-    t_read = time.perf_counter() - t0
     check(got.shape == (H, W, 3) and abs(float(got[7, 9, 0]) - SF_FLOW_MM[1]) < 1e-4
           and float(np.abs(got[..., 1:]).max()) == 0.0, "read_pdflow")
-    log(f"sfusion flow files: {SF_FRAMES} files of {H * W} lines; host time to "
-        f"read one (np.loadtxt) {t_read:.3f} s, to write one "
-        f"{t_write / SF_FRAMES:.3f} s")
-    return rgbd, flow, dict(depth=depth, pdflow_read_s=t_read)
+    return rgbd, flow, depth
 
 
 @contextlib.contextmanager
@@ -2250,12 +2054,11 @@ def compare_integrate_warped(dev, frames, sf_depth, sf_flows) -> dict:
     err = max(err, equal(vol, ref, "512^3, a third frame with cap_weight"))
     depth, cam = frames[1][0], cams[1]
     ms = median_ms(lambda: integrate_warped_cuda(vol, depth, cam), reps=20)
-    plain_ms = median_ms(lambda: integrate_plain(before, depth, cam), reps=3)
     least = warped_bound(before, voxels_in_front(before, cam), updated)
-    log(f"integrate_warped 512^3 one frame: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+    log(f"integrate_warped 512^3 one frame: kernel {ms:.4f} ms, "
+        f"bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']} ({updated} voxels updated)")
-    out.update(ms_512=ms, plain_ms_512=plain_ms, bound_ms_512=least["bound_ms"],
+    out.update(ms_512=ms, bound_ms_512=least["bound_ms"],
                updated_512=updated)
     del ref, vol, before
 
@@ -2277,14 +2080,13 @@ def compare_integrate_warped(dev, frames, sf_depth, sf_flows) -> dict:
     updated = int((ref.weight > before.weight).sum())
     ms = median_ms(lambda: integrate_warped_cuda(vol, sf_depth, cam), reps=20,
                    inner=4)
-    plain_ms = median_ms(lambda: integrate_plain(before, sf_depth, cam), reps=5)
     # the camera sits at the identity pose: camera z is the centre's z
     in_front = int((ref.deform[..., 2] > 0).sum())
     least = warped_bound(ref, in_front, updated)
-    log(f"integrate_warped 255^3 one frame: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+    log(f"integrate_warped 255^3 one frame: kernel {ms:.4f} ms, "
+        f"bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']} ({updated} voxels updated)")
-    out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+    out.update(max_abs_err=err, ms=ms, **least,
                library_ms=None, updated=updated)
 
     # the colour variant, 255^3: two frames of a grey-ramp image
@@ -2294,7 +2096,6 @@ def compare_integrate_warped(dev, frames, sf_depth, sf_flows) -> dict:
     cref = ref.with_color()
     cvol = clone(cref)
     for _ in range(2):
-        cbefore = cref
         cref = integrate_plain(cref, sf_depth, cam, rgb=rgb)
         cvol = integrate_warped_cuda(cvol, sf_depth, cam, rgb=rgb)
     cerr = equal(cvol, cref, "255^3 with rgb, two frames")
@@ -2302,13 +2103,11 @@ def compare_integrate_warped(dev, frames, sf_depth, sf_flows) -> dict:
     check(band > 1000, "the warped colour kernel coloured nothing")
     cms = median_ms(lambda: integrate_warped_cuda(cvol, sf_depth, cam, rgb=rgb),
                     reps=20, inner=4)
-    cplain = median_ms(lambda: integrate_plain(cbefore, sf_depth, cam, rgb=rgb),
-                       reps=3)
     cleast = warped_bound(cref, in_front, updated, band)
-    log(f"integrate_warped_color 255^3 one frame: kernel {cms:.4f} ms, plain "
-        f"{cplain:.4f} ms, bound {cleast['bound_ms']:.4f} ms by "
+    log(f"integrate_warped_color 255^3 one frame: kernel {cms:.4f} ms, "
+        f"bound {cleast['bound_ms']:.4f} ms by "
         f"{cleast['bound_by']} ({band} voxels in the colour band)")
-    color = dict(max_abs_err=cerr, ms=cms, plain_ms=cplain, **cleast,
+    color = dict(max_abs_err=cerr, ms=cms, **cleast,
                  library_ms=None)
     return {"integrate_warped": out, "integrate_warped_color": color}
 
@@ -2358,7 +2157,6 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
         ms = median_ms(fn, reps=10, inner=10)
         parent = parent_in_turns([KERNEL_ROWS], fn, 10, ms,
                                  f"row gather ({what})", inner=10)
-        plain_ms = median_ms(lambda: take_rows(table, idx), reps=10, inner=4)
         idx64 = idx.clamp(0, table.shape[0] - 1).to(torch.int64)
         library_ms = median_ms(lambda: torch.index_select(table, 0, idx64),
                                reps=10, inner=10)
@@ -2369,12 +2167,12 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
         least = bound(idx.numel() * (4 + row_bytes) + distinct * row_bytes, 0)
         log(f"row gather {tuple(table.shape)} -> {tuple(idx.shape)} ({what}): "
             f"equal bytes, max |diff| {err:.3g}; instance {instance}; kernel "
-            f"{ms:.4f} ms (parent {ms_text(parent)}), plain {plain_ms:.4f} ms, "
+            f"{ms:.4f} ms (parent {ms_text(parent)}), "
             f"torch.index_select {library_ms:.4f} ms, bound "
             f"{least['bound_ms']:.4f} ms by bytes ({distinct} distinct rows): "
             f"{least['bound_ms'] / ms:.3f} of the bound")
         out[what] = dict(max_abs_err=err, ms=ms, parent_ms=parent,
-                         plain_ms=plain_ms, library_ms=library_ms,
+                         library_ms=library_ms,
                          instance=instance, **least)
     edge_cases = row_gather_edges(dev)
     lib, build_log = str(_build.library_path()), str(_build.BUILD_DIR / "build.log")
@@ -2391,7 +2189,6 @@ def compare_row_gather(dev, sf_depth, sf_flows) -> dict:
     out["corr"]["max_abs_err"] = max(out["corr"]["max_abs_err"], d["max_abs_err"])
     return dict(**out["corr"], deform_points_ms=d["ms"],
                 deform_points_parent_ms=d["parent_ms"],
-                deform_points_plain_ms=d["plain_ms"],
                 deform_points_library_ms=d["library_ms"],
                 deform_points_bound_ms=d["bound_ms"],
                 deform_points_instance=d["instance"],
@@ -2501,8 +2298,8 @@ def compare_gather_masked(dev, sf_depth, sf_flows) -> dict:
     out = hold_lane_gathers(calls, ["masked extraction, 255^3"] * 4)
     del out["each"], out["bound_by"]
     log(f"lane gather, one masked 255^3 extraction's four calls: bit-equal, "
-        f"max |diff| {out['max_abs_err']:.3g}; kernel {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms, torch.gather {out['library_ms']:.4f} ms, "
+        f"max |diff| {out['max_abs_err']:.3g}; kernel {out['ms']:.4f} ms, "
+        f"torch.gather {out['library_ms']:.4f} ms, "
         f"bound {out['bound_ms']:.4f} ms")
     return {f"masked_{k}": v for k, v in out.items()}
 
@@ -2605,7 +2402,6 @@ def compare_windowed(dev) -> dict:
                                      reps=10, inner=4),
                 full_ms=median_ms(lambda: lane_gather_op(table, idx),
                                   reps=10, inner=4),
-                plain_ms=median_ms(lambda: take_windowed(table, idx), reps=5),
             )
             times["parent_ms"] = parent_in_turns(
                 [KERNEL_WINDOWED], lambda: lane_gather_windowed_op(table, idx),
@@ -2630,7 +2426,7 @@ def compare_windowed(dev) -> dict:
                 f"{ms_text(times['parent_ms'])}), checked "
                 f"{times['checked_ms']:.4f} ms (parent "
                 f"{ms_text(times['checked_parent_ms'])}), lane_gather_op "
-                f"{times['full_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+                f"{times['full_ms']:.4f} ms, "
                 f"torch.gather {times['library_ms']:.4f} ms, bound "
                 f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
             out[(w, what)] = dict(max_abs_err=err, checked_err=checked_err,
@@ -2673,7 +2469,7 @@ def compare_windowed(dev) -> dict:
         f"{ms_text(guarded[1]['parent_ms'])})")
     wide, wide_wild = out[(2048, "coherent")], out[(2048, "wild")]
     icp, icp_wild = out[(W, "coherent")], out[(W, "wild")]
-    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("max_abs_err", "ms", "library_ms", "bound_ms", "bound_by")
     windowed = {k: wide[k] for k in keys}
     windowed["max_abs_err"] = max(o["max_abs_err"] for k, o in out.items()
                                   if "max_abs_err" in o)
@@ -2690,7 +2486,7 @@ def compare_windowed(dev) -> dict:
     checked = {k: wide_wild[k] for k in keys}
     checked.update(max_abs_err=max(o["checked_err"] for k, o in out.items()
                                    if "checked_err" in o),
-                   ms=wide_wild["checked_ms"], plain_ms=wide_wild["plain_ms"],
+                   ms=wide_wild["checked_ms"],
                    parent_ms=wide_wild["checked_parent_ms"],
                    no_miss_ms=wide["checked_ms"],
                    no_miss_parent_ms=wide["checked_parent_ms"],
@@ -3001,82 +2797,6 @@ def phase_warped_color(dev, sf_depth) -> dict:
     return counts
 
 
-def probe_sfusion_loop(dev, sf_depth, sf_flows) -> dict:
-    """The SceneFusion loop on card-resident frames under torch.profiler:
-    the card's busy time and kernel launches per frame after the first,
-    beside the wall time of the same run without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sf_run(dev, sf_depth, sf_flows)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    run()
-    wall_ms = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"probe sfusion loop kernel {e.key[:70]}: {e.count} launches, "
-            f"{e.self_device_time_total / 1e3:.4f} ms")
-    idle = 1.0 - busy_ms / wall_ms
-    frames = SF_FRAMES - 1
-    log(f"probe sfusion loop, {SF_FRAMES} frames at {SF_SIZE}^3: wall "
-        f"{wall_ms:.3f} ms ({profiled_ms:.3f} ms under the profiler), device "
-        f"busy {busy_ms:.3f} ms, idle share {idle:.3f} of the unprofiled wall, "
-        f"{launches / frames:.0f} kernel launches per frame after the first")
-    return dict(sfusion_wall_ms=wall_ms, sfusion_profiled_ms=profiled_ms,
-                sfusion_busy_ms=busy_ms, sfusion_idle=idle,
-                sfusion_launches_per_frame=launches / frames)
-
-
-# -- the probe (--probe): the measurements behind PERF.md's findings --------
-
-
-def probe_main_path(dev, tum: str, out_dir: str, color: bool = False) -> dict:
-    """A main path alone under cProfile (``fuse``, or ``fuse --fuse-color
-    --color``): its host time per step and its own peak of device
-    memory."""
-    import cProfile
-    import pstats
-
-    from tsdf_tpu_torch import cli
-
-    extra = ("--fuse-color",) if color else ()
-    argv, outs = fuse_argv(dev, tum, out_dir, extra, color=color)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    rc = cli.main(argv)
-    torch.cuda.synchronize()
-    prof.disable()
-    seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - base
-    check(rc == 0, f"fuse returned {rc}")
-    text = io.StringIO()
-    pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(
-        r"write_ply|save_tsdf|fuse_frames|extract_surface|_render_outputs"
-        r"|sample_color_at|color_image")
-    log(text.getvalue())
-    name = "colour path" if color else "main path"
-    log(f"probe {name}: {seconds:.3f} s, own peak device memory "
-        f"{peak / 2**30:.3f} GiB")
-    for f in outs.values():
-        os.remove(f)
-    key = "color_path" if color else "main_path"
-    return {f"{key}_s": seconds, f"{key}_peak_gib": peak / 2**30}
-
-
 def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
     """The registers of ``kernel`` (from the build log of ``-Xptxas=-v``)
     and the instructions of its longest innermost loop (the longest span of
@@ -3118,185 +2838,6 @@ def sass_loop(lib_path: str, build_log: str, kernel: str) -> dict:
                 loop_shared_loads=sum(re.search(r"(^|\s)LDS(\.|\s)", t) is not None
                                       for t in span),
                 expf=len(ex2), instructions_per_expf=per_expf)
-
-
-def probe_raycast(dev, frames) -> dict:
-    """What bounds the raycast kernel (and, with ``--parent``, the
-    parent's, in turns on the same inputs): its registers and the
-    instructions of its march loop, a render of the analytic scene at 0,
-    16, 64 and 256 steps and in full, and a render of a quarter of the rays
-    (half the resolution, the same view): time that does not fall with the
-    rays is the latency of a ray's chain of samples, not issue."""
-    from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.kernels import _build
-    from tsdf_tpu_torch.kernels.raycast import KERNEL, raycast_vertices_cuda
-
-    vol = analytic_volume(dev)
-    pose = frames[0][1]
-    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(pose)
-    quarter = Camera.from_intrinsics(FX / 2, FY / 2, CX / 2, CY / 2,
-                                     device=dev).set_pose(pose)
-    runs = {f"{n} steps": (cam, W, H, n) for n in (0, 16, 64, 256)}
-    runs["full"] = (cam, W, H, 4400)
-    runs["a quarter of the rays"] = (quarter, W // 2, H // 2, 4400)
-    libs = {"kernel": (str(_build.library_path()),
-                       str(_build.BUILD_DIR / "build.log"))}
-    if PARENT_LIB is not None:
-        path = PARENT_LIB._name
-        libs["parent"] = (path, os.path.join(os.path.dirname(path), "build.log"))
-    out = {}
-    for who, (lib, build_log) in libs.items():
-        # the float32 instance (the parent's library has no other)
-        found = sass_loop(lib, build_log, "raycast_kernel" if who == "parent"
-                          else "raycast_kernelIfE")
-        log(f"probe raycast, {who}: {found['registers']} registers, march "
-            f"loop of {found['loop_instructions']} instructions "
-            f"({found['loop_loads']} global loads) of {found['instructions']}")
-        out.update({f"raycast {who} {k}": v for k, v in found.items()})
-    for what, (c, w, h, n) in runs.items():
-        def render():
-            return raycast_vertices_cuda(vol, c, w, h, max_steps=n)
-        ms = median_ms(render, reps=10)
-        text = f"probe raycast 512^3, {what}: kernel {ms:.4f} ms"
-        out[f"raycast {what} ms"] = ms
-        parent = parent_ms([KERNEL], render, 10)
-        if parent is not None:
-            text += f", parent {parent:.4f} ms"
-            out[f"raycast {what} parent ms"] = parent
-        log(text)
-    return out
-
-
-def probe_integrate(dev, frames) -> dict:
-    """The integrate kernel at 512^3 on frames that move different bytes
-    and skip different work, beside a 1 GiB device copy (2 GiB of
-    traffic: what a frame that updates every voxel must move)."""
-    from tsdf_tpu_torch import Camera, make_volume
-    from tsdf_tpu_torch.kernels.integrate import integrate_cuda
-
-    depth0, pose0 = frames[0]
-    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
-    pos = pose0[:3, 3].cpu().numpy()
-    away = look_at_pose(pos, pos - np.array([0.0, 0.0, 1000.0]))
-    cases = {
-        "real frame": (depth0, cam.set_pose(pose0)),
-        "zero depth": (torch.zeros_like(depth0), cam.set_pose(pose0)),
-        "facing away": (depth0, cam.set_pose(
-            torch.as_tensor(away, dtype=torch.float32, device=dev))),
-        # the back face of the volume (z = 3000 mm) seen from z ~ -400:
-        # every voxel in view is in front of the surface
-        "far wall": (torch.full_like(depth0, PHYSICAL + 400.0),
-                     cam.set_pose(pose0)),
-    }
-    vol = make_volume((SIZE,) * 3, PHYSICAL, device=dev)
-    out = {}
-    for name, (depth, c) in cases.items():
-        vol.tsdf.fill_(float(vol.truncation_distance))
-        vol.weight.zero_()
-        integrate_cuda(vol, depth, c)
-        updated = int((vol.weight > 0).sum())
-        ms = median_ms(lambda: integrate_cuda(vol, depth, c), reps=20)
-        log(f"probe integrate 512^3, {name}: {ms:.4f} ms, {updated} voxels "
-            f"updated ({updated * 16 / 1e9:.3f} GB of tsdf+weight traffic)")
-        out[f"integrate {name} ms"] = ms
-        out[f"integrate {name} voxels"] = updated
-    del vol
-    src = torch.empty(2 * SIZE**3, dtype=torch.float32, device=dev)
-    dst = torch.empty_like(src)
-    ms = median_ms(lambda: dst.copy_(src), reps=20)
-    log(f"probe 1 GiB device copy: {ms:.4f} ms "
-        f"({2 * src.numel() * 4 / ms / 1e9:.3f} TB/s)")
-    out["copy 1 GiB ms"] = ms
-    return out
-
-
-def probe_fuse_loop(dev, frames, rgbs=None) -> dict:
-    """One 20-frame ``fuse_frames`` run under torch.profiler (with
-    ``rgbs``, the colour loop of ``fuse --fuse-color``): device busy time
-    (the sum of the card's kernel times), wall time, idle share, and the
-    host syncs the loop makes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.pipelines.kinfu import FusionConfig, fuse_frames
-
-    cfg = FusionConfig(volume_size=(SIZE,) * 3, physical_size_mm=PHYSICAL)
-    cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
-    vol = cfg.make_volume(device=dev)
-    what = "fuse loop"
-    if rgbs is not None:
-        vol = vol.with_color()
-        frames = [(d, p, c) for (d, p), c in zip(frames, rgbs)]
-        what = "colour fuse loop"
-    ms = median_ms(lambda: fuse_frames(vol, cam, frames, cfg), reps=3)
-    ms /= len(frames)
-    log(f"probe {what}: {ms:.4f} ms/frame by CUDA events")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fuse_frames(vol, cam, frames, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    syncs = sum(e.count for e in events
-                if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
-                             "cudaDeviceSynchronize"))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        log(f"probe {what} kernel {e.key[:60]}: {e.count} launches, "
-            f"{e.self_device_time_total / 1e3:.4f} ms")
-    idle = 1.0 - busy_ms / wall_ms
-    log(f"probe {what}, {len(frames)} frames: wall {wall_ms:.3f} ms under "
-        f"the profiler, device busy {busy_ms:.3f} ms, idle share {idle:.3f}, "
-        f"{syncs} host syncs")
-    key = "color_fuse" if rgbs is not None else "fuse"
-    return {f"{key}_ms_per_frame": ms, f"{key}_wall_ms": wall_ms,
-            f"{key}_busy_ms": busy_ms, f"{key}_idle": idle,
-            f"{key}_host_syncs": syncs}
-
-
-def probe_tracked_loop(dev, frames) -> dict:
-    """A 6-frame tracked run under torch.profiler: the card's busy time
-    (the sum of its kernel times) and kernel launches per tracked frame,
-    beside the wall time of the same run without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tsdf_tpu_torch import Camera
-    from tsdf_tpu_torch.pipelines.kinfu import track_and_fuse_frames
-
-    cfg = tracked_config()
-    depths = [d for d, _ in frames[:6]]
-    tracked = len(depths) - 1
-    cam0 = Camera.from_intrinsics(FX, FY, CX, CY, device=dev).set_pose(frames[0][1])
-
-    def run():
-        vol = cfg.make_volume(device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        track_and_fuse_frames(vol, cam0, depths, cfg)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    run()
-    wall_ms = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run()
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"probe tracked loop kernel {e.key[:70]}: {e.count} launches, "
-            f"{e.self_device_time_total / 1e3:.4f} ms")
-    idle = 1.0 - busy_ms / wall_ms
-    log(f"probe tracked loop, {len(depths)} frames: wall {wall_ms:.3f} ms "
-        f"({profiled_ms:.3f} ms under the profiler), device busy "
-        f"{busy_ms:.3f} ms, idle share {idle:.3f} of the unprofiled wall, "
-        f"{launches / tracked:.0f} kernel launches per tracked frame")
-    return dict(tracked_wall_ms=wall_ms, tracked_profiled_ms=profiled_ms,
-                tracked_busy_ms=busy_ms, tracked_idle=idle,
-                tracked_launches_per_frame=launches / tracked)
 
 
 # -- differentiable fusion and raycast: the pose adjoint, the probe, and the
@@ -3474,8 +3015,6 @@ def compare_pose_grad(dev, frames) -> dict:
     check(blended > 0 and scale > 0, "the pose adjoint did no work")
     culled = float(brick_cull(vol, depth, cam).float().mean())
     ms = median_ms(lambda: pose_grad_cuda(vol, depth, cam, gd, gw), reps=20)
-    plain_ms = median_ms(lambda: integrate_pose_grad(vol, depth, cam, gd, gw),
-                         reps=3)
     parent = None
     if PARENT_LIB is not None:
         pd, pw, pp = parent_pose_grad(vol, depth, cam, gd, gw)
@@ -3536,7 +3075,7 @@ def compare_pose_grad(dev, frames) -> dict:
         o["voxel"] * vol.tsdf.numel() + o["in_front"] * voxels_in_front(vol, cam)
         + o["updated"] * n_upd + o["band"] * in_band)
     zero_bound = bound(16 * vol.tsdf.numel() + 4 * depth.numel(), 0)["bound_ms"]
-    log(f"pose adjoint 512^3 one frame: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+    log(f"pose adjoint 512^3 one frame: kernel {ms:.4f} "
         f"ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
         f"({n_upd} updated, {in_band} in the band); {culled:.4f} of the bricks "
         f"culled; a frame with no depth {zero_depth_ms:.4f} ms (parent "
@@ -3547,7 +3086,7 @@ def compare_pose_grad(dev, frames) -> dict:
     return dict(max_abs_err=err, dd_dw_voxels_differ=sum(same),
                 bit_equal_second_run=again, bit_equal_model_sums=as_model,
                 slab=slab,
-                ms=ms, plain_ms=plain_ms, updated=n_upd, in_band=in_band,
+                ms=ms, updated=n_upd, in_band=in_band,
                 culled_share=culled, zero_depth_ms=zero_depth_ms,
                 zero_depth_bound_ms=zero_bound, copy_ms=copy_ms,
                 registers=registers, device_ms_by_kernel=split, parent_ms=parent,
@@ -3613,19 +3152,17 @@ def slab_adjoint(vol, depth, cam, gd, gw) -> dict:
     del sdf, updated
     ms = median_ms(lambda: kint.pose_grad_cuda(slab, depth, cam, sgd, sgw),
                    reps=20)
-    plain_ms = median_ms(lambda: integrate_pose_grad(slab, depth, cam, sgd, sgw),
-                         reps=3)
     word = slab.tsdf.element_size()
     o = POSE_GRAD_OPS
     n = slab.tsdf.numel()
     least = bound(4 * word * n + 2 * word * n_upd + 3 * 4 * depth.numel(),
                   o["voxel"] * n + o["in_front"] * voxels_in_front(slab, cam)
                   + o["updated"] * n_upd + o["band"] * in_band)
-    log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"{what}: kernel {ms:.4f} ms, bound "
         f"{least['bound_ms']:.4f} ms by {least['bound_by']} ({n_upd} updated, "
         f"{in_band} in the band); registers a thread "
         f"{kernel_registers([SLAB_WALK[vol.tsdf.dtype]])}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, updated=n_upd,
+    return dict(max_abs_err=err, ms=ms, updated=n_upd,
                 in_band=in_band, **least, library_ms=None)
 
 
@@ -3658,7 +3195,6 @@ def compare_probe(dev) -> dict:
     ms = median_ms(lambda: gather_probe_cuda(tab, idx), reps=20)
     parent = parent_in_turns([KERNEL_PROBE], lambda: gather_probe_cuda(tab, idx),
                              20, ms, "gather probe")
-    plain_ms = median_ms(lambda: gather_probe_plain(tab, idx), reps=3)
     n = tab.numel() * PROBE_GATHERS
     rate = n / (ms / 1e3)
     least = bound(3 * 4 * tab.numel(), PROBE_OPS_PER_GATHER * n)
@@ -3672,7 +3208,7 @@ def compare_probe(dev) -> dict:
     issue_floor = per_gather * n / 32 / (4 * sms * mhz * 1e6) * 1e3
     reached = wavefronts / (ms / 1e3) / (sms * mhz * 1e6)
     log(f"gather probe: {ms:.4f} ms (parent {ms_text(parent)}) for {n} gathered "
-        f"elements = {rate / 1e9:.1f} G elements/s (plain {plain_ms:.4f} ms, "
+        f"elements = {rate / 1e9:.1f} G elements/s ("
         f"bound {least['bound_ms']:.4f} ms by {least['bound_by']}); "
         f"{loop['registers']} registers")
     log(f"gather probe floors at {mhz:.0f} MHz (the SM clock nvidia-smi reads "
@@ -3683,7 +3219,7 @@ def compare_probe(dev) -> dict:
         f"{loop['loop_shared_loads']} shared loads) / 32 / 4 a clock = "
         f"{issue_floor:.4f} ms; reached {reached:.3f} wavefronts an SM a clock")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms, parent_ms=parent,
+                parent_ms=parent,
                 g_elements_per_s=rate / 1e9, **least, library_ms=None,
                 wavefronts=wavefronts, wavefront_floor_ms=wave_floor,
                 wavefronts_per_clock=reached, issue_floor_ms=issue_floor,
@@ -3929,7 +3465,6 @@ def compare_lm_linearise(dev) -> dict:
         check(max(gap_jtj, gap_jtr, gap_rr) <= 1e-5 and abs(inliers - want_inliers) <= 4,
               f"lm_linearise {name}: the kernel's sums are off the twin's")
         ms = median_ms(kernel, reps=20)
-        plain = median_ms(twin, reps=5)
         dual = median_ms(dual_passes, reps=3)
         # each ray's t0, hit and target; the eight taps of each ray the kernel
         # samples (a hit with target depth)
@@ -3937,9 +3472,9 @@ def compare_lm_linearise(dev) -> dict:
         moved = W * H * 9 + sampled * 8 * vol.tsdf.element_size()
         b = bound(moved, sampled * LM_OPS_PER_RAY)
         log(f"lm_linearise {name}: {ms:.4f} ms (bound {b['bound_ms']:.4f} by "
-            f"{b['bound_by']}, {sampled} rays sampled); plain twin {plain:.4f} ms; "
+            f"{b['bound_by']}, {sampled} rays sampled); "
             f"the dual-pass route it replaced {dual:.4f} ms")
-        out[name] = dict(kernel_ms=ms, plain_ms=plain, dual_pass_ms=dual,
+        out[name] = dict(kernel_ms=ms, dual_pass_ms=dual,
                          gaps=[gap_jtj, gap_jtr, gap_rr], inliers=inliers,
                          sampled_rays=sampled, **b)
         del vol
@@ -4097,7 +3632,6 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
         check(equal, f"{name} bf16 differs from its twin")
         ms, f32_ms, turns = in_turns(lambda: kernel(name, out, 1),
                                      lambda: kernel(name, out32, 1), reps=20)
-        plain_ms = median_ms(lambda: twin(name, before, 1), reps=3)
         fast = "fast" in name
         pixels = W * H // 8 if fast else W * H
         moved = 8 * updated + pixels * 4 + (6 * band + pixels * 3) * color
@@ -4121,7 +3655,7 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
         log(f"{name} bf16 512^3 one frame: kernel {ms:.4f} ms, float32 "
             f"instance {f32_ms:.4f} ms (in turns: "
             + ", ".join(f"{t:.4f}" for t in turns)
-            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            + f"), bound {least['bound_ms']:.4f} ms by "
             f"{least['bound_by']} ({updated} voxels updated, 2-byte storage); "
             + "; ".join(f"{d}: {v['registers']} registers, {v['instructions']} "
                         f"SASS instructions, inner loop {v['loop_instructions']} "
@@ -4132,7 +3666,7 @@ def bf16_integrates(dev, frames, rgbs) -> dict:
             [instance(BF16_WALKS[name], out)], lambda: kernel(name, out, 1),
             20, ms, f"{name} bf16 512^3 one frame")
         results[name + "_bf16"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+            max_abs_err=err, ms=ms, **least,
             library_ms=None, f32_ms=f32_ms, updated=updated, parent_ms=parent)
         del ref, out, out32, before
         torch.cuda.empty_cache()
@@ -4296,7 +3830,6 @@ def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
         ms, f32_ms, turns = in_turns(
             lambda: raycast_vertices_cuda(v16, cam, W, H),
             lambda: raycast_vertices_cuda(v32, cam, W, H), reps=10)
-        plain_ms = median_ms(lambda: raycast_vertices(v16, cam, W, H), reps=2)
         parent = parent_in_turns(
             [KERNEL_BF16], lambda: raycast_vertices_cuda(v16, cam, W, H), 10,
             ms, f"raycast bf16 512^3, {name} volume")
@@ -4305,11 +3838,11 @@ def bf16_raycast_and_mesh(dev, vols32: dict, pose) -> dict:
         log(f"raycast bf16 512^3, {name} volume: kernel {ms:.4f} ms, float32 "
             f"instance {f32_ms:.4f} ms (in turns: "
             + ", ".join(f"{t:.4f}" for t in turns)
-            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            + f"), bound {least['bound_ms']:.4f} ms by "
             f"{least['bound_by']} ({n_samples} samples, {n_voxels} distinct "
             f"voxels of 2 B); {n_uniform / n_samples:.4f} of the samples in "
             "uniform bricks")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+        rows[name] = dict(max_abs_err=err, ms=ms, **least,
                           library_ms=None, f32_ms=f32_ms, samples=n_samples,
                           parent_ms=parent)
     v16, v32 = vols32["fused"]
@@ -4374,15 +3907,13 @@ def bf16_warped(dev, sf_depth, sf_flows) -> dict:
             lambda: integrate_warped_cuda(out, sf_depth, cam, rgb=c),
             lambda: integrate_warped_cuda(v32, sf_depth, cam, rgb=c), reps=20,
             inner=4)
-        plain_ms = median_ms(lambda: integrate_plain(before, sf_depth, cam, rgb=c),
-                             reps=3)
         least = warped_bound(ref, int((ref.deform[..., 2] > 0).sum()),
                              updated, band, storage_bytes=2)
         log(f"{name} bf16 255^3 one frame: kernel {ms:.4f} ms, float32 instance "
             f"{f32_ms:.4f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns)
-            + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            + f"), bound {least['bound_ms']:.4f} ms by "
             f"{least['bound_by']}")
-        results[name + "_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        results[name + "_bf16"] = dict(max_abs_err=err, ms=ms,
                                        **least, library_ms=None, f32_ms=f32_ms)
         del ref, out, v32, before
     del field
@@ -4495,7 +4026,6 @@ def bf16_adjoint(dev, frames) -> dict:
     ms, f32_ms, turns = in_turns(lambda: pose_grad_cuda(v16, depth, cam, *g16),
                                  lambda: pose_grad_cuda(v32, depth, cam, *g32),
                                  reps=20)
-    plain_ms = median_ms(lambda: integrate_pose_grad(v16, depth, cam, *g16), reps=3)
     o = POSE_GRAD_OPS
     n = v16.tsdf.numel()
     least = bound(8 * n + 4 * n_upd + 3 * 4 * depth.numel(),
@@ -4504,10 +4034,10 @@ def bf16_adjoint(dev, frames) -> dict:
     log(f"pose adjoint bf16 512^3 one frame: kernel {ms:.4f} ms, float32 "
         f"instance {f32_ms:.4f} ms (in turns: "
         + ", ".join(f"{t:.4f}" for t in turns)
-        + f"), plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+        + f"), bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']} (2 B cotangents and storage); registers "
         f"{kernel_registers(['pose_grad_walk_kernelI13__nv_bfloat16Lb0EE'])}")
-    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least,
+    result = dict(max_abs_err=err, ms=ms, **least,
                   library_ms=None, f32_ms=f32_ms,
                   slab=slab_adjoint(v16, depth, cam, *g16))
     del v16, v32, g16, g32, dd, dw
@@ -4570,187 +4100,6 @@ def phase_bf16(dev, frames, rgbs, gt_poses, sf_depth, sf_flows) -> dict:
         results[name]["launches"] = n
     results["paths"] = paths
     return results
-
-
-# -- frame loading: the native PNG unfilter and decode-ahead ----------------------
-
-# the row filters the rewritten frames use: every row Paeth, or the five
-# types in turn row by row (an encoder such as libpng picks per row)
-DECODE_FILTERS = {"paeth": (4,), "mixed": (4, 0, 3, 1, 2)}
-
-
-def _filter_rows(rows: np.ndarray, bpp: int, filters) -> np.ndarray:
-    """The filtered image data of ``rows`` (H, stride) u8: row y filtered
-    with type ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up,
-    3 Average, 4 Paeth) behind its filter byte."""
-    h, stride = rows.shape
-    x = rows.astype(np.int32)
-    prior = np.vstack([np.zeros((1, stride), np.int32), x[:-1]])
-    left = np.hstack([np.zeros((h, bpp), np.int32), x[:, :-bpp]])
-    upleft = np.hstack([np.zeros((h, bpp), np.int32), prior[:, :-bpp]])
-    p = left + prior - upleft
-    pa, pb, pc = (np.abs(p - v) for v in (left, prior, upleft))
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, prior, upleft))
-    preds = (0, left, prior, (left + prior) >> 1, paeth)
-    types = np.asarray([filters[y % len(filters)] for y in range(h)], np.uint8)
-    out = np.empty((h, stride + 1), np.uint8)
-    out[:, 0] = types
-    for f in set(types.tolist()):
-        sel = types == f
-        pred = preds[f] if f else 0
-        out[sel, 1:] = ((x - pred)[sel] & 0xFF).astype(np.uint8)
-    return out
-
-
-def save_png_filtered(path: str, array: np.ndarray, filters) -> None:
-    """Write ``array`` (u16 grey, u8 grey or u8 RGB) as a PNG whose row y
-    is filtered with type ``filters[y % len(filters)]``, as an encoder such
-    as libpng chooses per row (the port's ``save_png`` writes filter 0)."""
-    import struct
-    import zlib
-
-    array = np.asarray(array)
-    if array.dtype == np.uint16:
-        depth, ctype, pixels = 16, 0, array.astype(">u2")
-    else:
-        depth, ctype, pixels = 8, 0 if array.ndim == 2 else 2, array
-    h, w = array.shape[:2]
-    rows = np.ascontiguousarray(pixels).view(np.uint8).reshape(h, -1)
-    raw = _filter_rows(rows, (3 if ctype == 2 else 1) * depth // 8, filters)
-
-    def chunk(kind, body):
-        crc = zlib.crc32(kind + body) & 0xFFFFFFFF
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
-                                           0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
-
-
-@contextlib.contextmanager
-def without_native():
-    """``native.available()`` False inside: PNG rows unfiltered by the
-    plain twin, TUM frames decoded on the calling thread."""
-    from tsdf_tpu_torch import native
-
-    saved = native.available
-    native.available = lambda: False
-    try:
-        yield
-    finally:
-        native.available = saved
-
-
-def write_filtered_tum(src: str, dst: str) -> list:
-    """A copy of the TUM directory ``src`` at ``dst`` whose PNGs are
-    rewritten with row filters: depth frames every row Paeth (even) or
-    mixed (odd), rgb frames mixed. Returns (path, array written) for
-    every PNG."""
-    from tsdf_tpu_torch.io.png import load_png
-
-    shutil.copytree(src, dst)
-    written = []
-    for sub in ("depth", "rgb"):
-        for i, f in enumerate(sorted(os.listdir(os.path.join(dst, sub)))):
-            path = os.path.join(dst, sub, f)
-            with without_native():
-                image = load_png(path)
-            kind = "paeth" if sub == "depth" and i % 2 == 0 else "mixed"
-            save_png_filtered(path, image, DECODE_FILTERS[kind])
-            written.append((path, image))
-    return written
-
-
-def phase_decode(dev, tum: str, tmp: str, out_dir: str) -> dict:
-    """The TUM frames rewritten with Paeth and mixed row filters: the
-    native unfilter (``csrc/png_unfilter.cpp``) bit-equal with its plain
-    twin and with what was written, for every file; ms/frame of the Python
-    codec, the native codec, ``load_png16_batch`` and the prefetched
-    ``TUMDataLoader``; the ``fuse`` verb's wall time on the filtered frames
-    (with the native library, and with the Python codec) beside the
-    unfiltered ones, its renders byte-equal. The library must build."""
-    from tsdf_tpu_torch import native
-    from tsdf_tpu_torch.io import png
-    from tsdf_tpu_torch.io.tum import TUMDataLoader
-
-    check(native.available(), f"the native PNG library did not build: "
-          f"{native.build_error()}")
-    filtered = os.path.join(tmp, "tum_filtered")
-    written = write_filtered_tum(tum, filtered)
-    for path, want in written:
-        data = png.read_png(path)
-        got = png.unfiltered(data)
-        stride = data.width * data.bpp
-        twin = png._unfilter(data.raw, data.height, stride, data.bpp)
-        swapped = native.unfilter(data.raw, data.height, stride, data.bpp,
-                                  swap16=data.depth == 16)
-        if data.depth == 16:
-            twin = twin.view(">u2").astype(np.uint16)
-            swapped = swapped.view(np.uint16)
-        check(got.dtype == want.dtype and np.array_equal(got, want)
-              and np.array_equal(swapped.reshape(want.shape), twin.reshape(
-                  want.shape)),
-              f"{path}: the native unfilter differs from its twin")
-    depth_paths = sorted(p for p, _ in written if os.sep + "depth" + os.sep in p)
-    n = len(depth_paths)
-    log(f"decode: {len(written)} PNGs rewritten with row filters (depth Paeth "
-        f"/ mixed, rgb mixed), each decoded bit-equal by the native unfilter, "
-        f"its twin and as written")
-
-    def per_frame(fn) -> float:
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    with without_native():
-        python_ms = per_frame(lambda: [png.load_png(p) for p in depth_paths])
-    native_ms = per_frame(lambda: [png.load_png(p) for p in depth_paths])
-    batch = native.load_png16_batch(depth_paths, threads=8)
-    batch_ms = per_frame(lambda: native.load_png16_batch(depth_paths, threads=8))
-    loader = TUMDataLoader(filtered)
-    prefetch_ms = per_frame(lambda: [d for d, _ in loader])
-    check(all(np.array_equal(b, png.load_png(p))
-              for b, p in zip(batch, depth_paths)),
-          "load_png16_batch differs from load_png")
-    with without_native():
-        plain = [d.data for d, _ in TUMDataLoader(filtered)]
-    check(all(np.array_equal(d.data, q) for (d, _), q in zip(loader, plain)),
-          "the prefetched loader differs from the plain one")
-    log(f"decode 640x480 u16 depth, {n} Paeth/mixed-filtered frames, host "
-        f"ms/frame: Python codec {python_ms:.3f}, native codec {native_ms:.3f}, "
-        f"load_png16_batch (8 threads) {batch_ms:.3f}, TUMDataLoader "
-        f"(prefetched, x0.2 to mm) {prefetch_ms:.3f}")
-
-    seconds = {}
-    renders = {}
-    for what, src, plain_codec in (("unfiltered", tum, False),
-                                   ("filtered", filtered, False),
-                                   ("filtered, Python codec", filtered, True)):
-        sub = os.path.join(out_dir, "decode_" + str(len(seconds)))
-        os.makedirs(sub)
-        ctx = without_native() if plain_codec else contextlib.nullcontext()
-        with ctx:
-            run = run_fuse(dev, src, sub, mesh=False, tsdf=False)
-        check_counts(run["counts"], f"fuse, {what} frames",
-                     integrate=N_FRAMES, raycast=1)
-        seconds[what] = run["seconds"]
-        renders[what] = [open(run["outs"][k], "rb").read()
-                         for k in ("scene", "normals")]
-    check(renders["filtered"] == renders["unfiltered"]
-          == renders["filtered, Python codec"],
-          "the renders of the filtered frames differ")
-    log(f"fuse verb, {N_FRAMES} frames at {SIZE}^3, renders only: "
-        f"{seconds['unfiltered']:.3f} s on unfiltered frames, "
-        f"{seconds['filtered']:.3f} s on Paeth/mixed-filtered frames, "
-        f"{seconds['filtered, Python codec']:.3f} s on those with the Python "
-        "codec; renders byte-equal")
-    return dict(python_ms_per_frame=python_ms, native_ms_per_frame=native_ms,
-                batch_ms_per_frame=batch_ms, prefetch_ms_per_frame=prefetch_ms,
-                fuse_seconds=seconds)
 
 
 # -- config 3 (--config3): the 500-pose tracked orbit at 256^3 -----------------
@@ -5037,7 +4386,7 @@ def slabs_equal(a, b) -> bool:
 
 def sharded_sfusion_class(dev, mesh, sf_dirs, sf_depth_np, first: bool,
                           tmp: str) -> dict:
-    """``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 12's RGB-D +
+    """``SceneFusion(mesh=)`` at 256^3 over 2560 mm on phase 9's RGB-D +
     PD-Flow files, each rank reading them through its own ``MockKinect``
     and provider; every rank steps the single-card class on the same frames
     beside it and, after every frame, holds its slab to the same planes of
@@ -5370,7 +4719,7 @@ def sharded_rank(dev, depths_np, poses_np, rgbs_np, sf_depth_np, sf_dirs,
     the fused float32 slabs, the sharded checkpoint at 512^3 (saved on the
     first mesh, with a resume; restored on the second), the tracked loop,
     six SceneFusion frames at 256^3 (``sharded_sfusion``) and the
-    ``SceneFusion(mesh=)`` class on phase 12's files
+    ``SceneFusion(mesh=)`` class on phase 9's files
     (``sharded_sfusion_class``), the pose gradient at 512^3 (float32; bf16
     too on the first mesh, ``sharded_pose``). The mesh's first rank also
     runs the single-card references and holds the results to them; every
@@ -5785,7 +5134,7 @@ def hold_sharded_class(shape: str, outs: list) -> float:
                      integrate_warped=SF_FRAMES, row_gather=SF_FRAMES - 1)
     ms = max(c["ms_per_frame"] for c in cl)
     log(f"sharded {shape}: SceneFusion(mesh=) at {SF_MESH_SIZE}^3 over "
-        f"{SF_MESH_PHYSICAL:.0f} mm on phase 12's files: n_corr "
+        f"{SF_MESH_PHYSICAL:.0f} mm on phase 9's files: n_corr "
         f"{[f['n_corr'] for f in c0['frames']]} (single card "
         f"{[f['n_single'] for f in c0['frames']]}), every rank's planes: "
         f"deform within {worst['deform_mm']:.3g} mm, tsdf within "
@@ -5815,7 +5164,7 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     within the JAX gates of it, the tracked loop's poses within 2 mm / 3e-3
     of the single-card loop's and its ATE under a voxel, each rank's peak
     for the float32 fuse; the sharded checkpoint at 512^3 (saved on 4x1,
-    restored onto 2x2, a resume); ``SceneFusion(mesh=)`` on phase 12's
+    restored onto 2x2, a resume); ``SceneFusion(mesh=)`` on phase 9's
     files (``sf_dirs``) against the single-card class. Then ``fuse
     --devices 1x1`` on NCCL: the GT-pose and colour outputs byte-equal with
     those of the verb without ``--devices`` (``single``: the earlier
@@ -5902,7 +5251,7 @@ def phase_sharded(dev, tum: str, out_dir: str, frames, rgbs, gt_poses,
     for f in run["outs"].values():
         os.remove(f)
 
-    # sfusion --devices 1x1 on NCCL, against phase 12's verb without it
+    # sfusion --devices 1x1 on NCCL, against phase 9's verb without it
     sf_single = single["sfusion"]
     run = run_sfusion_cli(dev, *sf_dirs, sf_single["mesh"], ("--devices", "1x1"))
     check_counts(run["counts"], "sfusion --devices 1x1",
@@ -6124,14 +5473,6 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--probe", action="store_true",
-        help="instead of the smoke, measure what PERF.md's findings rest "
-             "on: the main path's and the colour path's host time per step "
-             "and device peak, the "
-             "integrate kernel on frames of different traffic, the fuse "
-             "loop's idle share, the tracked loop's idle share",
-    )
-    parser.add_argument(
         "--config3", action="store_true",
         help="instead of the smoke, track and fuse the 500-pose orbit of "
              "tools/run_config3.py at 256^3 and print ms/frame, ATE and RPE",
@@ -6198,22 +5539,6 @@ def main() -> int:
         poses = write_tum_dir(tum)
         out_dir = os.path.join(tmp, "out")
         os.makedirs(out_dir)
-        if args.probe:
-            found = probe_main_path(dev, tum, out_dir)
-            found.update(probe_main_path(dev, tum, out_dir, color=True))
-            frames = load_frames(dev, tum)
-            found.update(probe_raycast(dev, frames))
-            found.update(probe_integrate(dev, frames))
-            found.update(probe_fuse_loop(dev, frames))
-            found.update(probe_fuse_loop(dev, frames, load_rgbs(dev, tum)))
-            found.update(probe_tracked_loop(dev, frames))
-            _, _, sf_made = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
-            found["pdflow_read_s"] = sf_made["pdflow_read_s"]
-            found.update(probe_sfusion_loop(dev, *sf_inputs(dev, sf_made["depth"])))
-            log(smi)
-            print(json.dumps(found))
-            return 0
-
         frames = load_frames(dev, tum)
         results = {"integrate": compare_integrate(dev, frames[:2])}
         scene_vol = analytic_volume(dev)
@@ -6230,8 +5555,9 @@ def main() -> int:
               "a colour frame is missing")
         results.update(compare_integrate_variants(dev, frames[:2], rgbs[:2]))
         torch.cuda.empty_cache()
-        sf_rgbd, sf_flow, sf_made = write_sfusion_dirs(dev, os.path.join(tmp, "sf"))
-        sf_depth, sf_flows = sf_inputs(dev, sf_made["depth"])
+        sf_rgbd, sf_flow, sf_depth_u16 = write_sfusion_dirs(
+            dev, os.path.join(tmp, "sf"))
+        sf_depth, sf_flows = sf_inputs(dev, sf_depth_u16)
         results.update(compare_integrate_warped(
             dev, frames[:2], sf_depth, sf_flows))
         torch.cuda.empty_cache()
@@ -6259,7 +5585,6 @@ def main() -> int:
         gt_path["digests"] = digests(gt_path["outs"])
         for f in gt_path["outs"].values():
             os.remove(f)
-        phase_fuse_time(dev, frames)
 
         tracked_path = phase_tracked_path(dev, tum, out_dir)
         phase_surface(dev, tracked_path["outs"], first_pose)
@@ -6267,7 +5592,7 @@ def main() -> int:
         for f in tracked_path["outs"].values():
             os.remove(f)
         torch.cuda.empty_cache()
-        phase_tracked_time(dev, frames, poses)
+        phase_tracked_loop(dev, frames, poses)
         torch.cuda.empty_cache()
 
         color_path = phase_color_path(dev, tum, out_dir, frames, rgbs)
@@ -6287,7 +5612,6 @@ def main() -> int:
         bf16 = phase_bf16(dev, frames, rgbs, poses, sf_depth, sf_flows)
         del frames, rgbs
         torch.cuda.empty_cache()
-        decode = phase_decode(dev, tum, tmp, out_dir)
         sfusion = phase_sfusion(dev, sf_rgbd, sf_flow, out_dir, sf_depth,
                                 sf_flows, sf_cli)
         warped_color = phase_warped_color(dev, sf_depth)
@@ -6440,9 +5764,7 @@ def main() -> int:
         f"{config4['host_step_ms']:.4f} ms a Levenberg-Marquardt step, "
         f"{config4['final_mm']:.4f} mm in {config4['iters']} iterations")
     log(f"bf16 storage: 512^3 depth fuse peak {bf16['paths']['depth']['peak_gib_bf16']:.3f}"
-        f" GiB (float32 {bf16['paths']['depth']['peak_gib_f32']:.3f}); decode "
-        f"ms/frame Python {decode['python_ms_per_frame']:.3f}, native "
-        f"{decode['native_ms_per_frame']:.3f}")
+        f" GiB (float32 {bf16['paths']['depth']['peak_gib_f32']:.3f})")
     log(f"SceneFusion: {sfusion['ms_per_frame']:.4f} ms/frame on the device, "
         f"{sfusion['syncs_per_frame']:.3f} host syncs per frame, the sfusion "
         f"verb {sfusion['cli_seconds']:.2f} s for {SF_FRAMES} frames")

@@ -192,6 +192,30 @@ def test_root_integrate_deformed_volume_matches_jax():
     _equal(tvol, twin)
 
 
+def test_root_integrate_takes_the_pipelines_dispatch(monkeypatch):
+    """The root ``integrate`` has no kernel choice of its own: a depth
+    frame reaches ``pipelines.kinfu``'s ``integrate_cuda``, the name the
+    benchmark's planted faults patch."""
+    from tsdf_tpu_torch.pipelines import kinfu
+
+    calls = []
+    real = kinfu.integrate_cuda
+
+    def spy(vol, depth, camera, cap_weight=False):
+        calls.append(cap_weight)
+        return real(vol, depth, camera, cap_weight=cap_weight)
+
+    monkeypatch.setattr(kinfu, "integrate_cuda", spy)
+    jvol = _scene()
+    tvol, twin = _to_port(jvol), _to_port(jvol)
+    d, _rgb = _frames(n=1)[0]
+    cam = _cam_to_port(_jcam())
+    assert tsdf_tpu_torch.integrate(tvol, d, cam, cap_weight=True) is tvol
+    assert calls == [True]
+    _equal(tvol, integrate_plain(twin, torch.from_numpy(d), cam,
+                                 cap_weight=True))
+
+
 def _compare_verts(vt, vj):
     hit_t, hit_j = np.isfinite(vt).all(-1), np.isfinite(vj).all(-1)
     assert (hit_t == hit_j).mean() >= 0.999

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import tsdf_tpu_torch
 from tsdf_tpu_torch import Camera, make_volume
 from tsdf_tpu_torch.kernels import bilateral, gather, integrate, raycast
 from tsdf_tpu_torch.ops.bilateral import bilateral_filter as bilateral_plain
@@ -275,7 +276,7 @@ def test_raycast_kernel_matches_twin(dev, case):
         vol = _raycast_scene(dev)
     cam = _camera(dev, at, target)
     before = raycast.KERNEL.launches
-    vk, nk = raycast.raycast_cuda(vol, cam, W, H)
+    vk, nk = tsdf_tpu_torch.raycast(vol, cam, W, H)
     assert raycast.KERNEL.launches == before + 1
     vp, npl = raycast_plain(vol, cam, W, H)
     torch.cuda.synchronize()
@@ -294,7 +295,7 @@ def test_depth_image_through_the_raycast_kernel(dev):
     vol = fixtures.sphere_tsdf(vol, 400.0)
     cam = _camera(dev, [60.0, 30.0, -400.0], [0.0, 0.0, 1000.0])
     before = raycast.KERNEL.launches
-    got = raycast.render_to_depth_image_cuda(vol, cam, W, H)
+    got = tsdf_tpu_torch.render_to_depth_image(vol, cam, W, H)
     assert raycast.KERNEL.launches == before + 1
     want = render_to_depth_image(vol, cam, W, H)
     assert got.dtype == torch.uint16 and got.shape == (H, W)
@@ -1317,7 +1318,6 @@ def _volumes_equal(a, b):
 def test_root_integrate_is_its_kernel(dev, kind):
     """The root ``integrate`` launches the kernel its route names, once a
     frame, and equals that wrapper's result bit for bit."""
-    import tsdf_tpu_torch
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     def fresh():
@@ -1352,8 +1352,11 @@ def test_root_integrate_is_its_kernel(dev, kind):
 
 
 def test_root_raycast_is_its_kernel(dev):
-    import tsdf_tpu_torch
     from tsdf_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tsdf_tpu_torch.ops.raycast import (
+        compute_normals_from_vertices,
+        vertices_to_depth_image,
+    )
 
     vol = make_volume((64, 64, 64), 2000.0, offset=(-1000.0, -1000.0, 0.0),
                       device=dev)
@@ -1364,11 +1367,11 @@ def test_root_raycast_is_its_kernel(dev):
     d = tsdf_tpu_torch.render_to_depth_image(vol, cam, W, H)
     torch.cuda.synchronize()
     assert launch_counts()["raycast"] == 2
-    wv, wn = raycast.raycast_cuda(vol, cam, W, H)
+    wv = raycast.raycast_vertices_cuda(vol, cam, W, H)
     assert torch.equal(torch.isnan(v), torch.isnan(wv))
     assert torch.equal(v.nan_to_num(7.0), wv.nan_to_num(7.0))
-    assert torch.equal(n, wn)
-    assert torch.equal(d, raycast.render_to_depth_image_cuda(vol, cam, W, H))
+    assert torch.equal(n, compute_normals_from_vertices(wv))
+    assert torch.equal(d, vertices_to_depth_image(wv, cam))
     assert int(torch.isfinite(v).all(-1).sum()) > 1000
     for keywords in (dict(mode="fixed"), dict(step_scale=0.5)):
         with pytest.raises(ValueError, match="fixed-step raycast kernel"):
@@ -1563,7 +1566,7 @@ def test_bf16_raycast_kernel_matches_twin(dev, case):
     vol = vol.astype(BF16)
     cam = _camera(dev, at, target)
     before = raycast.KERNEL_BF16.launches, raycast.KERNEL.launches
-    vk, nk = raycast.raycast_cuda(vol, cam, W, H)
+    vk, nk = tsdf_tpu_torch.raycast(vol, cam, W, H)
     assert (raycast.KERNEL_BF16.launches, raycast.KERNEL.launches) == (
         before[0] + 1, before[1])
     vp, npl = raycast_plain(vol, cam, W, H)
@@ -1731,7 +1734,7 @@ def _scenefusion_run(dev, dump_dir, mesh=None):
         make_volume((48,) * 3, 1500.0, offset=(-750.0, -750.0, 0.0),
                     device=dev), 300.0, centre=(0.0, 0.0, 750.0))
     cam = Camera.from_intrinsics(FX, FY, CX, CY, device=dev)
-    depth = raycast.render_to_depth_image_cuda(scene, cam, W, H).float()
+    depth = tsdf_tpu_torch.render_to_depth_image(scene, cam, W, H).float()
     flows = []
     for i in range(3):
         f = torch.zeros((H, W, 3), device=dev)

@@ -22,17 +22,14 @@ import pytest
 import torch
 
 import tsdf_tpu
+import tsdf_tpu_torch
 from tsdf_tpu.io.png import load_png
 from tsdf_tpu.kernels.raycast import raycast_pallas
 from tsdf_tpu.ops.raycast import raycast as jax_raycast
 from tsdf_tpu.ops.trilinear import trilinear_sample as jax_trilinear
 from tsdf_tpu.utils import fixtures as jax_fixtures
 from tsdf_tpu_torch import Camera, TSDFVolume, make_volume
-from tsdf_tpu_torch.kernels.raycast import (
-    KERNEL,
-    raycast_cuda,
-    render_to_depth_image_cuda,
-)
+from tsdf_tpu_torch.kernels.raycast import KERNEL, raycast_vertices_cuda
 from tsdf_tpu_torch.ops.raycast import raycast, render_to_depth_image
 from tsdf_tpu_torch.ops.shading import normals_image, scene_image
 from tsdf_tpu_torch.ops.trilinear import trilinear_sample
@@ -211,12 +208,12 @@ def test_render_to_depth_image_matches_jax():
 
 
 def test_depth_image_wrapper_on_cpu_tensors_is_the_twin():
-    """``render_to_depth_image_cuda`` on CPU tensors launches nothing and
-    equals ``render_to_depth_image`` bit for bit."""
+    """The root ``render_to_depth_image`` on CPU tensors launches nothing
+    and equals the plain ``render_to_depth_image`` bit for bit."""
     vol = _to_port(_sphere_vol())
     cam = _cam_to_port(_jcam([150.0, -100.0, -600.0], [0.0, 0.0, 1000.0]))
     before = KERNEL.launches
-    got = render_to_depth_image_cuda(vol, cam, W, H)
+    got = tsdf_tpu_torch.render_to_depth_image(vol, cam, W, H)
     assert KERNEL.launches == before
     assert got.dtype == torch.uint16 and int(got.to(torch.int32).max()) > 0
     assert torch.equal(got, render_to_depth_image(vol, cam, W, H))
@@ -240,7 +237,7 @@ def _golden_scene():
 def test_shading_matches_goldens():
     vol, cam = _golden_scene()
     before = KERNEL.launches
-    verts, normals = raycast_cuda(vol, cam, W, H)
+    verts, normals = tsdf_tpu_torch.raycast(vol, cam, W, H)
     assert KERNEL.launches == before  # CPU tensors: the plain twin
     scene = scene_image(verts, normals, cam.position).numpy()
     nimg = normals_image(normals).numpy()
@@ -255,7 +252,7 @@ def test_shading_matches_goldens():
                                  "meta_device", "size"])
 def test_raycast_wrapper_rejects_bad_inputs(bad):
     vol, cam = _golden_scene()
-    kwargs = {}
+    call, kwargs = tsdf_tpu_torch.raycast, {}
     width = W
     if bad == "tsdf_f64":
         vol = vol.replace(tsdf=vol.tsdf.double())
@@ -263,11 +260,12 @@ def test_raycast_wrapper_rejects_bad_inputs(bad):
         vol = vol.replace(tsdf=vol.tsdf.transpose(0, 2))
     elif bad == "mode":
         # the kernel is the sphere trace only: the twin's fixed-step mode
-        # is not an option of the wrapper
-        kwargs["mode"] = "fixed"
+        # is not an option of the wrapper (the root raycast runs it on CPU
+        # tensors through the plain march)
+        call, kwargs = raycast_vertices_cuda, {"mode": "fixed"}
     elif bad == "meta_device":
         cam = dataclasses.replace(cam, k_inv=cam.k_inv.to("meta"))
     elif bad == "size":
         width = 0
     with pytest.raises((TypeError, ValueError)):
-        raycast_cuda(vol, cam, width, H, **kwargs)
+        call(vol, cam, width, H, **kwargs)

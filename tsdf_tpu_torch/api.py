@@ -1,11 +1,10 @@
 """The package-level integrate and raycast of ``tsdf_tpu``, routed by
 the device of their tensors.
 
-On CUDA tensors each call is a kernel: a rigid volume fuses through
-``integrate_cuda`` (``integrate_color_cuda`` with ``rgb``), a deformed one
-through ``integrate_warped_cuda``, and the raycast marches through
-``raycast_vertices_cuda``; these are the routes of
-``pipelines/kinfu.py``'s exact mode. On CPU tensors the same wrappers run
+On CUDA tensors each call is a kernel: ``integrate`` is
+``pipelines/kinfu.py:integrate_frame`` in its exact mode (the one choice
+among the rigid, colour and warped kernels), and the raycast marches
+through ``raycast_vertices_cuda``. On CPU tensors the same wrappers run
 their plain twins. A keyword that no kernel implements raises on CUDA
 tensors; it never runs a twin on the card.
 
@@ -19,18 +18,14 @@ from __future__ import annotations
 import torch
 
 from .camera import Camera
-from .kernels.integrate import (
-    integrate_color_cuda,
-    integrate_cuda,
-    integrate_warped_cuda,
-)
 from .kernels.raycast import raycast_vertices_cuda
 from .ops.raycast import (
     REFERENCE_MAX_STEPS,
     compute_normals_from_vertices,
-    raycast_vertices,
     vertices_to_depth_image,
 )
+from .ops.raycast import raycast_vertices as plain_vertices
+from .pipelines.kinfu import integrate_frame
 from .volume import TSDFVolume
 
 _KERNEL_MODE = "sphere"
@@ -68,23 +63,17 @@ def integrate(
     depth = _image(depth, dev, torch.float32)
     if rgb is not None:
         rgb = _image(rgb, dev, torch.uint8)
-    if vol.deform is not None:
-        return integrate_warped_cuda(
-            vol, depth, camera, cap_weight=cap_weight, rgb=rgb
-        )
-    if rgb is not None:
-        vol, _miss = integrate_color_cuda(
-            vol, depth, rgb, camera, cap_weight=cap_weight, mode="exact"
-        )
-        return vol
-    return integrate_cuda(vol, depth, camera, cap_weight=cap_weight)
+    return integrate_frame(
+        vol, depth, camera, mode="exact", cap_weight=cap_weight, rgb=rgb
+    )[0]
 
 
-def _vertices(vol, camera, width, height, mode, max_steps, step_scale,
-              row0=0):
-    """The march: the kernel's wrapper for the kernel's keywords, the
-    plain march for any other on CPU tensors; on CUDA tensors any other
-    raises. ``row0``: the image row of the first of ``height`` rows."""
+def raycast_vertices(vol, camera, width, height, mode, max_steps, step_scale,
+                     row0=0):
+    """(H, W, 3) float32 surface points, NaN on a miss: the kernel's
+    wrapper for the kernel's keywords, the plain march for any other on
+    CPU tensors; on CUDA tensors any other raises. ``row0``: the image row
+    of the first of ``height`` rows."""
     kernel_keywords = mode == _KERNEL_MODE and step_scale == _KERNEL_STEP_SCALE
     if kernel_keywords:
         return raycast_vertices_cuda(
@@ -98,7 +87,7 @@ def _vertices(vol, camera, width, height, mode, max_steps, step_scale,
             "queued: a fixed-step raycast kernel\"); run these keywords on "
             "CPU tensors, through the plain march"
         )
-    return raycast_vertices(
+    return plain_vertices(
         vol, camera, width, height,
         mode=mode, max_steps=max_steps, step_scale=step_scale, row0=row0,
     )
@@ -116,7 +105,8 @@ def raycast(
     """Raycast ``vol`` from ``camera``: (vertices, normals), both (H, W, 3)
     float32; vertices NaN on a miss, normals zero on the last row and
     column and where the stencil touches a miss."""
-    verts = _vertices(vol, camera, width, height, mode, max_steps, step_scale)
+    verts = raycast_vertices(vol, camera, width, height, mode, max_steps,
+                             step_scale)
     return verts, compute_normals_from_vertices(verts)
 
 
@@ -131,5 +121,6 @@ def render_to_depth_image(
 ) -> torch.Tensor:
     """(H, W) u16 depth image in mm (camera z) of ``vol`` seen from
     ``camera``, 0 on a miss."""
-    verts = _vertices(vol, camera, width, height, mode, max_steps, step_scale)
+    verts = raycast_vertices(vol, camera, width, height, mode, max_steps,
+                             step_scale)
     return vertices_to_depth_image(verts, camera)

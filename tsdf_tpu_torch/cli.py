@@ -153,13 +153,11 @@ def _add_pallas_arg(p):
 
 
 def _render_outputs(vol, camera, args):
+    from .api import raycast
     from .io.png import save_png
-    from .kernels.raycast import raycast_cuda
     from .ops.shading import color_image, normals_image, scene_image
 
-    verts, normals = raycast_cuda(
-        vol, camera, width=args.width, height=args.height
-    )
+    verts, normals = raycast(vol, camera, width=args.width, height=args.height)
     if args.scene:
         img = scene_image(verts, normals, camera.position)
         save_png(args.scene, img.cpu().numpy())
@@ -441,9 +439,9 @@ def cmd_render(args):
 
 
 def cmd_icp(args):
+    from .api import render_to_depth_image
     from .io.png import load_png
     from .io.tsdf_file import load_tsdf
-    from .kernels.raycast import render_to_depth_image_cuda
     from .tracking.icp import get_incremental_transformation
     from .utils.se3 import euler_to_matrix
 
@@ -461,7 +459,7 @@ def cmd_icp(args):
     pose[0:3, 3] = vol.global_translation
     camera = camera.set_pose(torch.linalg.inv_ex(pose).inverse)
 
-    model_depth = render_to_depth_image_cuda(
+    model_depth = render_to_depth_image(
         vol, camera, width=args.width, height=args.height
     )
     res = get_incremental_transformation(

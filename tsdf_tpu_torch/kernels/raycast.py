@@ -5,8 +5,9 @@ together with the ``lane_gather_op`` calls inside it. The kernel marches
 one ray per thread through the ``ops/raycast.py:march_rays`` contract in
 its default sphere-traced mode (step scale 0.75, at most
 ``REFERENCE_MAX_STEPS`` samples), as ``raycast_pallas`` does; the plain
-twin's fixed-step mode has no kernel. The normals stay plain PyTorch
-(``compute_normals_from_vertices``).
+twin's fixed-step mode has no kernel. The root ``raycast`` and
+``render_to_depth_image`` (``api.py``) call this wrapper and finish in plain
+PyTorch (normals, depth image).
 
 Inside its one counted launch the kernel first writes a table of the
 volume's uniform bricks into scratch after its parameters; a sample in a
@@ -21,12 +22,7 @@ import ctypes
 import torch
 
 from ..camera import Camera
-from ..ops.raycast import (
-    REFERENCE_MAX_STEPS,
-    compute_normals_from_vertices,
-    raycast_vertices,
-    vertices_to_depth_image,
-)
+from ..ops.raycast import REFERENCE_MAX_STEPS, raycast_vertices
 from ..volume import TSDFVolume
 from ._build import (
     Kernel,
@@ -167,23 +163,3 @@ def raycast_vertices_cuda(
         )
     return verts
 
-
-def raycast_cuda(
-    vol: TSDFVolume, camera: Camera, width: int = 640, height: int = 480
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raycast ``vol`` from ``camera``: (vertices, normals), both
-    (H, W, 3) f32, vertices NaN on a miss. The march is
-    :func:`raycast_vertices_cuda`; the normals are plain PyTorch."""
-    verts = raycast_vertices_cuda(vol, camera, width, height)
-    return verts, compute_normals_from_vertices(verts)
-
-
-def render_to_depth_image_cuda(
-    vol: TSDFVolume, camera: Camera, width: int = 640, height: int = 480
-) -> torch.Tensor:
-    """(H, W) u16 depth image in mm (camera z) of ``vol`` seen from
-    ``camera``: :func:`raycast_vertices_cuda`, then the tail of
-    ``ops.raycast.render_to_depth_image``."""
-    return vertices_to_depth_image(
-        raycast_vertices_cuda(vol, camera, width, height), camera
-    )

@@ -40,7 +40,7 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 
-from ..api import _vertices
+from ..api import raycast_vertices
 from ..camera import Camera
 from ..kernels.bilateral import bilateral_filter_cuda
 from ..kernels.integrate import MODES
@@ -244,8 +244,8 @@ def raycast_sharded(
         full, vol.physical_size, vol.offset, vol.truncation_distance)
     b, r = mesh.get_coordinate()
     row0, rows = _row_tile(height, mesh.size, b * mesh.shape["r"] + r)
-    tile = _vertices(whole, camera, width, rows, mode, max_steps, step_scale,
-                     row0=row0)
+    tile = raycast_vertices(whole, camera, width, rows, mode, max_steps,
+                            step_scale, row0=row0)
     del whole, full
     verts = torch.cat(all_gather(tile, mesh.get_group(AXES)))[:height]
     return verts, compute_normals_from_vertices(verts)
@@ -282,8 +282,8 @@ def _bricked_vertices(vol, camera, mesh, width, height):
     b, r = mesh.get_coordinate()
     row0, rows = _row_tile(height, mesh.shape["r"], r)
     sub = _slab_march_volume(vol, mesh)
-    tile = _vertices(sub, camera, width, rows, "sphere", REFERENCE_MAX_STEPS,
-                     0.75, row0=row0)
+    tile = raycast_vertices(sub, camera, width, rows, "sphere",
+                            REFERENCE_MAX_STEPS, 0.75, row0=row0)
     del sub
     # a ray crosses z monotonically: its first hit is the nearest one over
     # the slabs (on a tie, the lowest slab's)
